@@ -1,0 +1,274 @@
+"""Two-tier leaf-spine fabric model (paper §5.2 topology; DESIGN.md §5),
+in PyTorch — the port of ``repro.core.fabric``.
+
+  host NIC ──> TOR ──(same rack: leaf switching)──> dst downlink queue
+                └──(cross rack: UPLINK PRIORITY QUEUE ──> spine)──┘
+
+Each TOR has ``n_uplinks = max(1, round(rack_size / oversub))`` uplinks,
+one per spine, each draining one chunk per slot with the same
+strict-priority-then-FIFO arbitration as the receiver downlinks. A
+chunk's uplink is a seeded hash of ``(src, dst, msg_id, seed)`` computed
+once per message at prepare time (ECMP at message granularity).
+Cross-rack chunks wait ``leaf_delay_slots`` before uplink service, then
+``spine_delay_slots`` more before downlink service.
+
+The port models ECMP routing without faults; flowlet/adaptive routing and
+fault injection raise ``NotImplementedError`` (ROADMAP A5).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.protocols import BIG, I32
+from repro_torch.core.scatter import set_drop
+from repro_torch.kernels.arbiter import dispatch
+from repro_torch.kernels.arbiter.ref import priority_arbiter_ref
+
+ROUTING_POLICIES = ("ecmp", "flowlet", "adaptive")
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricConfig:
+    """Leaf-spine topology parameters (the JAX package's fields).
+
+    ``FabricConfig(None)`` is the disabled sentinel — single-switch
+    behavior, bit-identical to ``SimConfig.fabric=None``.
+    """
+    racks: int | None = None        # None disables the fabric tier
+    oversub: float = 2.0            # rack offered bw : uplink bw ratio
+    leaf_delay_slots: int = 6       # host NIC -> TOR uplink service
+    spine_delay_slots: int = 6      # uplink service -> dst downlink service
+    up_cap: int = 512               # per-uplink buffered chunks
+    seed: int = 0                   # spine-hash seed (ECMP placement)
+    routing: str = "ecmp"
+    flowlet_slots: int = 64
+    faults: object | None = None
+
+    def __post_init__(self):
+        if self.faults is not None:
+            raise NotImplementedError(
+                "FabricConfig.faults: fault injection and loss recovery are "
+                "not ported to repro_torch yet (ROADMAP A5)")
+        if self.routing not in ROUTING_POLICIES:
+            raise ValueError(
+                f"unknown routing policy {self.routing!r}; available: "
+                f"{list(ROUTING_POLICIES)}")
+        if self.routing != "ecmp":
+            raise NotImplementedError(
+                f"FabricConfig.routing={self.routing!r}: flowlet/adaptive "
+                f"routing is not ported to repro_torch yet (ROADMAP A5)")
+
+    @property
+    def enabled(self) -> bool:
+        return self.racks is not None
+
+    def validate(self, n_hosts: int) -> None:
+        if not self.enabled:
+            return
+        if self.racks < 1:
+            raise ValueError(f"FabricConfig.racks must be >= 1, got "
+                             f"{self.racks}")
+        if n_hosts % self.racks:
+            raise ValueError(
+                f"n_hosts={n_hosts} is not divisible by racks={self.racks}; "
+                f"the leaf-spine model needs equal-size racks")
+        if self.oversub <= 0:
+            raise ValueError(f"FabricConfig.oversub must be > 0, got "
+                             f"{self.oversub}")
+        if self.leaf_delay_slots < 0:
+            raise ValueError("FabricConfig.leaf_delay_slots must be >= 0")
+        if self.spine_delay_slots < 1:
+            raise ValueError(
+                "FabricConfig.spine_delay_slots must be >= 1 (a chunk "
+                "cannot traverse uplink and downlink in the same slot)")
+        if self.up_cap < 1:
+            raise ValueError("FabricConfig.up_cap must be >= 1")
+
+    # ---- derived topology (python ints: shape parameters for the loop)
+
+    def rack_size(self, n_hosts: int) -> int:
+        return n_hosts // self.racks
+
+    def n_uplinks(self, n_hosts: int) -> int:
+        """Uplinks per TOR (= number of spines each TOR reaches)."""
+        return max(1, int(round(self.rack_size(n_hosts) / self.oversub)))
+
+    def n_uplinks_total(self, n_hosts: int) -> int:
+        return self.racks * self.n_uplinks(n_hosts)
+
+
+def spine_hash(src: np.ndarray, dst: np.ndarray, msg_id: np.ndarray,
+               seed: int, n_uplinks: int) -> np.ndarray:
+    """Deterministic per-message spine choice in ``[0, n_uplinks)``: an
+    xorshift-multiply mix of (src, dst, msg_id, seed), in numpy uint32 at
+    prepare time exactly as the JAX package computes it."""
+    seed_mix = np.uint32((seed * 0x27D4EB2F) & 0xFFFFFFFF)
+    h = (np.asarray(src, np.uint32) * np.uint32(0x9E3779B1)
+         ^ np.asarray(dst, np.uint32) * np.uint32(0x85EBCA77)
+         ^ np.asarray(msg_id, np.uint32) * np.uint32(0xC2B2AE3D)
+         ^ seed_mix)
+    h ^= h >> np.uint32(15)
+    h *= np.uint32(0x2C1B3C6D)
+    h ^= h >> np.uint32(12)
+    return (h % np.uint32(n_uplinks)).astype(np.int32)
+
+
+# ------------------------------------------------------- ring primitives ---
+# Shared by downlink and uplink tiers: a (R, cap) pool of ring buffers
+# with occupancy-based insertion and strict-priority / FIFO drain.
+
+def ring_insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq):
+    """Insert up to ``len(row)`` chunks into per-row rings.
+
+    Item i goes into ring ``row[i]`` iff ``ok[i]``; several items may
+    target one row in a slot (they take consecutive free slots in input
+    order). A chunk is dropped only when its ring is actually full.
+    Returns the four updated ring arrays plus the dropped count (0-d
+    int32)."""
+    R, cap = valid_a.shape
+    n = row.shape[0]
+    rows = torch.where(ok, row, R).long()                     # sentinel R
+    earlier = torch.ones(n, n, dtype=torch.bool,
+                         device=row.device).tril_(-1)
+    # rank among earlier ok items bound for the same row (a not-ok item's
+    # sentinel row R matches no ok item, and its own rank is never used)
+    rank = ((rows[:, None] == rows[None, :]) & earlier).sum(dim=1)
+    # (r+1)-th free slot per row: a left binary search in the cumsum of
+    # free slots, which is nondecreasing
+    c = torch.cumsum(~valid_a, dim=1)                        # int64
+    c_row = c.index_select(0, rows.clamp_max(R - 1))          # (n, cap)
+    room = c_row[:, -1] > rank
+    okw = ok & room
+    pos = torch.searchsorted(c_row, (rank + 1)[:, None], right=False)[:, 0]
+    # suppressed writes are dropped, never clamped into range: an in-range
+    # no-op write could race a genuine insertion at the same place
+    flat = rows * cap + pos
+    return (set_drop(msg_a, flat, msg, okw),
+            set_drop(prio_a, flat, prio, okw),
+            set_drop(seq_a, flat, seq, okw),
+            set_drop(valid_a, flat, okw, okw),
+            (ok & ~room).sum(dtype=I32))
+
+
+def ring_drain_select(prio_a, seq_a, eligible):
+    """Pick one chunk per row: strict priority, FIFO (seq) within level.
+    Returns ``(slot_idx, any_elig, pmin)``. The math is the plain version
+    of the ``priority_arbiter`` kernel."""
+    pmin, slot_idx = priority_arbiter_ref(prio_a, seq_a, eligible)
+    return slot_idx, pmin < BIG, pmin
+
+
+def drain_select(prio_a, seq_a, eligible, *, backend: str = "reference"):
+    """Backend-dispatched :func:`ring_drain_select`: ``backend="cuda"``
+    runs the hand-written ``priority_arbiter`` kernel, bit-identical to
+    the plain version."""
+    bp, bi = dispatch.arbitrate(prio_a, seq_a, eligible, backend=backend)
+    return bi, bp < BIG, bp
+
+
+def take_slot(a, slot_idx):
+    """``a[r, slot_idx[r]]`` for every row r."""
+    return a.gather(1, slot_idx.long()[:, None])[:, 0]
+
+
+def clear_slot(valid_a, slot_idx, drained):
+    """``valid_a[r, slot_idx[r]] = False`` on the rows that drained."""
+    si = slot_idx.long()[:, None]
+    return valid_a.scatter(1, si, valid_a.gather(1, si) & ~drained[:, None])
+
+
+# ------------------------------------------------------- fabric stages -----
+
+def init_fabric_state(cfg) -> dict:
+    """Uplink-tier loop state; only fabric-enabled configs carry it."""
+    fab = cfg.fabric
+    U, ucap = fab.n_uplinks_total(cfg.n_hosts), fab.up_cap
+    dev = cfg.device
+    return {
+        "u_msg": torch.full((U, ucap), -1, dtype=I32, device=dev),
+        "u_prio": torch.full((U, ucap), BIG, dtype=I32, device=dev),
+        "u_seq": torch.full((U, ucap), BIG, dtype=I32, device=dev),
+        "u_valid": torch.zeros((U, ucap), dtype=torch.bool, device=dev),
+        "u_busy": torch.zeros((U,), dtype=I32, device=dev),
+        "u_q_sum": torch.zeros((U,), dtype=torch.float32, device=dev),
+        "u_q_max": torch.zeros((U,), dtype=I32, device=dev),
+        "u_lost": torch.zeros((), dtype=I32, device=dev),
+    }
+
+
+def route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now):
+    """Route this slot's transmitted chunks into the first queueing tier:
+    same-rack chunks switch at the leaf straight into the destination
+    downlink ring; cross-rack chunks enter their TOR's hashed uplink
+    queue. Returns updated state."""
+    fab = cfg.fabric
+    H = cfg.n_hosts
+    rs = fab.rack_size(H)
+    n_up = fab.n_uplinks(H)
+    src_rack = torch.arange(H, dtype=I32, device=dsts.device) // rs
+    dst_rack = dsts.clamp_max(H - 1) // rs
+    local = has & (src_rack == dst_rack)
+    remote = has & (src_rack != dst_rack)
+    urow = src_rack * n_up + S["spine"][cm]
+    seq = now.expand(H)
+
+    r_msg, r_prio, r_seq, r_valid, d_drop = ring_insert(
+        st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
+        dsts, local, cm, prio_chunk, seq)
+    u_msg, u_prio, u_seq, u_valid, u_drop = ring_insert(
+        st["u_msg"], st["u_prio"], st["u_seq"], st["u_valid"],
+        urow, remote, cm, prio_chunk, seq)
+
+    return {**st,
+            "r_msg": r_msg, "r_prio": r_prio, "r_seq": r_seq,
+            "r_valid": r_valid,
+            "u_msg": u_msg, "u_prio": u_prio, "u_seq": u_seq,
+            "u_valid": u_valid,
+            "lost": st["lost"] + d_drop,
+            "u_lost": st["u_lost"] + u_drop}
+
+
+def uplink_drain(cfg, st, S, now):
+    """Drain at most one chunk per TOR uplink (strict priority, FIFO
+    within level) and forward it across its spine into the destination
+    downlink ring, where it becomes eligible after ``spine_delay_slots``.
+    Returns updated state."""
+    fab = cfg.fabric
+    H = cfg.n_hosts
+    M = S["size"].shape[0]
+    U = st["u_valid"].shape[0]
+
+    eligible = st["u_valid"] & (st["u_seq"] + fab.leaf_delay_slots <= now)
+    slot_idx, any_e, _ = drain_select(st["u_prio"], st["u_seq"], eligible,
+                                      backend=cfg.backend)
+    msg = torch.where(any_e, take_slot(st["u_msg"], slot_idx), M)
+    prio = take_slot(st["u_prio"], slot_idx)
+    u_valid = clear_slot(st["u_valid"], slot_idx, any_e)
+
+    # forward into the downlink ring with a *virtual* enqueue time such
+    # that (seq + net_delay_slots <= t) fires at t = now + spine_delay:
+    # the downlink's single eligibility rule then covers both tiers, and
+    # FIFO order within a priority level remains arrival-time order at
+    # the destination TOR.
+    dst = torch.where(any_e, S["dst"][msg.clamp_max(M - 1)], H)
+    vseq = (now + (fab.spine_delay_slots - cfg.net_delay_slots)).expand(U)
+    r_msg, r_prio, r_seq, r_valid, d_drop = ring_insert(
+        st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
+        dst, any_e, msg, prio, vseq)
+
+    qlen = eligible.sum(dim=1, dtype=I32) - any_e.to(I32)
+    return {**st,
+            "r_msg": r_msg, "r_prio": r_prio, "r_seq": r_seq,
+            "r_valid": r_valid, "u_valid": u_valid,
+            "lost": st["lost"] + d_drop,
+            "u_busy": st["u_busy"] + any_e.to(I32),
+            "u_q_sum": st["u_q_sum"] + qlen.to(torch.float32),
+            "u_q_max": torch.maximum(st["u_q_max"], qlen)}
+
+
+__all__ = ["FabricConfig", "ROUTING_POLICIES", "spine_hash", "ring_insert",
+           "ring_drain_select", "drain_select", "init_fabric_state",
+           "route_chunks", "uplink_drain"]

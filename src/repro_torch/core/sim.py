@@ -1,0 +1,394 @@
+"""Slotted packet-level datacenter network simulator, in PyTorch.
+
+The port of ``repro.core.sim``: the same slots, policies and state as
+the JAX package's ``lax.scan``, run as a Python loop of tensor
+operations on one device (a CUDA card unless the caller passes
+``device="cpu"``). Each slot
+
+  receivers   grant their top-K SRPT messages (Homa) or an RTT window;
+              the top-K is the hand-written ``srpt_topk`` CUDA kernel on
+              ``backend="cuda"``
+  senders     pick one chunk each by the sender policy's order
+  network     single switch, or a two-tier leaf-spine fabric whose TOR
+              uplink rings drain through the ``priority_arbiter`` kernel
+  downlinks   drain one chunk per receiver, strict priority first and
+              FIFO within a level (``priority_arbiter`` again)
+
+Integer outputs are bit-identical to the JAX package's ``simulate``.
+The loop never reads a value back to the host: the slot counter is a
+device tensor, so a later change can capture slots as a CUDA graph.
+
+Entry point: ``simulate(cfg, table)`` -> :class:`SimResult`.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.fabric import (FabricConfig, drain_select,
+                                     init_fabric_state, ring_insert,
+                                     route_chunks, spine_hash, take_slot,
+                                     clear_slot, uplink_drain)
+from repro_torch.core.priorities import (PriorityAllocation,
+                                         allocate_priorities,
+                                         pias_thresholds)
+from repro_torch.core.protocols import (BIG, I32, MSG_BITS, MSG_MOD,
+                                        Protocol, get_protocol)
+from repro_torch.core.results import SimResult
+from repro_torch.core.workloads import MessageTable
+from repro_torch.kernels.arbiter.dispatch import resolve_backend
+
+
+def resolve_device(device) -> str:
+    """``None`` -> ``"cuda"``. A CUDA device with no card raises: the
+    port never falls back to the CPU unless the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA card by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path "
+            "on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or "
+                         f"'cpu'")
+    return str(dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    n_hosts: int = 16
+    slot_bytes: int = 256
+    n_prios: int = 8
+    rtt_slots: int = 38                 # ~9.7 KB at 256 B slots
+    net_delay_slots: int = 12           # sender NIC -> dst TOR eligibility
+    grant_delay_slots: int = 19         # receiver decision -> sender visibility
+    protocol: str = "homa"
+    overcommit: int | None = None       # None: = n_sched (homa); basic: all
+    ring_cap: int = 1024                # per-dst buffered chunks (TOR egress)
+    phost_timeout_slots: int = 114      # ~3 RTT
+    max_slots: int = 20_000
+    fabric: FabricConfig | None = None  # None: single switch (DESIGN.md §5)
+    # host/NIC overhead stage: only None / "ideal" (no stage) are ported
+    host: str | None = None
+    # in-loop telemetry: not ported, only None
+    trace: object | None = None
+    # "cuda" (the hand-written kernels) | "reference" (their plain
+    # versions); None: "cuda" on a CUDA device, "reference" on the CPU
+    backend: str | None = None
+    # a knob of the JAX package's Pallas kernels; the port has none
+    pallas_interpret: bool | None = None
+    # "cuda" (default; raises without a card) or "cpu"
+    device: str | None = None
+
+    def __post_init__(self):
+        get_protocol(self.protocol)     # ValueError on unknown protocol
+        if self.host not in (None, "ideal"):
+            raise NotImplementedError(
+                f"SimConfig.host={self.host!r}: the host/NIC overhead stage "
+                f"is not ported to repro_torch yet (ROADMAP A6); only "
+                f"None and 'ideal' run")
+        if self.trace is not None:
+            raise NotImplementedError(
+                "SimConfig.trace: in-loop telemetry is not ported to "
+                "repro_torch yet (ROADMAP A7)")
+        if self.pallas_interpret is not None:
+            raise ValueError("SimConfig.pallas_interpret is a knob of the "
+                             "JAX package's Pallas kernels; repro_torch has "
+                             "none")
+        object.__setattr__(self, "device", resolve_device(self.device))
+        object.__setattr__(self, "backend",
+                           resolve_backend(self.backend, self.device))
+        if self.fabric is not None:
+            self.fabric.validate(self.n_hosts)
+
+    @property
+    def rtt_bytes(self) -> int:
+        return self.rtt_slots * self.slot_bytes
+
+    @property
+    def fabric_on(self) -> bool:
+        """True iff the leaf-spine tier is modeled (``FabricConfig(None)``
+        and ``fabric=None`` both mean the single-switch path)."""
+        return self.fabric is not None and self.fabric.enabled
+
+
+def _to_slots(nbytes: np.ndarray, slot_bytes: int) -> np.ndarray:
+    return np.maximum((nbytes + slot_bytes - 1) // slot_bytes, 1).astype(np.int32)
+
+
+def prepare(cfg: SimConfig, table: MessageTable,
+            alloc: PriorityAllocation | None = None,
+            unsched_limit_bytes: int | np.ndarray | None = None):
+    """Static per-message tensors for the loop, on ``cfg.device``."""
+    proto = get_protocol(cfg.protocol)
+    M = len(table.size)
+    if M > MSG_MOD:
+        raise ValueError(
+            f"table has {M} messages but the simulator's packed sort keys "
+            f"hold at most {MSG_MOD} (MSG_BITS={MSG_BITS}); split the "
+            f"table into shorter runs")
+    if cfg.max_slots >= 2 ** 21:
+        raise ValueError(
+            f"max_slots={cfg.max_slots} overflows the int32 sort-key "
+            f"encoding (limit 2**21-1 = {2 ** 21 - 1}); lower max_slots "
+            f"or coarsen slot_bytes so the horizon fits")
+    size_slots = _to_slots(table.size, cfg.slot_bytes)
+
+    if alloc is None:
+        alloc = allocate_priorities(table.size, unsched_limit=cfg.rtt_bytes,
+                                    n_prios=cfg.n_prios)
+
+    ul = proto.unsched_limit(cfg, M, unsched_limit_bytes)
+    unsched_slots = np.minimum(_to_slots(ul, cfg.slot_bytes), size_slots)
+    up = proto.unsched_prio(cfg, table.size, alloc)
+
+    # PIAS: sender-side MLFQ demotion thresholds (slots of bytes sent)
+    pias_cut = pias_thresholds(table.size, cfg.n_prios)
+    pias_cut_slots = _to_slots(np.asarray(pias_cut + [1 << 40]),
+                               cfg.slot_bytes) if pias_cut else \
+        np.array([1 << 20], np.int32)
+
+    # unloaded baseline (slots): cross-rack chunks traverse leaf + spine
+    net_delay = np.full(M, cfg.net_delay_slots, np.int64)
+    if cfg.fabric_on:
+        rs = cfg.fabric.rack_size(cfg.n_hosts)
+        cross = (table.src // rs) != (table.dst // rs)
+        net_delay = np.where(cross, cfg.fabric.leaf_delay_slots
+                             + cfg.fabric.spine_delay_slots, net_delay)
+
+    static = {
+        "src": np.asarray(table.src, np.int32),
+        "dst": np.asarray(table.dst, np.int32),
+        "size": size_slots,
+        "arrival": np.asarray(table.arrival_slot, np.int32),
+        "unsched": np.asarray(unsched_slots, np.int32),
+        "uprio": np.asarray(up, np.int32),
+        "pias_cuts": np.asarray(pias_cut_slots, np.int32),
+        "dst_onehot": np.arange(cfg.n_hosts)[:, None] == table.dst[None, :],
+        "msg_ids": np.arange(M, dtype=np.int32),
+        "ideal": np.asarray(size_slots + net_delay, np.int32),
+    }
+    if cfg.fabric_on:
+        # per-message ECMP spine choice (seeded, deterministic)
+        static["spine"] = spine_hash(
+            table.src, table.dst, np.arange(M), cfg.fabric.seed,
+            cfg.fabric.n_uplinks(cfg.n_hosts))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(cfg.device)
+            for k, v in static.items()}, alloc
+
+
+def _init_state(cfg: SimConfig, proto: Protocol, M: int):
+    H, cap, Dg = cfg.n_hosts, cfg.ring_cap, cfg.grant_delay_slots
+    dev = cfg.device
+
+    def z(shape):
+        return torch.zeros(shape, dtype=I32, device=dev)
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=I32, device=dev)
+
+    return {
+        **proto.extra_state(cfg, M),          # protocol-private carry
+        **(init_fabric_state(cfg) if cfg.fabric_on else {}),
+        "sent": z((M,)),
+        "granted_s": z((M,)),                 # sender-visible grant (slots)
+        "grant_r": z((M,)),                   # receiver-issued grant (slots)
+        "recv": z((M,)),
+        "sched_prio": z((M,)),
+        "completion": full((M,), -1),
+        # downlink rings; a chunk's network-arrival time is r_seq +
+        # net_delay_slots
+        "r_msg": full((H, cap), -1),
+        "r_prio": full((H, cap), BIG),        # smaller = served first
+        "r_seq": full((H, cap), BIG),
+        "r_valid": torch.zeros((H, cap), dtype=torch.bool, device=dev),
+        # delayed receiver state (grant/prio propagation)
+        "hist_grant": z((Dg, M)),
+        "hist_prio": z((Dg, M)),
+        # stats
+        "busy": z((H,)), "wasted": z((H,)), "lost": z(()),
+        "q_sum": torch.zeros((H,), dtype=torch.float32, device=dev),
+        "q_max": z((H,)),
+        "prio_drained": z((cfg.n_prios,)),
+        "uplink_busy": z((H,)),
+    }
+
+
+def _sender_select(cfg: SimConfig, proto: Protocol, st, S, now):
+    """Pick one message per host by the sender policy's order key."""
+    size, src = S["size"], S["src"]
+    arrived = S["arrival"] <= now
+    sendable = arrived & (st["sent"] < st["granted_s"]) & (st["sent"] < size)
+    remaining = (size - st["sent"]).clamp_min(0)
+    order = proto.sender.order(cfg, st, S, now, remaining)
+    key = torch.where(sendable, (order << MSG_BITS) | S["msg_ids"], BIG)
+    # segment_min over the sending host; an empty host keeps BIG
+    host_min = torch.full((cfg.n_hosts,), BIG, dtype=I32,
+                          device=key.device).scatter_reduce_(
+        0, src.long(), key, "amin", include_self=True)
+    has = host_min < BIG
+    chosen = torch.where(has, host_min & (MSG_MOD - 1), MSG_MOD)   # (H,)
+    return chosen, has
+
+
+def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now):
+    """One link-time slot: policy-agnostic orchestration of receivers,
+    uplinks, the network, and the priority-queue downlinks. ``now`` is a
+    0-d int32 tensor on the state's device."""
+    H, Dg = cfg.n_hosts, cfg.grant_delay_slots
+    M = S["size"].shape[0]
+
+    # ---- 1. receiver policy (current state), store into delay history
+    grant_r, sched_prio, active, withheld = proto.receiver.grants(
+        cfg, st, S, now, n_sched)
+    st = {**st, "grant_r": grant_r, "sched_prio": sched_prio}
+    row = (now % Dg).long().view(1)
+    hist_grant = st["hist_grant"].index_copy(0, row, grant_r[None])
+    hist_prio = st["hist_prio"].index_copy(0, row, sched_prio[None])
+    # sender sees the entry written Dg-1 slots ago
+    vis = ((now + 1) % Dg).long().view(1)
+    grant_vis = hist_grant.index_select(0, vis)[0]
+    prio_vis = hist_prio.index_select(0, vis)[0]
+
+    arrived = S["arrival"] <= now
+    blind = torch.where(arrived, S["unsched"], 0)
+    granted_s = torch.maximum(torch.maximum(st["granted_s"], blind),
+                              grant_vis)
+    st = {**st, "granted_s": granted_s, "hist_grant": hist_grant,
+          "hist_prio": hist_prio,
+          "sched_prio": torch.where(arrived, prio_vis, st["sched_prio"])}
+    # NOTE: sender uses delayed sched_prio (the grant packet's priority)
+
+    # ---- 2. senders pick + transmit one chunk (sender policy)
+    chosen, has = _sender_select(cfg, proto, st, S, now)
+    cm = chosen.clamp_max(M - 1)
+    unsched_chunk = st["sent"][cm] < S["unsched"][cm]
+    prio_chunk = proto.sender.chunk_prio(cfg, st, S, cm, unsched_chunk,
+                                         n_sched)
+    has_i = has.to(I32)
+    st = {**st, "sent": st["sent"].index_add(0, cm, has_i),
+          "uplink_busy": st["uplink_busy"] + has_i}
+    st = proto.sender.on_send(cfg, st, S, cm, has, now)
+
+    # ---- 3. route chunks into the first queueing tier: the destination
+    # downlink ring (single switch), or the leaf / TOR uplink rings
+    dsts = torch.where(has, S["dst"][cm], H)                  # sentinel H
+    if not cfg.fabric_on:
+        r_msg, r_prio, r_seq, r_valid, n_drop = ring_insert(
+            st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
+            dsts, has, cm, prio_chunk, now.expand(H))
+        st = {**st, "r_msg": r_msg, "r_prio": r_prio, "r_seq": r_seq,
+              "r_valid": r_valid, "lost": st["lost"] + n_drop}
+    else:
+        st = route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now)
+        st = uplink_drain(cfg, st, S, now)
+
+    # ---- 4. downlink drain: strict priority, FIFO within level
+    # (cfg.backend="cuda" runs the priority_arbiter kernel)
+    eligible = st["r_valid"] & (st["r_seq"] + cfg.net_delay_slots <= now)
+    slot_idx, any_elig, pmin = drain_select(
+        st["r_prio"], st["r_seq"], eligible, backend=cfg.backend)
+    drained_msg = torch.where(any_elig, take_slot(st["r_msg"], slot_idx), M)
+    any_i = any_elig.to(I32)
+    recv = st["recv"].index_add(0, drained_msg.clamp_max(M - 1), any_i)
+    r_valid = clear_slot(st["r_valid"], slot_idx, any_elig)
+    st = proto.on_drain(cfg, st, S, drained_msg, any_elig, now)
+
+    completion = torch.where((recv >= S["size"]) & (st["completion"] < 0),
+                             now, st["completion"])
+
+    # ---- 5. stats
+    qlen = eligible.sum(dim=1, dtype=I32) - any_i
+    drained_prio = torch.where(any_elig, pmin.clamp_max(cfg.n_prios - 1), 0)
+    prio_drained = st["prio_drained"].index_add(0, drained_prio, any_i)
+    known_inc = (recv > 0) & (completion < 0)
+    has_known = (S["dst_onehot"] & known_inc[None, :]).any(dim=1)
+    wasted = st["wasted"] + (~any_elig & withheld & has_known).to(I32)
+
+    st = {**st, "recv": recv, "r_valid": r_valid, "completion": completion,
+          "busy": st["busy"] + any_i,
+          "q_sum": st["q_sum"] + qlen.to(torch.float32),
+          "q_max": torch.maximum(st["q_max"], qlen),
+          "wasted": wasted, "prio_drained": prio_drained}
+
+    # ---- 6. protocol end-of-slot hook (e.g. pHost sender timeouts)
+    return proto.post_step(cfg, st, S, now, active, drained_msg, any_elig)
+
+
+def run_slots(cfg: SimConfig, proto: Protocol, S, st, n_sched: int,
+              start: int, stop: int):
+    """Step the state through slots ``start .. stop-1``. Nothing is read
+    back to the host, so the loop only enqueues work on a card."""
+    now = torch.full((), start, dtype=I32, device=cfg.device)
+    with torch.inference_mode():
+        for _ in range(start, stop):
+            st = step_fn(cfg, proto, S, n_sched, st, now)
+            now = now + 1
+    return st
+
+
+def _finalize(cfg: SimConfig, table: MessageTable, S, alloc, st,
+              return_state: bool) -> SimResult:
+    """Numpy post-processing of one run's final state (host copies)."""
+    S = {k: v.cpu().numpy() for k, v in S.items()}
+    st = {k: v.cpu().numpy() for k, v in st.items()}
+    size_slots = S["size"]
+    arrival = S["arrival"]
+    done = st["completion"] >= 0
+    elapsed = np.where(done, st["completion"] - arrival + 1, -1)
+    ideal = S["ideal"].astype(np.int64)
+    slowdown = np.where(done, elapsed / ideal, np.nan)
+
+    fabric = None
+    tor_kw = {}
+    if cfg.fabric_on:
+        fab = cfg.fabric
+        fabric = {"racks": fab.racks,
+                  "rack_size": fab.rack_size(cfg.n_hosts),
+                  "n_uplinks": fab.n_uplinks(cfg.n_hosts),
+                  "oversub": fab.oversub, "seed": fab.seed,
+                  "routing": fab.routing}
+        tor_kw = dict(
+            tor_up_busy_frac=st["u_busy"] / cfg.max_slots,
+            tor_up_q_mean_bytes=st["u_q_sum"] / cfg.max_slots
+            * cfg.slot_bytes,
+            tor_up_q_max_bytes=st["u_q_max"] * cfg.slot_bytes,
+            tor_up_lost_chunks=int(st["u_lost"]))
+
+    return SimResult(
+        protocol=cfg.protocol, alloc=alloc,
+        completion=st["completion"], elapsed=elapsed, ideal=ideal,
+        slowdown=slowdown, done=done,
+        size_slots=size_slots, size_bytes=np.asarray(table.size),
+        busy_frac=st["busy"] / cfg.max_slots,
+        wasted_frac=st["wasted"] / cfg.max_slots,
+        uplink_busy_frac=st["uplink_busy"] / cfg.max_slots,
+        q_mean_bytes=st["q_sum"] / cfg.max_slots * cfg.slot_bytes,
+        q_max_bytes=st["q_max"] * cfg.slot_bytes,
+        prio_drained_bytes=st["prio_drained"] * cfg.slot_bytes,
+        lost_chunks=int(st["lost"]) + int(st.get("u_lost", 0)),
+        n_complete=int(done.sum()), n_messages=len(size_slots),
+        fabric=fabric, **tor_kw,
+        state=st if return_state else None,
+        static=S if return_state else None,
+    )
+
+
+def simulate(cfg: SimConfig, table: MessageTable,
+             alloc: PriorityAllocation | None = None,
+             unsched_limit_bytes=None,
+             return_state: bool = False) -> SimResult:
+    """Run one simulation of ``cfg.max_slots`` slots on ``cfg.device``;
+    returns a structured :class:`SimResult` (numpy arrays)."""
+    proto = get_protocol(cfg.protocol)
+    S, alloc = prepare(cfg, table, alloc, unsched_limit_bytes)
+    n_sched = proto.n_sched(cfg, alloc)
+    st0 = _init_state(cfg, proto, len(table.size))
+    st = run_slots(cfg, proto, S, st0, n_sched, 0, cfg.max_slots)
+    return _finalize(cfg, table, S, alloc, st, return_state)
+
+
+__all__ = ["SimConfig", "FabricConfig", "simulate", "prepare", "step_fn",
+           "run_slots", "SimResult", "resolve_device"]

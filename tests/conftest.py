@@ -43,3 +43,8 @@ except ImportError:  # pragma: no cover
         setattr(strat, name, _strategy)
     sys.modules["hypothesis"] = hyp
     sys.modules["hypothesis.strategies"] = strat
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips with a reason without one)")

@@ -1,0 +1,140 @@
+"""Package rules of the port: no JAX and nothing of ``repro`` inside it,
+no silent CPU fallback, and every option it does not run yet raises."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import (FabricConfig, SimConfig, WorkloadSpec,
+                              make_messages, simulate)
+from repro_torch.kernels.arbiter import build, dispatch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, repro_torch, repro_torch.convert, "
+            "repro_torch.kernels.arbiter.kernel; "
+            "print(sorted(m for m in sys.modules "
+            "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "or m == 'repro'))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, check=True).stdout
+    assert out.strip() == "[]"
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_no_file_of_the_port_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for name in _imports(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f}: {name}"
+
+
+def test_no_cuda_without_a_card(monkeypatch):
+    """Without a card, the default device raises instead of running on
+    the CPU; only an explicit ``device="cpu"`` runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimConfig()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimConfig(device="cuda")
+    cfg = SimConfig(device="cpu")
+    assert cfg.device == "cpu" and cfg.backend == "reference"
+
+
+def test_backend_names_are_the_ports_own(monkeypatch):
+    monkeypatch.setenv("SIM_BACKEND", "pallas")      # the JAX package's
+    assert SimConfig(device="cpu").backend == "reference"
+    assert SimConfig(device="cpu", backend="reference").backend \
+        == "reference"
+    with pytest.raises(ValueError, match="unknown backend"):
+        SimConfig(device="cpu", backend="pallas")
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        SimConfig(device="cpu", backend="cuda")
+    assert dispatch.resolve_backend(None, "cuda") == "cuda"
+    with pytest.raises(ValueError, match="unsupported device"):
+        SimConfig(device="meta")
+
+
+@pytest.mark.parametrize("make, item", [
+    (lambda: SimConfig(device="cpu", host="kernel_stack"), "A6"),
+    (lambda: SimConfig(device="cpu", host={"model": "cpu"}), "A6"),
+    (lambda: SimConfig(device="cpu", trace=object()), "A7"),
+    (lambda: FabricConfig(racks=2, faults={"up_loss": 0.01}), "A5"),
+    (lambda: FabricConfig(racks=2, routing="flowlet"), "A5"),
+    (lambda: FabricConfig(racks=2, routing="adaptive"), "A5"),
+    (lambda: SimConfig(device="cpu", backend="pallas_fused"), "B3"),
+    (lambda: SimConfig(device="cpu", backend="fused"), "B3"),
+    (lambda: WorkloadSpec(kind="incast"), "A1"),
+    (lambda: WorkloadSpec(kind="hotspot", workload="W1", load=0.5), "A1"),
+    (lambda: WorkloadSpec(kind="shuffle"), "A1"),
+    (lambda: make_messages("W1", n_hosts=4, load=0.5, n_messages=10,
+                           slot_bytes=256, incast=(2, 1000, 100)), "A1"),
+])
+def test_unported_options_raise(make, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        make()
+
+
+def test_other_bad_options_raise():
+    with pytest.raises(ValueError, match="unknown routing"):
+        FabricConfig(racks=2, routing="spray")
+    with pytest.raises(ValueError, match="pallas_interpret"):
+        SimConfig(device="cpu", pallas_interpret=True)
+    with pytest.raises(ValueError, match="unknown protocol"):
+        SimConfig(device="cpu", protocol="tcp")
+    with pytest.raises(ValueError, match="not divisible"):
+        SimConfig(device="cpu", n_hosts=10, fabric=FabricConfig(racks=3))
+    assert SimConfig(device="cpu", host="ideal").host == "ideal"
+
+
+def test_ideal_host_and_single_rack_match_the_single_switch():
+    """``host="ideal"``, ``FabricConfig(None)`` and one rack are the
+    single switch, as in the JAX package."""
+    tbl = make_messages("W2", n_hosts=4, load=0.7, n_messages=40,
+                        slot_bytes=256, seed=2)
+    base = simulate(SimConfig(device="cpu", n_hosts=4, max_slots=400), tbl)
+    for kw in (dict(host="ideal"), dict(fabric=FabricConfig(None)),
+               dict(fabric=FabricConfig(racks=1))):
+        r = simulate(SimConfig(device="cpu", n_hosts=4, max_slots=400, **kw),
+                     tbl)
+        assert (r.completion == base.completion).all(), kw
+        assert (r.q_max_bytes == base.q_max_bytes).all(), kw
+
+
+def test_build_is_keyed_by_source_and_flags():
+    """The library path hashes the source and flags into a directory that
+    ``.gitignore`` lists; finding no nvcc raises instead of skipping the
+    kernels."""
+    path = build.library_path()
+    assert path.parent.parent == build.BUILD_ROOT
+    assert "src/repro_torch/kernels/_build/" in \
+        (ROOT / ".gitignore").read_text().split()
+    assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build.Path, "is_file",
+                        lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
