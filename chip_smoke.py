@@ -10,18 +10,34 @@ result line:
            build of ``csrc/arbiter.cu`` for sm_90a and its time
 2. kernels each hand-written kernel against its plain PyTorch version on
            the card — full-width shapes of the main path, ragged shapes,
-           empty rows, ties, M < K — requiring exact equality; then each
-           kernel's time beside the plain version's and the library
-           call's (CUDA events, median of repeated batches)
+           empty rows, ties, M < K; the fused kernel at all 7 stage
+           subsets, single and batched (B = 1, 4, 12) — requiring exact
+           equality; then each kernel's time beside the plain version's
+           and the library call's (CUDA events, median of repeated
+           batches)
 3. goldens ``tests/golden/fabric_disabled.json`` and ``fabric_enabled.json``
-           replayed for all six protocols on the kernel backend, bit-exact
+           replayed for all six protocols on the staged (``cuda``) and the
+           fused kernel backend, bit-exact
 4. full    the paper's 144-host, 9-rack full-bisection leaf-spine network,
            W3 at load 0.8 with 8000 messages, homa, 20000 slots, on the
-           kernel backend (launches counted) and on the plain backend;
-           the integer outputs must be identical
+           staged kernel backend (launches counted; its state kept at
+           slot 5000), on the plain backend for the first 5000 slots
+           (state identical key by key), and through ``simulate`` on the
+           fused backend (one ``fused_slot`` launch per slot, nothing
+           staged; integer outputs identical to the staged run)
 5. window  a steady window of that run: no host sync inside the slot
-           loop, then a profiled stretch — device busy share, kernels
-           per slot and each kernel's device time per launch
+           loop on either kernel backend, then a profiled stretch of each
+           from one state — device busy share, kernels per slot and each
+           kernel's device time per launch
+6. sweep   (a) the committed ``benchmarks/baselines/sweep_speed.json``
+           mega cell (6 protocols x 3 loads x 4 seeds, 8 hosts, W1,
+           chunked and streaming) on the fused backend: pooled p99s and
+           completions equal to the baseline; (b) 12 full-width runs
+           (loads 0.5/0.7/0.8 x seeds 0-3) as one batch through
+           ``run_sweep`` on the fused and the staged backend: every integer
+           of the streaming statistics identical, one
+           ``fused_slot_batch`` launch per slot; (c) a profiled window of
+           that batch beside phase 5's single run
 
 Then one JSON line with each kernel's numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -37,11 +53,17 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 PROTOCOLS = ("homa", "basic", "phost", "pias", "pfabric", "ndp")
 FULL = dict(workload="W3", load=0.8, n_messages=8000, seed=0, n_hosts=144,
             racks=9, oversub=1.0, ring_cap=1024, up_cap=512,
             max_slots=20000)
+PLAIN_SLOTS = 5000               # phase 4's plain run stops here
+SWEEP_LOADS, SWEEP_SEEDS = (0.5, 0.7, 0.8), (0, 1, 2, 3)
+SWEEP_SLOTS = 3000               # phase 6b's depth
+# per run at the main path's shapes (K = 7 for W3's allocation)
+MAIN_FUSED = dict(H=144, cap=1024, U=144, ucap=512, M=8000, K=7)
 
 
 class SmokeFailure(RuntimeError):
@@ -108,7 +130,7 @@ def _arb_inputs(rng, H, cap, *, n_prios=8, p_elig=0.5, seq_hi=20000):
     prio = rng.integers(0, n_prios, (H, cap)).astype(np.int32)
     seq = rng.integers(0, seq_hi, (H, cap)).astype(np.int32)
     elig = rng.random((H, cap)) < p_elig
-    dev = "cuda"
+    dev = DEVICE
     return (torch.from_numpy(prio).to(dev), torch.from_numpy(seq).to(dev),
             torch.from_numpy(elig).to(dev))
 
@@ -120,7 +142,7 @@ def _topk_keys(rng, H, M, *, p_pos=0.05, hi=1 << 30):
     import torch
     keys = np.where(rng.random((H, M)) < p_pos,
                     rng.integers(1, hi, (H, M)), 0).astype(np.int32)
-    return torch.from_numpy(keys).to("cuda")
+    return torch.from_numpy(keys).to(DEVICE)
 
 
 def _arb_cases(rng):
@@ -141,7 +163,7 @@ def _arb_cases(rng):
     cases["empty rows"] = (p, s, e)
     p, s, e = _arb_inputs(rng, 144, 1024, n_prios=1, seq_hi=2)
     cases["duplicate (prio, seq) ties"] = (p, s, e)
-    p = torch.zeros((16, 700), dtype=torch.int32, device="cuda")
+    p = torch.zeros((16, 700), dtype=torch.int32, device=DEVICE)
     cases["all equal, all eligible"] = (p, p.clone(),
                                         torch.ones_like(p, dtype=torch.bool))
     return cases
@@ -157,11 +179,83 @@ def _topk_cases(rng):
     cases["dense 144x8000 K=7"] = (_topk_keys(rng, 144, 8000, p_pos=1.0), 7)
     cases["ragged 13x1000 K=7"] = (_topk_keys(rng, 13, 1000, p_pos=0.3), 7)
     cases["all zero 8x300 K=4"] = (
-        torch.zeros((8, 300), dtype=torch.int32, device="cuda"), 4)
+        torch.zeros((8, 300), dtype=torch.int32, device=DEVICE), 4)
     small = torch.tensor([[5, 0, 5], [0, 0, 0], [NEG, 3, 0], [NEG, NEG, NEG],
-                          [1, 2, 3]], dtype=torch.int32, device="cuda")
+                          [1, 2, 3]], dtype=torch.int32, device=DEVICE)
     cases["M<K zeros and NEG 5x3 K=7"] = (small, 7)
     cases["M<K 4x1 K=2"] = (_topk_keys(rng, 4, 1, p_pos=0.5), 2)
+    return cases
+
+
+def _fused_bytes(H, cap, U, ucap, M, K) -> int:
+    """Bytes one run's fused slot must move: both rings' prio, seq and
+    elig (9 B a slot) and the keys read once, the winners and the top-K
+    written once."""
+    return 9 * (H * cap + U * ucap) + 4 * H * M + 8 * (H + U) + 8 * H * K
+
+
+def _fused_inputs(rng, stages, B, H, cap, U, ucap, M, K):
+    """Operands of the present stages (a leading run axis when ``B`` is
+    given), as the loop gives them: BIG in empty ring slots, ring row 0
+    of each run all-ineligible, grant keys mostly 0 with row 1 empty."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.arbiter.ref import BIG
+    lead = () if B is None else (B,)
+
+    def ring(R, C):
+        prio = rng.integers(0, 8, lead + (R, C)).astype(np.int32)
+        seq = rng.integers(0, 20000, lead + (R, C)).astype(np.int32)
+        elig = rng.random(lead + (R, C)) < 0.3
+        elig[..., 0, :] = False
+        prio = np.where(elig | (rng.random(elig.shape) < 0.5), prio, BIG)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                     for a in (prio.astype(np.int32), seq, elig))
+
+    down = ring(H, cap) if "down" in stages else None
+    up = ring(U, ucap) if "up" in stages else None
+    keys = None
+    if "topk" in stages:
+        k = np.where(rng.random(lead + (H, M)) < 0.05,
+                     rng.integers(1, 1 << 30, lead + (H, M)), 0)
+        k[..., 1, :] = 0
+        keys = torch.from_numpy(k.astype(np.int32)).to(DEVICE)
+    return down, up, keys
+
+
+def _fused_cases(rng):
+    """name -> (wrapper name, (down, up, keys), K)."""
+    import torch
+    from repro_torch.kernels.arbiter.ref import NEG
+    f = MAIN_FUSED
+    subsets = ("down", "up", "topk", "down,up", "down,topk", "up,topk",
+               "down,up,topk")
+    cases = {}
+    for stages in subsets:
+        for B in (None, 1, 4, 12):
+            fn = "fused_slot" if B is None else "fused_slot_batch"
+            args = _fused_inputs(rng, stages, B, f["H"], f["cap"], f["U"],
+                                 f["ucap"], f["M"], f["K"])
+            cases[f"{stages} main shapes B={B or 1}"] = (fn, args, f["K"])
+    for B in (None, 4):
+        fn = "fused_slot" if B is None else "fused_slot_batch"
+        cases[f"ragged 13x100, 9x1, 13x37 K=4 B={B or 1}"] = (
+            fn, _fused_inputs(rng, "down,up,topk", B, 13, 100, 9, 1, 37, 4),
+            4)
+        # one host per rack: as many uplink rows as hosts, few eligible
+        cases[f"single-host racks 8x256, 8x32 B={B or 1}"] = (
+            fn, _fused_inputs(rng, "down,up", B, 8, 256, 8, 32, 300, 7), 7)
+        d, u, keys = _fused_inputs(rng, "down,topk", B, 8, 64, 8, 8, 3, 7)
+        keys[..., 2, 0] = NEG                 # M < K with NEG keys
+        cases[f"M<K with NEG 8x3 K=7 B={B or 1}"] = (fn, (d, u, keys), 7)
+        d, u, keys = _fused_inputs(rng, "topk", B, 6, 8, 4, 8, 40, 9)
+        cases[f"K above eligible 6x40 K=9 B={B or 1}"] = (fn, (d, u, keys),
+                                                          9)
+    empty = torch.zeros((3, 16, 500), dtype=torch.int32, device=DEVICE)
+    none = torch.zeros((3, 16, 500), dtype=torch.bool, device=DEVICE)
+    cases["all-ineligible, empty grant sets B=3"] = (
+        "fused_slot_batch", ((empty, empty, none), (empty, empty, none),
+                             empty.clone()), 5)
     return cases
 
 
@@ -173,7 +267,8 @@ def phase_kernels():
     import numpy as np
     import torch
     from repro_torch.kernels.arbiter import kernel
-    from repro_torch.kernels.arbiter.ref import (priority_arbiter_ref,
+    from repro_torch.kernels.arbiter.ref import (fused_slot_ref,
+                                                 priority_arbiter_ref,
                                                  srpt_topk_ref)
     rng = np.random.default_rng(0)
     err = {"priority_arbiter": 0, "srpt_topk": 0}
@@ -194,6 +289,17 @@ def phase_kernels():
             check(torch.equal(g, w), f"srpt_topk differs: {name}")
             err["srpt_topk"] = max(err["srpt_topk"], _max_err(g, w))
         say(f"[kernels] srpt_topk == plain: {name}")
+
+    err["fused_slot"] = err["fused_slot_batch"] = 0
+    for name, (fn, args, K) in _fused_cases(rng).items():
+        got = getattr(kernel, fn)(*args, K=K)
+        want = fused_slot_ref(*args, K=K)
+        torch.cuda.synchronize()
+        check(len(got) == len(want), f"{fn} output count: {name}")
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"{fn} differs: {name}")
+            err[fn] = max(err[fn], _max_err(g, w))
+        say(f"[kernels] {fn} == plain: {name}")
 
     # times at the main path's shapes (inputs stay in L2, as in the loop,
     # where the preceding operations have just written them)
@@ -219,6 +325,20 @@ def phase_kernels():
         plain_ms=time_ms(lambda: srpt_topk_ref(keys, K)),
         library_ms=time_ms(lambda: torch.topk(keys, K, dim=1)),
         bound_ms=(H * M * 4 + 2 * H * K * 4) / HBM_BYTES_PER_S * 1e3)
+    f = MAIN_FUSED
+    for fn, B in (("fused_slot", None), ("fused_slot_batch", 12)):
+        d, u, keys = _fused_inputs(rng, "down,up,topk", B, f["H"], f["cap"],
+                                   f["U"], f["ucap"], f["M"], f["K"])
+        run = getattr(kernel, fn)
+        nb = 1 if B is None else B
+        perf[fn] = dict(
+            shape=f"B={nb}: down ({f['H']}, {f['cap']}), up ({f['U']}, "
+                  f"{f['ucap']}), keys ({f['H']}, {f['M']}), K={f['K']}",
+            ms=time_ms(lambda: run(d, u, keys, K=f["K"])),
+            plain_ms=time_ms(lambda: fused_slot_ref(d, u, keys, K=f["K"]),
+                             batch=20),
+            library_ms=None,
+            bound_ms=nb * _fused_bytes(**f) / HBM_BYTES_PER_S * 1e3)
     for name, d in perf.items():
         say(f"[kernels] {name} {d['shape']}: "
             + ", ".join(f"{k}={v!r}" for k, v in d.items() if k != "shape"))
@@ -234,13 +354,14 @@ def _golden_run(meta, proto, fabric, backend):
                         slot_bytes=meta["slot_bytes"], seed=meta["seed"])
     cfg = SimConfig(protocol=proto, n_hosts=meta["n_hosts"],
                     max_slots=meta["max_slots"], ring_cap=meta["ring_cap"],
-                    fabric=fabric, backend=backend, device="cuda")
+                    fabric=fabric, backend=backend, device=DEVICE)
     return simulate(cfg, tbl)
 
 
 def phase_goldens():
     from repro_torch.core import FabricConfig
-    for name in ("fabric_disabled", "fabric_enabled"):
+    for name, backend in ((n, b) for b in ("cuda", "fused")
+                          for n in ("fabric_disabled", "fabric_enabled")):
         g = json.loads((ROOT / "tests" / "golden" / f"{name}.json")
                        .read_text())
         meta = g["meta"]
@@ -249,7 +370,7 @@ def phase_goldens():
                if name == "fabric_enabled" else None)
         for proto in PROTOCOLS:
             t0 = time.perf_counter()
-            r = _golden_run(meta, proto, fab, "cuda")
+            r = _golden_run(meta, proto, fab, backend)
             want = g["protocols"][proto]
             got = {"completion": [int(x) for x in r.completion],
                    "lost_chunks": int(r.lost_chunks),
@@ -262,9 +383,9 @@ def phase_goldens():
                                              for x in r.tor_up_q_max_bytes]
                 got["tor_up_lost_chunks"] = int(r.tor_up_lost_chunks)
             bad = [k for k in want if got[k] != want[k]]
-            check(not bad, f"{name} {proto}: differs from the golden in "
-                           f"{bad}")
-            say(f"[goldens] {name} {proto}: bit-exact "
+            check(not bad, f"{name} {proto} {backend}: differs from the "
+                           f"golden in {bad}")
+            say(f"[goldens] {name} {proto} {backend}: bit-exact "
                 f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -281,56 +402,100 @@ def _full_config(backend):
                     fabric=FabricConfig(racks=f["racks"],
                                         oversub=f["oversub"],
                                         up_cap=f["up_cap"]),
-                    backend=backend, device="cuda")
+                    backend=backend, device=DEVICE)
     return cfg, tbl
 
 
-def _full_run(backend):
-    import torch
-    from repro_torch.core import simulate
-    cfg, tbl = _full_config(backend)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r = simulate(cfg, tbl)          # ends in host copies: synchronized
-    wall = time.perf_counter() - t0
-    return r, wall, int(tbl.arrival_slot.max())
+INT_FIELDS = ("completion", "q_max_bytes", "prio_drained_bytes",
+              "tor_up_busy_frac", "tor_up_q_max_bytes", "busy_frac",
+              "tor_up_q_mean_bytes", "q_mean_bytes", "wasted_frac")
 
 
 def phase_full():
+    """The staged kernel run is ``simulate`` split at PLAIN_SLOTS (the same
+    prepare, loop and finalize) so that its state there can be held
+    against the plain backend's; the fused run goes through
+    ``simulate``."""
     import numpy as np
+    import torch
+    from repro_torch.core import simulate
+    from repro_torch.core.protocols import get_protocol
+    from repro_torch.core.sim import (_finalize, _init_state, host_state,
+                                      prepare, run_slots, stack_static)
     from repro_torch.kernels.arbiter import kernel
-    kernel.reset_launch_counts()
-    r_k, wall_k, horizon = _full_run("cuda")
-    launches = kernel.launch_counts()
-    r_p, wall_p, _ = _full_run("reference")
     slots = FULL["max_slots"]
-    check(launches == {"priority_arbiter": 2 * slots, "srpt_topk": slots},
-          f"main path launches {launches}, expected 2 arbiter and 1 top-K "
-          f"per slot over {slots} slots")
-    for field in ("completion", "q_max_bytes", "prio_drained_bytes",
-                  "tor_up_busy_frac", "tor_up_q_max_bytes", "busy_frac"):
-        check(np.array_equal(getattr(r_k, field), getattr(r_p, field)),
-              f"full run: kernel and plain backends differ in {field}")
-    for field in ("lost_chunks", "tor_up_lost_chunks"):
-        check(getattr(r_k, field) == getattr(r_p, field),
-              f"full run: kernel and plain backends differ in {field}")
-    check(np.array_equal(r_k.tor_up_q_mean_bytes, r_p.tor_up_q_mean_bytes),
-          "full run: tor_up_q_mean_bytes differs")
+
+    def stepped(backend, stops):
+        cfg, tbl = _full_config(backend)
+        proto = get_protocol(cfg.protocol)
+        S1, alloc = prepare(cfg, tbl)
+        S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
+        st, t, snaps = _init_state(cfg, proto, len(tbl.size)), 0, []
+        for stop in stops:
+            st = run_slots(cfg, proto, S, st, n_sched, t, stop)
+            snaps.append(host_state(st))
+            t = stop
+        return cfg, tbl, S1, alloc, snaps
+
+    torch.cuda.synchronize()
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, tbl, S1, alloc, (snap, end) = stepped("cuda", (PLAIN_SLOTS, slots))
+    r_k = _finalize(cfg, tbl, S1, alloc, end, 0, False)
+    wall_k = time.perf_counter() - t0
+    launches = {"cuda": kernel.launch_counts()}
+    check(launches["cuda"] == {"priority_arbiter": 2 * slots,
+                               "srpt_topk": slots, "fused_slot": 0,
+                               "fused_slot_batch": 0},
+          f"staged run launches {launches['cuda']}, expected 2 arbiter and "
+          f"1 top-K per slot over {slots} slots")
+
+    t0 = time.perf_counter()
+    *_, (plain,) = stepped("reference", (PLAIN_SLOTS,))
+    wall_p = time.perf_counter() - t0
+    check(set(plain) == set(snap), "plain and kernel state keys differ")
+    for k in snap:
+        check(plain[k].dtype == snap[k].dtype
+              and np.array_equal(plain[k], snap[k]),
+              f"slot {PLAIN_SLOTS}: plain and kernel backends differ in "
+              f"state {k}")
+
+    cfg_f, tbl = _full_config("fused")
+    kernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_f = simulate(cfg_f, tbl)       # ends in host copies: synchronized
+    wall_f = time.perf_counter() - t0
+    launches["fused"] = kernel.launch_counts()
+    check(launches["fused"] == {"priority_arbiter": 0, "srpt_topk": 0,
+                                "fused_slot": slots, "fused_slot_batch": 0},
+          f"fused run launches {launches['fused']}, expected one fused_slot "
+          f"per slot over {slots} slots and nothing staged")
+    for field in INT_FIELDS:
+        check(np.array_equal(getattr(r_k, field), getattr(r_f, field)),
+              f"full run: fused and staged backends differ in {field}")
+    for field in ("lost_chunks", "tor_up_lost_chunks", "n_complete"):
+        check(getattr(r_k, field) == getattr(r_f, field),
+              f"full run: fused and staged backends differ in {field}")
     check(r_k.n_complete > 0 and np.isfinite(r_k.slowdown[r_k.done]).all()
           and (r_k.slowdown[r_k.done] > 0).all(),
           "full run: completions missing or slowdowns not positive")
     s = r_k.summary()
     say(f"[full] 144 hosts, 9 racks x 16 uplinks, W3 load 0.8, 8000 msgs "
-        f"(arrival horizon {horizon} slots), {slots} slots")
+        f"(arrival horizon {int(tbl.arrival_slot.max())} slots), "
+        f"{slots} slots")
     say(f"[full] cuda backend: {wall_k:.2f} s wall, "
-        f"{slots / wall_k:.1f} slots/s; launches {launches}")
-    say(f"[full] reference backend: {wall_p:.2f} s wall, "
-        f"{slots / wall_p:.1f} slots/s")
+        f"{slots / wall_k:.1f} slots/s; launches {launches['cuda']}")
+    say(f"[full] reference backend, first {PLAIN_SLOTS} slots: "
+        f"{wall_p:.2f} s wall, {PLAIN_SLOTS / wall_p:.1f} slots/s; state "
+        f"identical to the cuda run's at slot {PLAIN_SLOTS}, key by key")
+    say(f"[full] fused backend: {wall_f:.2f} s wall, "
+        f"{slots / wall_f:.1f} slots/s; launches {launches['fused']}")
     say(f"[full] identical integer outputs; completed "
         f"{r_k.n_complete}/{r_k.n_messages} "
         f"({r_k.completion_rate:.4f}); p99_small {s['p99_small']}; "
         f"p99_all {s['p99_all']}; lost {r_k.lost_chunks}")
-    return launches
+    return launches, slots / wall_k
 
 
 # ------------------------------------------------------------- phase 5 -----
@@ -338,59 +503,206 @@ def phase_full():
 WINDOW_START, WINDOW_SLOTS = 3000, 100
 
 
-def phase_window():
-    """A steady window of the full run on the kernel backend: 20 slots in
-    which any host sync raises, then ``WINDOW_SLOTS`` slots under the
-    profiler — wall time per slot, device busy share, kernels per slot,
-    and the two kernels' device time per launch."""
+def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
+    """From one state at slot ``t``: 20 slots per backend in which any
+    host sync raises, then ``n`` profiled slots per backend — wall time
+    per slot, device busy share, kernels per slot and the device time per
+    launch of each hand-written kernel seen."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.protocols import get_protocol
-    from repro_torch.core.sim import _init_state, prepare, run_slots
-    cfg, tbl = _full_config("cuda")
-    proto = get_protocol(cfg.protocol)
-    S, alloc = prepare(cfg, tbl)
-    n_sched = proto.n_sched(cfg, alloc)
-    t = WINDOW_START
-    st = run_slots(cfg, proto, S, _init_state(cfg, proto, len(tbl.size)),
-                   n_sched, 0, t)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")   # a host sync now raises
-    try:
-        st = run_slots(cfg, proto, S, st, n_sched, t, t + 20)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    t += 20
-    torch.cuda.synchronize()
-    say(f"[window] slots {t - 20}..{t - 1}: no host sync in the loop")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_slots(cfg, proto, S, st, n_sched, t, t + WINDOW_SLOTS)
+    from repro_torch.core.sim import run_slots
+    out = {}
+    for backend, cfg in cfgs.items():
+        proto = get_protocol(cfg.protocol)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  reverse=True)
-    busy_us = sum(k[0] for k in kern)
-    n = WINDOW_SLOTS
-    say(f"[window] {n} slots from {t}: {wall / n * 1e3:.3f} ms/slot wall, "
-        f"device busy {busy_us / 1e6 / wall:.4f}, "
-        f"{sum(k[1] for k in kern) / n:.1f} kernels/slot, "
-        f"{busy_us / n:.1f} us/slot of device time")
-    for us, cnt, key in kern[:8]:
-        say(f"[window]   {us / n:8.2f} us/slot {cnt / n:6.1f}/slot "
-            f"{key[:90]}")
-    per_launch = {}
-    for name in ("priority_arbiter", "srpt_topk"):
-        hits = [k for k in kern if f"{name}_kernel" in k[2]]
-        check(len(hits) == 1, f"profiler shows no single {name} kernel")
-        us, cnt, _ = hits[0]
-        per_launch[name] = us / cnt / 1e3
-        say(f"[window] {name}: {cnt / n:.0f} launches/slot, "
-            f"{us / cnt:.2f} us device time per launch")
-    return per_launch
+        torch.cuda.set_sync_debug_mode("error")   # a host sync now raises
+        try:
+            st1 = run_slots(cfg, proto, S, st, n_sched, t, t + 20)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        say(f"[{tag}] {backend}: slots {t}..{t + 19}: no host sync in the "
+            f"loop")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_slots(cfg, proto, S, st1, n_sched, t + 20, t + 20 + n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = sorted(((e.device_time_total, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      reverse=True)
+        busy_us = sum(k[0] for k in kern)
+        row = dict(ms_per_slot=wall / n * 1e3, busy=busy_us / 1e6 / wall,
+                   kernels_per_slot=sum(k[1] for k in kern) / n,
+                   device_us_per_slot=busy_us / n, per_launch_ms={})
+        say(f"[{tag}] {backend}: {n} slots from {t + 20}: "
+            f"{row['ms_per_slot']:.3f} ms/slot wall, device busy "
+            f"{row['busy']:.4f}, {row['kernels_per_slot']:.1f} kernels/slot, "
+            f"{row['device_us_per_slot']:.1f} us/slot of device time")
+        for us, cnt, key in kern[:8]:
+            say(f"[{tag}]   {us / n:8.2f} us/slot {cnt / n:6.1f}/slot "
+                f"{key[:90]}")
+        for name in ("priority_arbiter", "srpt_topk", "fused_slot"):
+            hits = [k for k in kern if f"{name}_kernel" in k[2]]
+            if not hits:
+                continue
+            check(len(hits) == 1, f"profiler shows several {name} kernels")
+            us, cnt, _ = hits[0]
+            row["per_launch_ms"][name] = us / cnt / 1e3
+            say(f"[{tag}] {backend}: {name}: {cnt / n:.0f} launches/slot, "
+                f"{us / cnt:.2f} us device time per launch")
+        out[backend] = row
+    return out
+
+
+def phase_window():
+    """A steady window of the full run: the state at WINDOW_START, then
+    each kernel backend's window from that one state."""
+    from repro_torch.core.protocols import get_protocol
+    from repro_torch.core.sim import (_init_state, prepare, run_slots,
+                                      stack_static)
+    cfgs = {b: _full_config(b)[0] for b in ("cuda", "fused")}
+    cfg, tbl = _full_config("fused")
+    proto = get_protocol(cfg.protocol)
+    S1, alloc = prepare(cfg, tbl)
+    S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
+    st = run_slots(cfg, proto, S, _init_state(cfg, proto, len(tbl.size)),
+                   n_sched, 0, WINDOW_START)
+    w = _windows(cfgs, S, st, n_sched, WINDOW_START, WINDOW_SLOTS, "window")
+    check("priority_arbiter" in w["cuda"]["per_launch_ms"]
+          and "srpt_topk" in w["cuda"]["per_launch_ms"]
+          and "fused_slot" in w["fused"]["per_launch_ms"],
+          "profiler shows no device time for a kernel of the main path")
+    return w
+
+
+# ------------------------------------------------------------- phase 6 -----
+
+def _sweep_mega():
+    """The committed mega cell: 6 protocols x 3 loads x 4 seeds of W1 at 8
+    hosts, each protocol one batch of 12, chunked and streaming, on the
+    fused backend; the pooled p99 per protocol and the completions must
+    equal the baseline's."""
+    from repro_torch.core import (SimConfig, SweepSpec, make_messages,
+                                  run_sweep)
+    from repro_torch.core.sweep import percentile_from_hist
+    base = json.loads((ROOT / "benchmarks" / "baselines" / "sweep_speed.json")
+                      .read_text())
+    mega = next(r for r in base if r["kind"] == "mega")
+    tables = [make_messages(mega["workload"], n_hosts=8, load=ld,
+                            n_messages=mega["n_messages"], slot_bytes=256,
+                            seed=s)
+              for ld in (0.5, 0.7, 0.9) for s in range(mega["n_seeds"])]
+    horizon = max(int(t.arrival_slot.max()) for t in tables) + 600
+    spec = SweepSpec(tables=tables, shared_alloc=True, shard=True,
+                     chunk_slots=512, streaming=True)
+    t0 = time.perf_counter()
+    done = 0
+    for proto in PROTOCOLS:
+        cfg = SimConfig(n_hosts=8, protocol=proto, ring_cap=256,
+                        max_slots=horizon, backend="fused", device=DEVICE)
+        stats = run_sweep(cfg, spec)
+        done += sum(s.n_complete for s in stats)
+        pooled = sum(s.hist.sum(axis=0) for s in stats)
+        p99 = round(percentile_from_hist(pooled, stats[0].stream, 99.0), 4)
+        check(p99 == mega[f"p99_{proto}"],
+              f"mega cell {proto}: pooled p99 {p99} != baseline "
+              f"{mega[f'p99_{proto}']}")
+    wall = time.perf_counter() - t0
+    check(done == mega["completions"],
+          f"mega cell: {done} completions != baseline {mega['completions']}")
+    say(f"[sweep] mega cell ({len(PROTOCOLS)} protocols x {len(tables)} "
+        f"runs, {horizon} slots, fused): pooled p99s and {done} completions "
+        f"equal the baseline; {wall:.2f} s wall, "
+        f"{len(PROTOCOLS) * len(tables) / wall:.2f} runs/s")
+
+
+def _sweep_tables():
+    from repro_torch.core import make_messages
+    f = FULL
+    return [make_messages(f["workload"], n_hosts=f["n_hosts"], load=ld,
+                          n_messages=f["n_messages"], slot_bytes=256, seed=s)
+            for ld in SWEEP_LOADS for s in SWEEP_SEEDS]
+
+
+def _sweep_config(backend):
+    import dataclasses
+    cfg, _ = _full_config(backend)
+    return dataclasses.replace(cfg, max_slots=SWEEP_SLOTS)
+
+
+def phase_sweep():
+    import numpy as np
+    import torch
+    from repro_torch.core import SweepSpec, run_sweep
+    from repro_torch.core.protocols import get_protocol
+    from repro_torch.core.sim import (_init_state, prepare, run_slots,
+                                      stack_static)
+    from repro_torch.kernels.arbiter import kernel
+    _sweep_mega()
+
+    tables = _sweep_tables()
+    B = len(tables)
+    spec = SweepSpec(tables=tables, shared_alloc=True, chunk_slots=1000,
+                     streaming=True)
+    stats, launches, wall = {}, {}, {}
+    for backend in ("fused", "cuda"):
+        kernel.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats[backend] = run_sweep(_sweep_config(backend), spec)
+        wall[backend] = time.perf_counter() - t0
+        launches[backend] = kernel.launch_counts()
+        say(f"[sweep] {B} full-width runs (W3, loads {SWEEP_LOADS} x seeds "
+            f"{SWEEP_SEEDS}), {SWEEP_SLOTS} slots, {backend}: "
+            f"{wall[backend]:.2f} s wall, "
+            f"{B * SWEEP_SLOTS / wall[backend]:.1f} runs*slots/s; launches "
+            f"{launches[backend]}")
+    check(launches["fused"] == {"priority_arbiter": 0, "srpt_topk": 0,
+                                "fused_slot": 0,
+                                "fused_slot_batch": SWEEP_SLOTS},
+          f"sweep launches {launches['fused']}, expected one "
+          f"fused_slot_batch per slot for the whole batch")
+    check(launches["cuda"]["priority_arbiter"] == 2 * SWEEP_SLOTS
+          and launches["cuda"]["srpt_topk"] == SWEEP_SLOTS,
+          f"staged sweep launches {launches['cuda']}")
+    for i, (a, b) in enumerate(zip(stats["fused"], stats["cuda"])):
+        check(np.array_equal(a.hist, b.hist)
+              and np.array_equal(a.prio_drained_bytes, b.prio_drained_bytes),
+              f"sweep run {i}: fused and staged histograms differ")
+        for f in ("n_complete", "busy_frac", "wasted_frac",
+                  "uplink_busy_frac", "q_mean_bytes", "q_max_bytes",
+                  "lost_chunks", "tor_up_busy_frac"):
+            check(getattr(a, f) == getattr(b, f),
+                  f"sweep run {i}: fused and staged differ in {f}")
+    check(all(s.n_counted > 0 for s in stats["fused"]),
+          "sweep: a run completed nothing")
+    say(f"[sweep] every integer of the {B} runs' streaming statistics is "
+        f"identical on both backends; completed "
+        f"{[s.n_complete for s in stats['fused']]}; p99_all "
+        f"{[round(s.percentile(99.0), 4) for s in stats['fused']]}")
+
+    # the batch's profiled window, beside phase 5's single run
+    cfg = _sweep_config("fused")
+    proto = get_protocol(cfg.protocol)
+    alloc = stats["fused"][0].alloc
+    S = stack_static([prepare(cfg, t, alloc)[0] for t in tables])
+    n_sched = proto.n_sched(cfg, alloc)
+    st = run_slots(cfg, proto, S, _init_state(cfg, proto, S["size"].shape[1],
+                                              B),
+                   n_sched, 0, WINDOW_START)
+    w = _windows({"fused": cfg}, S, st, n_sched, WINDOW_START,
+                 WINDOW_SLOTS, f"sweep B={B}")["fused"]
+    # fused_slot_batch launches the same fused_slot_kernel
+    check("fused_slot" in w["per_launch_ms"],
+          "profiler shows no device time for the batched fused kernel")
+    w["per_launch_ms"]["fused_slot_batch"] = \
+        w["per_launch_ms"].pop("fused_slot")
+    return launches["fused"], w, {b: B * SWEEP_SLOTS / wall[b]
+                                  for b in wall}
 
 
 # ---------------------------------------------------------------- main -----
@@ -414,23 +726,49 @@ def main() -> int:
         phase_card()
         err, perf = phase_kernels()
         phase_goldens()
-        launches = phase_full()
-        device_ms = phase_window()
+        full_launches, full_rate = phase_full()
+        window = phase_window()
+        sweep_launches, sweep_window, sweep_rate = phase_sweep()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    replaces = {"priority_arbiter": "src/repro/kernels/arbiter/kernel.py:67",
-                "srpt_topk": "src/repro/kernels/arbiter/kernel.py:139"}
+    say(f"[summary] runs*slots/s: B=1 cuda {full_rate:.1f}; B=12 "
+        + ", ".join(f"{b} {r:.1f}" for b, r in sweep_rate.items()))
+    say(f"[summary] ms/slot (device busy): B=1 cuda "
+        f"{window['cuda']['ms_per_slot']:.3f} ({window['cuda']['busy']:.4f}),"
+        f" B=1 fused {window['fused']['ms_per_slot']:.3f} "
+        f"({window['fused']['busy']:.4f}), B=12 fused "
+        f"{sweep_window['ms_per_slot']:.3f} ({sweep_window['busy']:.4f})")
+    src = "src/repro_torch/kernels/arbiter/csrc/arbiter.cu"
+    rows = {
+        # name: (replaces, launches on its path, device ms per launch)
+        "priority_arbiter": ("src/repro/kernels/arbiter/kernel.py:67",
+                             full_launches["cuda"]["priority_arbiter"],
+                             window["cuda"]["per_launch_ms"]
+                             ["priority_arbiter"]),
+        "srpt_topk": ("src/repro/kernels/arbiter/kernel.py:139",
+                      full_launches["cuda"]["srpt_topk"],
+                      window["cuda"]["per_launch_ms"]["srpt_topk"]),
+        "fused_slot": ("src/repro/kernels/arbiter/fused.py:206",
+                       full_launches["fused"]["fused_slot"],
+                       window["fused"]["per_launch_ms"]["fused_slot"]),
+        "fused_slot_batch": ("src/repro/kernels/arbiter/fused.py:231",
+                             sweep_launches["fused_slot_batch"],
+                             sweep_window["per_launch_ms"]
+                             ["fused_slot_batch"]),
+    }
     say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "src/repro_torch/kernels/arbiter/csrc/arbiter.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": err[name], "ms": perf[name]["ms"],
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": n, "max_abs_err": err[name], "ms": perf[name]["ms"],
          "plain_ms": perf[name]["plain_ms"],
          "bound_ms": perf[name]["bound_ms"], "bound_by": "bytes",
          "library_ms": perf[name]["library_ms"],
-         "device_ms_per_launch": device_ms[name]}
-        for name in ("priority_arbiter", "srpt_topk")]}))
+         "device_ms_per_launch": dev_ms}
+        for name, (rep, n, dev_ms) in rows.items()]}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

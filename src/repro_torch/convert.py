@@ -3,11 +3,12 @@
 ``from_jax(S_np, state_np, device)`` turns the numpy form of the JAX
 package's ``prepare`` statics and of a scan state (``SimResult.static``
 and ``SimResult.state`` of ``repro.core.simulate(..., return_state=True)``)
-into the port's tensors, with the same keys, dtypes and shapes. The port
-can then step on from the JAX package's mid-run state
-(``repro_torch.core.sim.run_slots``), which is how the tests check the
-two simulators slot for slot. Only numpy crosses: this module imports
-nothing of JAX.
+into the port's tensors, with the same keys and dtypes. One run or a list
+of runs of one shape may be given; either way the result carries the
+leading run axis the port's step carries, so the port can step on from
+the JAX package's mid-run state (``repro_torch.core.sim.run_slots``),
+which is how the tests check the two simulators slot for slot. Only numpy
+crosses: this module imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -15,16 +16,22 @@ import numpy as np
 import torch
 
 
-def _tensor(a, device) -> torch.Tensor:
-    # np.array copies: arrays from a JAX device buffer are read-only
-    return torch.from_numpy(np.array(a)).to(device)
+def _stack(runs: list[dict], device) -> dict:
+    # np.stack copies: arrays from a JAX device buffer are read-only
+    return {k: torch.from_numpy(np.stack([np.asarray(r[k]) for r in runs]))
+            .to(device) for k in runs[0]}
 
 
-def from_jax(S_np: dict, state_np: dict, device) -> tuple[dict, dict]:
-    """``(S, state)`` as tensors on ``device``; int32, bool and float32
-    arrays keep their dtypes and shapes, 0-d counters stay 0-d."""
-    return ({k: _tensor(v, device) for k, v in S_np.items()},
-            {k: _tensor(v, device) for k, v in state_np.items()})
+def from_jax(S_np: dict | list[dict], state_np: dict | list[dict],
+             device) -> tuple[dict, dict]:
+    """``(S, state)`` as tensors on ``device`` with a leading run axis
+    (length 1 for a single run); int32, bool and float32 arrays keep
+    their dtypes, and run b's slice has the JAX array's shape."""
+    if isinstance(S_np, dict):
+        S_np = [S_np]
+    if isinstance(state_np, dict):
+        state_np = [state_np]
+    return _stack(list(S_np), device), _stack(list(state_np), device)
 
 
 __all__ = ["from_jax"]

@@ -117,32 +117,36 @@ def spine_hash(src: np.ndarray, dst: np.ndarray, msg_id: np.ndarray,
 
 
 # ------------------------------------------------------- ring primitives ---
-# Shared by downlink and uplink tiers: a (R, cap) pool of ring buffers
-# with occupancy-based insertion and strict-priority / FIFO drain.
+# Shared by downlink and uplink tiers: a (B, R, cap) pool of ring buffers
+# (B runs of R rings each) with occupancy-based insertion and
+# strict-priority / FIFO drain.
 
 def ring_insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq):
-    """Insert up to ``len(row)`` chunks into per-row rings.
+    """Insert up to ``n`` chunks per run into per-row rings.
 
-    Item i goes into ring ``row[i]`` iff ``ok[i]``; several items may
-    target one row in a slot (they take consecutive free slots in input
-    order). A chunk is dropped only when its ring is actually full.
-    Returns the four updated ring arrays plus the dropped count (0-d
-    int32)."""
-    R, cap = valid_a.shape
-    n = row.shape[0]
+    Rings are ``(B, R, cap)``; ``row``/``ok``/``msg``/``prio``/``seq`` are
+    ``(B, n)``. Item i of run b goes into ring ``row[b, i]`` of that run
+    iff ``ok[b, i]``; several items may target one row in a slot (they
+    take consecutive free slots in input order). A chunk is dropped only
+    when its ring is actually full. Returns the four updated ring arrays
+    plus the dropped count per run, ``(B,)`` int32."""
+    B, R, cap = valid_a.shape
+    n = row.shape[1]
     rows = torch.where(ok, row, R).long()                     # sentinel R
     earlier = torch.ones(n, n, dtype=torch.bool,
                          device=row.device).tril_(-1)
-    # rank among earlier ok items bound for the same row (a not-ok item's
-    # sentinel row R matches no ok item, and its own rank is never used)
-    rank = ((rows[:, None] == rows[None, :]) & earlier).sum(dim=1)
+    # rank among earlier ok items of the same run bound for the same row
+    # (a not-ok item's sentinel row R matches no ok item, and its own rank
+    # is never used)
+    rank = ((rows[:, :, None] == rows[:, None, :]) & earlier).sum(dim=2)
     # (r+1)-th free slot per row: a left binary search in the cumsum of
     # free slots, which is nondecreasing
-    c = torch.cumsum(~valid_a, dim=1)                        # int64
-    c_row = c.index_select(0, rows.clamp_max(R - 1))          # (n, cap)
-    room = c_row[:, -1] > rank
+    c = torch.cumsum(~valid_a, dim=2)                        # int64
+    c_row = c.gather(1, rows.clamp_max(R - 1)[:, :, None].expand(B, n, cap))
+    room = c_row[:, :, -1] > rank
     okw = ok & room
-    pos = torch.searchsorted(c_row, (rank + 1)[:, None], right=False)[:, 0]
+    pos = torch.searchsorted(c_row, (rank + 1)[:, :, None],
+                             right=False)[:, :, 0]
     # suppressed writes are dropped, never clamped into range: an in-range
     # no-op write could race a genuine insertion at the same place
     flat = rows * cap + pos
@@ -150,7 +154,7 @@ def ring_insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq):
             set_drop(prio_a, flat, prio, okw),
             set_drop(seq_a, flat, seq, okw),
             set_drop(valid_a, flat, okw, okw),
-            (ok & ~room).sum(dtype=I32))
+            (ok & ~room).sum(dim=1, dtype=I32))
 
 
 def ring_drain_select(prio_a, seq_a, eligible):
@@ -162,40 +166,48 @@ def ring_drain_select(prio_a, seq_a, eligible):
 
 
 def drain_select(prio_a, seq_a, eligible, *, backend: str = "reference"):
-    """Backend-dispatched :func:`ring_drain_select`: ``backend="cuda"``
-    runs the hand-written ``priority_arbiter`` kernel, bit-identical to
-    the plain version."""
-    bp, bi = dispatch.arbitrate(prio_a, seq_a, eligible, backend=backend)
+    """Backend-dispatched :func:`ring_drain_select` on rings with any
+    leading axes: the kernel backends run the hand-written
+    ``priority_arbiter`` kernel on all rows of all runs in one launch,
+    bit-identical to the plain version."""
+    lead, cap = prio_a.shape[:-1], prio_a.shape[-1]
+    bp, bi = dispatch.arbitrate(prio_a.reshape(-1, cap),
+                                seq_a.reshape(-1, cap),
+                                eligible.reshape(-1, cap), backend=backend)
+    bp, bi = bp.view(lead), bi.view(lead)
     return bi, bp < BIG, bp
 
 
 def take_slot(a, slot_idx):
-    """``a[r, slot_idx[r]]`` for every row r."""
-    return a.gather(1, slot_idx.long()[:, None])[:, 0]
+    """``a[..., r, slot_idx[..., r]]`` for every row r."""
+    return a.gather(-1, slot_idx.long()[..., None])[..., 0]
 
 
 def clear_slot(valid_a, slot_idx, drained):
-    """``valid_a[r, slot_idx[r]] = False`` on the rows that drained."""
-    si = slot_idx.long()[:, None]
-    return valid_a.scatter(1, si, valid_a.gather(1, si) & ~drained[:, None])
+    """``valid_a[..., r, slot_idx[..., r]] = False`` on the rows that
+    drained."""
+    si = slot_idx.long()[..., None]
+    return valid_a.scatter(-1, si, valid_a.gather(-1, si)
+                           & ~drained[..., None])
 
 
 # ------------------------------------------------------- fabric stages -----
 
-def init_fabric_state(cfg) -> dict:
-    """Uplink-tier loop state; only fabric-enabled configs carry it."""
+def init_fabric_state(cfg, B: int) -> dict:
+    """Uplink-tier loop state of B runs; only fabric-enabled configs carry
+    it."""
     fab = cfg.fabric
     U, ucap = fab.n_uplinks_total(cfg.n_hosts), fab.up_cap
     dev = cfg.device
     return {
-        "u_msg": torch.full((U, ucap), -1, dtype=I32, device=dev),
-        "u_prio": torch.full((U, ucap), BIG, dtype=I32, device=dev),
-        "u_seq": torch.full((U, ucap), BIG, dtype=I32, device=dev),
-        "u_valid": torch.zeros((U, ucap), dtype=torch.bool, device=dev),
-        "u_busy": torch.zeros((U,), dtype=I32, device=dev),
-        "u_q_sum": torch.zeros((U,), dtype=torch.float32, device=dev),
-        "u_q_max": torch.zeros((U,), dtype=I32, device=dev),
-        "u_lost": torch.zeros((), dtype=I32, device=dev),
+        "u_msg": torch.full((B, U, ucap), -1, dtype=I32, device=dev),
+        "u_prio": torch.full((B, U, ucap), BIG, dtype=I32, device=dev),
+        "u_seq": torch.full((B, U, ucap), BIG, dtype=I32, device=dev),
+        "u_valid": torch.zeros((B, U, ucap), dtype=torch.bool, device=dev),
+        "u_busy": torch.zeros((B, U), dtype=I32, device=dev),
+        "u_q_sum": torch.zeros((B, U), dtype=torch.float32, device=dev),
+        "u_q_max": torch.zeros((B, U), dtype=I32, device=dev),
+        "u_lost": torch.zeros((B,), dtype=I32, device=dev),
     }
 
 
@@ -203,17 +215,18 @@ def route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now):
     """Route this slot's transmitted chunks into the first queueing tier:
     same-rack chunks switch at the leaf straight into the destination
     downlink ring; cross-rack chunks enter their TOR's hashed uplink
-    queue. Returns updated state."""
+    queue. ``cm`` is each host's chosen message, ``(B, H)`` int32.
+    Returns updated state."""
     fab = cfg.fabric
-    H = cfg.n_hosts
+    B, H = dsts.shape
     rs = fab.rack_size(H)
     n_up = fab.n_uplinks(H)
     src_rack = torch.arange(H, dtype=I32, device=dsts.device) // rs
     dst_rack = dsts.clamp_max(H - 1) // rs
     local = has & (src_rack == dst_rack)
     remote = has & (src_rack != dst_rack)
-    urow = src_rack * n_up + S["spine"][cm]
-    seq = now.expand(H)
+    urow = src_rack * n_up + S["spine"].gather(1, cm.long())
+    seq = now.expand(B, H)
 
     r_msg, r_prio, r_seq, r_valid, d_drop = ring_insert(
         st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
@@ -231,19 +244,30 @@ def route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now):
             "u_lost": st["u_lost"] + u_drop}
 
 
-def uplink_drain(cfg, st, S, now):
+def uplink_drain(cfg, st, S, now, pre=None):
     """Drain at most one chunk per TOR uplink (strict priority, FIFO
     within level) and forward it across its spine into the destination
     downlink ring, where it becomes eligible after ``spine_delay_slots``.
-    Returns updated state."""
+    Returns updated state.
+
+    ``pre`` is an optional pre-solved ``(slot_idx, any_e, prio)`` winner
+    triple from the ``fused`` backend, which arbitrates all of a slot's
+    stages in one kernel at slot start (DESIGN.md §11). The hoist is
+    bit-identical because this slot's ``route_chunks`` insertions carry
+    ``u_seq == now`` and ``leaf_delay_slots >= 1`` (enforced by
+    ``sim._fused_precompute``) keeps them ineligible until the next slot
+    — and ``ring_insert`` never overwrites a valid (winning) slot."""
     fab = cfg.fabric
     H = cfg.n_hosts
-    M = S["size"].shape[0]
-    U = st["u_valid"].shape[0]
+    M = S["size"].shape[1]
+    B, U = st["u_valid"].shape[:2]
 
     eligible = st["u_valid"] & (st["u_seq"] + fab.leaf_delay_slots <= now)
-    slot_idx, any_e, _ = drain_select(st["u_prio"], st["u_seq"], eligible,
-                                      backend=cfg.backend)
+    if pre is not None:
+        slot_idx, any_e, _ = pre
+    else:
+        slot_idx, any_e, _ = drain_select(st["u_prio"], st["u_seq"],
+                                          eligible, backend=cfg.backend)
     msg = torch.where(any_e, take_slot(st["u_msg"], slot_idx), M)
     prio = take_slot(st["u_prio"], slot_idx)
     u_valid = clear_slot(st["u_valid"], slot_idx, any_e)
@@ -253,13 +277,14 @@ def uplink_drain(cfg, st, S, now):
     # the downlink's single eligibility rule then covers both tiers, and
     # FIFO order within a priority level remains arrival-time order at
     # the destination TOR.
-    dst = torch.where(any_e, S["dst"][msg.clamp_max(M - 1)], H)
-    vseq = (now + (fab.spine_delay_slots - cfg.net_delay_slots)).expand(U)
+    dst = torch.where(any_e, S["dst"].gather(1, msg.clamp_max(M - 1).long()),
+                      H)
+    vseq = (now + (fab.spine_delay_slots - cfg.net_delay_slots)).expand(B, U)
     r_msg, r_prio, r_seq, r_valid, d_drop = ring_insert(
         st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
         dst, any_e, msg, prio, vseq)
 
-    qlen = eligible.sum(dim=1, dtype=I32) - any_e.to(I32)
+    qlen = eligible.sum(dim=2, dtype=I32) - any_e.to(I32)
     return {**st,
             "r_msg": r_msg, "r_prio": r_prio, "r_seq": r_seq,
             "r_valid": r_valid, "u_valid": u_valid,
@@ -270,5 +295,5 @@ def uplink_drain(cfg, st, S, now):
 
 
 __all__ = ["FabricConfig", "ROUTING_POLICIES", "spine_hash", "ring_insert",
-           "ring_drain_select", "drain_select", "init_fabric_state",
-           "route_chunks", "uplink_drain"]
+           "ring_drain_select", "drain_select", "take_slot", "clear_slot",
+           "init_fabric_state", "route_chunks", "uplink_drain"]

@@ -5,7 +5,12 @@ phost, pias, pfabric, ndp), the same registry and the same int32 key
 packing, so every slot computes what the JAX package computes, bit for
 bit. Policies are plain functions of tensors; ``cfg.device`` places the
 state they create and ``cfg.backend`` routes the grant top-K to the
-hand-written CUDA kernel or its plain version (``kernels.arbiter``).
+hand-written CUDA kernels or their plain versions (``kernels.arbiter``).
+
+Every tensor carries a leading run axis B: per-message arrays are
+``(B, M)``, per-host ``(B, H)``, and run b is an independent copy of the
+JAX package's single run. ``cm`` (each host's chosen message) is a
+``(B, H)`` int64 index, so policies gather with it directly.
 
   ``SenderPolicy``    which message each host transmits next and the
                       priority stamped on the outgoing chunk.
@@ -41,15 +46,16 @@ class SenderPolicy:
     """Chunk selection order + priority stamping at the sending host."""
 
     def order(self, cfg, st, S, now, remaining):
-        """(M,) int32 key; per host, the sendable message with the smallest
-        key transmits this slot (ties break toward the smallest msg id)."""
+        """(B, M) int32 key; per host, the sendable message with the
+        smallest key transmits this slot (ties break toward the smallest
+        msg id)."""
         raise NotImplementedError
 
     def chunk_prio(self, cfg, st, S, cm, unsched, n_sched):
-        """(H,) int32 wire priority for each host's chosen chunk (smaller =
-        served first), honoured by every queueing tier the chunk crosses.
-        ``cm`` is the chosen message per host (clamped), ``unsched`` marks
-        chunks inside the blind window."""
+        """(B, H) int32 wire priority for each host's chosen chunk (smaller
+        = served first), honoured by every queueing tier the chunk crosses.
+        ``cm`` is the chosen message per host (clamped, int64), ``unsched``
+        marks chunks inside the blind window."""
         raise NotImplementedError
 
     def on_send(self, cfg, st, S, cm, has, now):
@@ -83,7 +89,7 @@ class FairShareSender(SenderPolicy):
     def on_send(self, cfg, st, S, cm, has, now):
         # hosts that send nothing write back the old value at their clamped
         # index; the last write to an index wins, as in the JAX scatter
-        vals = torch.where(has, now, st["last_sent"][cm])
+        vals = torch.where(has, now, st["last_sent"].gather(1, cm))
         return {**st, "last_sent": set_drop(st["last_sent"], cm, vals,
                                             last_writer(cm))}
 
@@ -94,12 +100,25 @@ class FairShareSender(SenderPolicy):
 class ReceiverPolicy:
     """Grant issue + scheduled-priority assignment + overcommit degree."""
 
-    def grants(self, cfg, st, S, now, n_sched):
-        """Returns ``(grant_r, sched_prio, active, withheld)``: (M,) granted
-        slots, (M,) scheduled priority, (M,) bool mask of messages the
-        receivers actively schedule, and (H,) bool — hosts with
-        known-but-ungranted traffic (wasted-bandwidth accounting)."""
+    def grants(self, cfg, st, S, now, n_sched, topk=None):
+        """Returns ``(grant_r, sched_prio, active, withheld)``: (B, M)
+        granted slots, (B, M) scheduled priority, (B, M) bool mask of
+        messages the receivers actively schedule, and (B, H) bool — hosts
+        with known-but-ungranted traffic (wasted-bandwidth accounting).
+
+        ``topk`` is the precomputed ``(vals, idx)`` answer to this
+        policy's :meth:`grant_problem` — supplied by the ``fused``
+        backend, which solves it inside the fused per-slot kernel
+        (DESIGN.md §11). Policies without a grant problem ignore it."""
         raise NotImplementedError
+
+    def grant_problem(self, cfg, st, S, now, n_sched):
+        """The top-K selection this policy would issue this slot, as
+        ``(keys (B, H, M), K)`` for the fused kernel — or ``None`` if the
+        policy selects no grant set (window receivers). Must read exactly
+        the state :meth:`grants` reads, so solving it at slot start is
+        bit-identical to solving it inside :meth:`grants`."""
+        return None
 
 
 def window_grants(cfg, st, S, gate):
@@ -110,15 +129,17 @@ def window_grants(cfg, st, S, gate):
                                         st["recv"] + cfg.rtt_slots),
                           st["grant_r"])
     grant_r = torch.maximum(grant_r, st["grant_r"])
-    no_withheld = torch.zeros((cfg.n_hosts,), dtype=torch.bool,
-                              device=gate.device)
+    no_withheld = torch.zeros((gate.shape[0], cfg.n_hosts),
+                              dtype=torch.bool, device=gate.device)
     return grant_r, torch.zeros_like(st["sched_prio"]), gate, no_withheld
 
 
 def srpt_grant_matrix(cfg, st, S, eligible, K):
     """The receiver-side SRPT selection problem as a dense key matrix:
-    ``(keys (H, M), K)`` where row h holds the grant key of every message
-    destined to host h (0 = ineligible) and K is clamped to M.
+    ``(keys (B, H, M), K)`` where row h of run b holds the grant key of
+    every message destined to host h (0 = ineligible) and K is clamped to
+    M. The kernels see it as ``B * H`` rows (staged) or as ``(B, H, M)``
+    (fused).
 
     The key orders by (remaining, msg): smaller remaining wins, ties break
     toward the SMALLEST msg id. A stable active set is what gives SRPT its
@@ -127,43 +148,53 @@ def srpt_grant_matrix(cfg, st, S, eligible, K):
     incast, where all messages are the same size)."""
     size, dst_oh = S["size"], S["dst_onehot"]
     remaining = (size - st["recv"]).clamp_min(0)
-    K = min(K, size.shape[0])        # can't select more than M messages
+    K = min(K, size.shape[1])        # can't select more than M messages
     keyval = (((1 << 17) - remaining.clamp_max((1 << 17) - 1)) << MSG_BITS) \
         | (MSG_MOD - 1 - S["msg_ids"])
-    mat = torch.where(dst_oh & eligible[None, :], keyval[None, :], 0)
+    mat = torch.where(dst_oh & eligible[:, None, :], keyval[:, None, :], 0)
     return mat, K
 
 
-def topk_srpt_grants(cfg, st, S, eligible, K, n_sched):
+def topk_srpt_grants(cfg, st, S, eligible, K, n_sched, topk=None):
     """Each receiver grants its top-K SRPT messages one RTT ahead and
     assigns scheduled priorities lowest-levels-first (paper §3.4/Fig. 5),
     shortest message on the highest scheduled level. The top-K is the
-    ``srpt_topk`` kernel on ``backend="cuda"``; its index output IS the
-    winning message id (columns of the key matrix)."""
+    ``srpt_topk`` kernel on ``backend="cuda"`` (all runs' rows in one
+    launch); its index output IS the winning message id (columns of the
+    key matrix). The ``fused`` backend passes the selection in pre-solved
+    (``topk=(vals, idx)``, from the fused slot kernel — DESIGN.md §11)."""
     size, dst_oh = S["size"], S["dst_onehot"]
-    M = size.shape[0]
-    mat, K = srpt_grant_matrix(cfg, st, S, eligible, K)
-    vals, idx = dispatch.topk(mat, K, backend=cfg.backend)         # (H, K)
+    B, M = size.shape
+    if topk is None:
+        mat, K = srpt_grant_matrix(cfg, st, S, eligible, K)
+        H = mat.shape[1]
+        vals, idx = dispatch.topk(mat.view(B * H, M), K,
+                                  backend=cfg.backend)
+        vals, idx = vals.view(B, H, K), idx.view(B, H, K)
+    else:
+        vals, idx = topk
+        K = vals.shape[-1]
     valid = vals > 0
-    n_active = valid.sum(dim=1, dtype=I32)                          # (H,)
+    n_active = valid.sum(dim=2, dtype=I32)                        # (B, H)
     # scheduled priority: rank r (0 = fewest remaining) among A active gets
     # level (A-1-r): lowest levels used first, shortest on top (paper §3.4)
     ranks = torch.arange(K, dtype=I32, device=vals.device)
-    prio = (n_active[:, None] - 1 - ranks[None, :]).clamp(
-        0, max(n_sched - 1, 0))
+    prio = (n_active[:, :, None] - 1 - ranks).clamp(0, max(n_sched - 1, 0))
 
     # invalid entries are the JAX package's MSG_MOD sentinel, dropped
-    flat_msgs, flat_valid = idx.reshape(-1), valid.reshape(-1)
+    flat_msgs, flat_valid = idx.reshape(B, -1), valid.reshape(B, -1)
     new_grant = torch.minimum(size, st["recv"] + cfg.rtt_slots)
     grant_r = amax_drop(
         st["grant_r"], flat_msgs,
-        torch.where(flat_valid, new_grant[flat_msgs.clamp(0, M - 1)], 0),
+        torch.where(flat_valid,
+                    new_grant.gather(1, flat_msgs.clamp(0, M - 1).long()),
+                    0),
         flat_valid)
-    sched_prio = set_drop(st["sched_prio"], flat_msgs, prio.reshape(-1),
+    sched_prio = set_drop(st["sched_prio"], flat_msgs, prio.reshape(B, -1),
                           flat_valid)
     active = set_drop(torch.zeros_like(eligible), flat_msgs, flat_valid,
                       flat_valid)
-    withheld = (dst_oh & (eligible & ~active)[None, :]).any(dim=1)
+    withheld = (dst_oh & (eligible & ~active)[:, None, :]).any(dim=2)
     return grant_r, sched_prio, active, withheld
 
 
@@ -173,7 +204,7 @@ class WindowReceiver(ReceiverPolicy):
     (``blind=True``) incomplete message; no receiver-side scheduling."""
     blind: bool = False
 
-    def grants(self, cfg, st, S, now, n_sched):
+    def grants(self, cfg, st, S, now, n_sched, topk=None):
         if self.blind:
             gate = (S["arrival"] <= now) & (st["completion"] < 0)
         else:
@@ -202,9 +233,13 @@ class OvercommitSrptReceiver(ReceiverPolicy):
             eligible = eligible & (st["stall_until"] <= now)
         return eligible
 
-    def grants(self, cfg, st, S, now, n_sched):
+    def grants(self, cfg, st, S, now, n_sched, topk=None):
         return topk_srpt_grants(cfg, st, S, self._eligible(cfg, st, now),
-                                self._k(cfg, n_sched), n_sched)
+                                self._k(cfg, n_sched), n_sched, topk=topk)
+
+    def grant_problem(self, cfg, st, S, now, n_sched):
+        return srpt_grant_matrix(cfg, st, S, self._eligible(cfg, st, now),
+                                 self._k(cfg, n_sched))
 
 
 # ------------------------------------------------------------- protocols ---
@@ -234,9 +269,9 @@ class Protocol:
         """Number of scheduled priority levels (static loop parameter)."""
         return max(cfg.overcommit or alloc.n_sched, 1)
 
-    def extra_state(self, cfg, M):
-        """Protocol-private loop state — only the protocols that need an
-        array pay for carrying it."""
+    def extra_state(self, cfg, M, B):
+        """Protocol-private loop state of B runs — only the protocols that
+        need an array pay for carrying it."""
         return {}
 
     # ---- per-slot hooks ----
@@ -250,8 +285,8 @@ class Protocol:
         return st
 
 
-def _zeros_m(cfg, M):
-    return torch.zeros((M,), dtype=I32, device=cfg.device)
+def _zeros_m(cfg, M, B):
+    return torch.zeros((B, M), dtype=I32, device=cfg.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,7 +295,7 @@ class ConstPrioSender(SrptSender):
     level: int = 0
 
     def chunk_prio(self, cfg, st, S, cm, unsched, n_sched):
-        return torch.full_like(cm, self.level)
+        return torch.full_like(cm, self.level, dtype=I32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,8 +312,8 @@ class HomaSender(SrptSender):
     the workload CDF, scheduled levels from the grant's priority field."""
 
     def chunk_prio(self, cfg, st, S, cm, unsched, n_sched):
-        up = cfg.n_prios - 1 - S["uprio"][cm]       # inverted: smaller=better
-        sp = n_sched - 1 - st["sched_prio"][cm]     # within scheduled band
+        up = cfg.n_prios - 1 - S["uprio"].gather(1, cm)  # smaller = better
+        sp = n_sched - 1 - st["sched_prio"].gather(1, cm)  # scheduled band
         sched_inv = (cfg.n_prios - n_sched) + sp    # scheduled below unsched
         # unscheduled levels sit above (smaller inv value) all scheduled
         return torch.where(unsched, up, sched_inv)
@@ -330,17 +365,17 @@ class Phost(Protocol):
     def unsched_prio(self, cfg, sizes, alloc):
         return np.full((len(sizes),), cfg.n_prios - 1)
 
-    def extra_state(self, cfg, M):
-        return {"stall_until": _zeros_m(cfg, M),       # timeout blacklist
-                "last_progress": _zeros_m(cfg, M)}
+    def extra_state(self, cfg, M, B):
+        return {"stall_until": _zeros_m(cfg, M, B),    # timeout blacklist
+                "last_progress": _zeros_m(cfg, M, B)}
 
     def post_step(self, cfg, st, S, now, active, drained_msg, any_elig):
         # if the single granted message makes no progress for `timeout`
         # slots, blacklist it briefly so the receiver switches to another
         # message (approximates pHost's sender-timeout mechanism).
-        M = S["size"].shape[0]
+        M = S["size"].shape[1]
         lp = torch.maximum(st["last_progress"], S["arrival"])
-        lp = lp.scatter_reduce(0, drained_msg.clamp_max(M - 1).long(),
+        lp = lp.scatter_reduce(1, drained_msg.clamp_max(M - 1).long(),
                                torch.where(any_elig, now, 0), "amax",
                                include_self=True)
         timed_out = active & (st["grant_r"] > st["recv"]) & \
@@ -356,7 +391,7 @@ class PiasSender(FairShareSender):
     the precomputed thresholds (level 0 first, demoted upward)."""
 
     def chunk_prio(self, cfg, st, S, cm, unsched, n_sched):
-        return torch.searchsorted(S["pias_cuts"], st["sent"][cm],
+        return torch.searchsorted(S["pias_cuts"], st["sent"].gather(1, cm),
                                   right=True, out_int32=True)
 
 
@@ -367,8 +402,8 @@ class Pias(Protocol):
     receiver: ReceiverPolicy = dataclasses.field(
         default_factory=lambda: WindowReceiver(blind=True))
 
-    def extra_state(self, cfg, M):
-        return {"last_sent": _zeros_m(cfg, M)}        # round-robin clock
+    def extra_state(self, cfg, M, B):
+        return {"last_sent": _zeros_m(cfg, M, B)}     # round-robin clock
 
     def unsched_limit(self, cfg, M, unsched_limit_bytes):
         return np.full((M,), cfg.rtt_bytes)          # blind first window
@@ -379,7 +414,8 @@ class PfabricSender(SrptSender):
     """Continuous priority = remaining slots (pFabric's ideal SRPT wire)."""
 
     def chunk_prio(self, cfg, st, S, cm, unsched, n_sched):
-        return (S["size"][cm] - st["sent"][cm]).clamp_min(0)
+        return (S["size"].gather(1, cm)
+                - st["sent"].gather(1, cm)).clamp_min(0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -405,16 +441,17 @@ class Ndp(Protocol):
     def unsched_prio(self, cfg, sizes, alloc):
         return np.full((len(sizes),), cfg.n_prios - 1)
 
-    def extra_state(self, cfg, M):
-        return {"last_served": _zeros_m(cfg, M)}      # fair-share clock
+    def extra_state(self, cfg, M, B):
+        return {"last_served": _zeros_m(cfg, M, B)}   # fair-share clock
 
     def on_drain(self, cfg, st, S, drained_msg, any_elig, now):
         # as in the JAX package, a host that drained nothing (drained_msg
         # == M) still stamps message M-1; every write is `now`, so the
         # order of duplicate writes cannot matter
-        M = S["size"].shape[0]
-        ls = st["last_served"].index_fill(
-            0, drained_msg.clamp_max(M - 1).long(), now)
+        M = S["size"].shape[1]
+        ls = st["last_served"].scatter(
+            1, drained_msg.clamp_max(M - 1).long(),
+            now.expand(drained_msg.shape))
         return {**st, "last_served": ls}
 
 

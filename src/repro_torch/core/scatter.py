@@ -1,10 +1,16 @@
-"""Scatters with the JAX package's ``mode="drop"`` and write-order rules.
+"""Scatters with the JAX package's ``mode="drop"`` and write-order rules,
+on tensors with a leading run axis.
 
 JAX drops an out-of-range scatter index; torch raises on it, and an index
 clamped into range would race a genuine write to the same place on the
 card. These helpers route every suppressed write to one spare element
-past the end of a flat copy of the target, which is then cut off, so a
-suppressed write can never land on live data.
+past the end of each run's flat copy of the target, which is then cut
+off, so a suppressed write can never land on live data.
+
+Every target ``a`` is ``(B, ...)``: B runs, each an independent copy of
+the JAX package's array. Indices are ``(B, n)`` flat indices into one
+run's elements, so run b's write i lands at ``b * a[0].numel() +
+idx[b, i]`` and never in another run.
 """
 from __future__ import annotations
 
@@ -12,43 +18,52 @@ import torch
 
 
 def _flat_with_spare(a):
-    return torch.cat([a.reshape(-1), a.new_zeros(1)])
+    B = a.shape[0]
+    return torch.cat([a.reshape(B, -1), a.new_zeros((B, 1))], dim=1)
+
+
+def _target(idx, keep, n):
+    return torch.where(keep, idx.long(), n)
 
 
 def set_drop(a, idx, vals, keep):
-    """``a.flat[idx[i]] = vals[i]`` where ``keep[i]``; other writes vanish.
+    """``a[b].flat[idx[b, i]] = vals[b, i]`` where ``keep[b, i]``; other
+    writes vanish.
 
-    ``idx`` holds flat indices into ``a`` (any integer dtype), ``keep`` is
-    bool of the same length, ``vals`` a tensor on ``a``'s device (a Python
-    scalar would be copied from the host, a sync inside the slot loop).
-    Kept indices must be distinct (or carry equal values), as in every
+    ``idx`` holds ``(B, n)`` per-run flat indices into ``a`` (any integer
+    dtype), ``keep`` is bool of the same shape, ``vals`` a tensor of that
+    shape and of ``a``'s dtype, on ``a``'s device (a Python scalar would
+    be copied from the host, a sync inside the slot loop). Kept indices
+    of one run must be distinct (or carry equal values), as in every
     caller. Returns a new tensor shaped like ``a``."""
-    n = a.numel()
+    n = a[0].numel()
     flat = _flat_with_spare(a)
-    flat[torch.where(keep, idx.long(), n)] = vals
-    return flat[:n].view(a.shape)
+    flat.scatter_(1, _target(idx, keep, n), vals)
+    return flat[:, :n].reshape(a.shape)
 
 
 def amax_drop(a, idx, vals, keep):
-    """``a.flat[idx[i]] = max(a.flat[idx[i]], vals[i])`` where ``keep[i]``
+    """``a[b].flat[idx[b, i]] = max(that, vals[b, i])`` where ``keep[b, i]``
     (JAX ``.at[idx].max(vals, mode="drop")`` with the dropped writes
     named by ``~keep``). Returns a new tensor shaped like ``a``."""
-    n = a.numel()
+    n = a[0].numel()
     flat = _flat_with_spare(a)
-    flat.scatter_reduce_(0, torch.where(keep, idx.long(), n), vals, "amax",
+    flat.scatter_reduce_(1, _target(idx, keep, n), vals, "amax",
                          include_self=True)
-    return flat[:n].view(a.shape)
+    return flat[:, :n].reshape(a.shape)
 
 
 def last_writer(idx):
-    """``(n,)`` bool: True where no later position writes the same index.
+    """``(B, n)`` bool: True where no later position of the same run
+    writes the same index.
 
     A JAX ``.at[idx].set(vals)`` on the CPU applies its updates in order,
     so among duplicate indices the last one wins. Keeping only those
-    writes gives the same result on any device, in any write order."""
-    n = idx.shape[0]
+    writes gives the same result on any device, in any write order. The
+    comparison is per run, ``(B, n, n)``, never across runs."""
+    n = idx.shape[-1]
     later = torch.ones(n, n, dtype=torch.bool, device=idx.device).triu_(1)
-    return ~((idx[:, None] == idx[None, :]) & later).any(dim=1)
+    return ~((idx[:, :, None] == idx[:, None, :]) & later).any(dim=2)
 
 
 __all__ = ["set_drop", "amax_drop", "last_writer"]

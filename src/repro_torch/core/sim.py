@@ -14,11 +14,19 @@ operations on one device (a CUDA card unless the caller passes
   downlinks   drain one chunk per receiver, strict priority first and
               FIFO within a level (``priority_arbiter`` again)
 
-Integer outputs are bit-identical to the JAX package's ``simulate``.
-The loop never reads a value back to the host: the slot counter is a
-device tensor, so a later change can capture slots as a CUDA graph.
+``backend="fused"`` solves all three arbitration stages in one launch of
+the ``fused_slot`` kernel at slot start (``_fused_precompute``).
 
-Entry point: ``simulate(cfg, table)`` -> :class:`SimResult`.
+The step carries a leading run axis B on every state tensor: a sweep
+steps B independent runs at once (``run_sweep``), and ``simulate`` is
+the case B = 1 — there is one step function. Integer outputs of every
+run are bit-identical to the JAX package's ``simulate``. The loop never
+reads a value back to the host: the slot counter is a device tensor, so
+a later change can capture slots as a CUDA graph.
+
+Entry points: ``simulate(cfg, table)`` -> :class:`SimResult`;
+``run_sweep(cfg, spec)`` -> one result per run of a
+:class:`repro_torch.core.sweep.SweepSpec`.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ from repro_torch.core.protocols import (BIG, I32, MSG_BITS, MSG_MOD,
                                         Protocol, get_protocol)
 from repro_torch.core.results import SimResult
 from repro_torch.core.workloads import MessageTable
-from repro_torch.kernels.arbiter.dispatch import resolve_backend
+from repro_torch.kernels.arbiter import dispatch
 
 
 def resolve_device(device) -> str:
@@ -74,8 +82,10 @@ class SimConfig:
     host: str | None = None
     # in-loop telemetry: not ported, only None
     trace: object | None = None
-    # "cuda" (the hand-written kernels) | "reference" (their plain
-    # versions); None: "cuda" on a CUDA device, "reference" on the CPU
+    # "cuda" (the staged hand-written kernels) | "fused" (one fused kernel
+    # launch per slot; the plain fused version on the CPU) | "reference"
+    # (the plain versions); None: "cuda" on a CUDA device, "reference" on
+    # the CPU
     backend: str | None = None
     # a knob of the JAX package's Pallas kernels; the port has none
     pallas_interpret: bool | None = None
@@ -99,7 +109,8 @@ class SimConfig:
                              "none")
         object.__setattr__(self, "device", resolve_device(self.device))
         object.__setattr__(self, "backend",
-                           resolve_backend(self.backend, self.device))
+                           dispatch.resolve_backend(self.backend,
+                                                    self.device))
         if self.fabric is not None:
             self.fabric.validate(self.n_hosts)
 
@@ -121,7 +132,9 @@ def _to_slots(nbytes: np.ndarray, slot_bytes: int) -> np.ndarray:
 def prepare(cfg: SimConfig, table: MessageTable,
             alloc: PriorityAllocation | None = None,
             unsched_limit_bytes: int | np.ndarray | None = None):
-    """Static per-message tensors for the loop, on ``cfg.device``."""
+    """Static per-message tensors of one run, on ``cfg.device``, keyed and
+    shaped as the JAX package's ``prepare``; :func:`stack_static` gives
+    them the run axis the loop carries."""
     proto = get_protocol(cfg.protocol)
     M = len(table.size)
     if M > MSG_MOD:
@@ -179,40 +192,47 @@ def prepare(cfg: SimConfig, table: MessageTable,
             for k, v in static.items()}, alloc
 
 
-def _init_state(cfg: SimConfig, proto: Protocol, M: int):
+def stack_static(statics: list[dict]) -> dict:
+    """The :func:`prepare` statics of B runs of one shape, stacked on a
+    leading run axis."""
+    return {k: torch.stack([S[k] for S in statics]) for k in statics[0]}
+
+
+def _init_state(cfg: SimConfig, proto: Protocol, M: int, B: int = 1):
+    """Slot-0 state of B runs: every tensor has a leading run axis."""
     H, cap, Dg = cfg.n_hosts, cfg.ring_cap, cfg.grant_delay_slots
     dev = cfg.device
 
-    def z(shape):
-        return torch.zeros(shape, dtype=I32, device=dev)
+    def z(*shape):
+        return torch.zeros((B, *shape), dtype=I32, device=dev)
 
-    def full(shape, v):
-        return torch.full(shape, v, dtype=I32, device=dev)
+    def full(v, *shape):
+        return torch.full((B, *shape), v, dtype=I32, device=dev)
 
     return {
-        **proto.extra_state(cfg, M),          # protocol-private carry
-        **(init_fabric_state(cfg) if cfg.fabric_on else {}),
-        "sent": z((M,)),
-        "granted_s": z((M,)),                 # sender-visible grant (slots)
-        "grant_r": z((M,)),                   # receiver-issued grant (slots)
-        "recv": z((M,)),
-        "sched_prio": z((M,)),
-        "completion": full((M,), -1),
+        **proto.extra_state(cfg, M, B),       # protocol-private carry
+        **(init_fabric_state(cfg, B) if cfg.fabric_on else {}),
+        "sent": z(M),
+        "granted_s": z(M),                    # sender-visible grant (slots)
+        "grant_r": z(M),                      # receiver-issued grant (slots)
+        "recv": z(M),
+        "sched_prio": z(M),
+        "completion": full(-1, M),
         # downlink rings; a chunk's network-arrival time is r_seq +
         # net_delay_slots
-        "r_msg": full((H, cap), -1),
-        "r_prio": full((H, cap), BIG),        # smaller = served first
-        "r_seq": full((H, cap), BIG),
-        "r_valid": torch.zeros((H, cap), dtype=torch.bool, device=dev),
+        "r_msg": full(-1, H, cap),
+        "r_prio": full(BIG, H, cap),          # smaller = served first
+        "r_seq": full(BIG, H, cap),
+        "r_valid": torch.zeros((B, H, cap), dtype=torch.bool, device=dev),
         # delayed receiver state (grant/prio propagation)
-        "hist_grant": z((Dg, M)),
-        "hist_prio": z((Dg, M)),
+        "hist_grant": z(Dg, M),
+        "hist_prio": z(Dg, M),
         # stats
-        "busy": z((H,)), "wasted": z((H,)), "lost": z(()),
-        "q_sum": torch.zeros((H,), dtype=torch.float32, device=dev),
-        "q_max": z((H,)),
-        "prio_drained": z((cfg.n_prios,)),
-        "uplink_busy": z((H,)),
+        "busy": z(H), "wasted": z(H), "lost": z(),
+        "q_sum": torch.zeros((B, H), dtype=torch.float32, device=dev),
+        "q_max": z(H),
+        "prio_drained": z(cfg.n_prios),
+        "uplink_busy": z(H),
     }
 
 
@@ -224,33 +244,83 @@ def _sender_select(cfg: SimConfig, proto: Protocol, st, S, now):
     remaining = (size - st["sent"]).clamp_min(0)
     order = proto.sender.order(cfg, st, S, now, remaining)
     key = torch.where(sendable, (order << MSG_BITS) | S["msg_ids"], BIG)
-    # segment_min over the sending host; an empty host keeps BIG
-    host_min = torch.full((cfg.n_hosts,), BIG, dtype=I32,
+    # segment_min over the sending host of each run (segment b * H + src,
+    # as a scatter along the message axis of a (B, H) target); an empty
+    # host keeps BIG
+    host_min = torch.full((key.shape[0], cfg.n_hosts), BIG, dtype=I32,
                           device=key.device).scatter_reduce_(
-        0, src.long(), key, "amin", include_self=True)
+        1, src.long(), key, "amin", include_self=True)
     has = host_min < BIG
-    chosen = torch.where(has, host_min & (MSG_MOD - 1), MSG_MOD)   # (H,)
+    chosen = torch.where(has, host_min & (MSG_MOD - 1), MSG_MOD)  # (B, H)
     return chosen, has
 
 
+def _fused_precompute(cfg: SimConfig, proto: Protocol, S, n_sched: int,
+                      st, now) -> dict:
+    """``fused`` backend (DESIGN.md §11): solve ALL of this slot's
+    arbitration — downlink drain, TOR uplink drain, SRPT grant top-K — in
+    one kernel launch at slot start, before the stages that normally
+    interleave with them. Returns per-stage answers: ``"down"``/``"up"``
+    -> the ``drain_select`` triple, ``"topk"`` -> ``(vals, idx)`` for
+    ``ReceiverPolicy.grants``; ``{}`` when nothing is fusable.
+
+    Hoisting the drains is bit-exact because every chunk inserted later
+    in the slot is ineligible until the next slot (``net_delay_slots >=
+    1`` / ``leaf_delay_slots >= 1`` / validated ``spine_delay_slots >=
+    1``) and ``ring_insert`` only ever writes invalid slots, so the
+    winners and their payloads are unchanged. A stage whose delay
+    precondition fails is simply not fused — the staged kernel runs at
+    its usual point instead. (The JAX package's host-RX and fault
+    branches belong to options the port does not run yet.)"""
+    fuse_down = cfg.net_delay_slots >= 1
+    fuse_up = cfg.fabric_on and cfg.fabric.leaf_delay_slots >= 1
+    prob = proto.receiver.grant_problem(cfg, st, S, now, n_sched)
+    down = up = None
+    if fuse_down:
+        eligible = st["r_valid"] & (st["r_seq"] + cfg.net_delay_slots
+                                    <= now)
+        down = (st["r_prio"], st["r_seq"], eligible)
+    if fuse_up:
+        u_elig = st["u_valid"] & (st["u_seq"] + cfg.fabric.leaf_delay_slots
+                                  <= now)
+        up = (st["u_prio"], st["u_seq"], u_elig)
+    if down is None and up is None and prob is None:
+        return {}
+    out = dispatch.fused_slot(down=down, up=up, topk=prob, backend="fused")
+    fused = {}
+    for name in ("down", "up"):
+        if name in out:
+            bp, bi = out[name]
+            fused[name] = (bi, bp < BIG, bp)
+    if "topk" in out:
+        fused["topk"] = out["topk"]
+    return fused
+
+
 def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now):
-    """One link-time slot: policy-agnostic orchestration of receivers,
-    uplinks, the network, and the priority-queue downlinks. ``now`` is a
-    0-d int32 tensor on the state's device."""
+    """One link-time slot of B runs: policy-agnostic orchestration of
+    receivers, uplinks, the network, and the priority-queue downlinks.
+    ``S`` and ``st`` carry a leading run axis; ``now`` is a 0-d int32
+    tensor on the state's device, shared by all runs."""
     H, Dg = cfg.n_hosts, cfg.grant_delay_slots
-    M = S["size"].shape[0]
+    B, M = S["size"].shape
+
+    # ---- 0. fused backend: one kernel for ALL of this slot's
+    # arbitration (DESIGN.md §11); {} when nothing is fusable
+    fused = _fused_precompute(cfg, proto, S, n_sched, st, now) \
+        if cfg.backend == "fused" else {}
 
     # ---- 1. receiver policy (current state), store into delay history
     grant_r, sched_prio, active, withheld = proto.receiver.grants(
-        cfg, st, S, now, n_sched)
+        cfg, st, S, now, n_sched, topk=fused.get("topk"))
     st = {**st, "grant_r": grant_r, "sched_prio": sched_prio}
     row = (now % Dg).long().view(1)
-    hist_grant = st["hist_grant"].index_copy(0, row, grant_r[None])
-    hist_prio = st["hist_prio"].index_copy(0, row, sched_prio[None])
+    hist_grant = st["hist_grant"].index_copy(1, row, grant_r[:, None])
+    hist_prio = st["hist_prio"].index_copy(1, row, sched_prio[:, None])
     # sender sees the entry written Dg-1 slots ago
     vis = ((now + 1) % Dg).long().view(1)
-    grant_vis = hist_grant.index_select(0, vis)[0]
-    prio_vis = hist_prio.index_select(0, vis)[0]
+    grant_vis = hist_grant.index_select(1, vis)[:, 0]
+    prio_vis = hist_prio.index_select(1, vis)[:, 0]
 
     arrived = S["arrival"] <= now
     blind = torch.where(arrived, S["unsched"], 0)
@@ -263,36 +333,43 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now):
 
     # ---- 2. senders pick + transmit one chunk (sender policy)
     chosen, has = _sender_select(cfg, proto, st, S, now)
-    cm = chosen.clamp_max(M - 1)
-    unsched_chunk = st["sent"][cm] < S["unsched"][cm]
-    prio_chunk = proto.sender.chunk_prio(cfg, st, S, cm, unsched_chunk,
+    cm = chosen.clamp_max(M - 1)                        # (B, H) int32
+    cml = cm.long()                                     # gather index
+    unsched_chunk = st["sent"].gather(1, cml) < S["unsched"].gather(1, cml)
+    prio_chunk = proto.sender.chunk_prio(cfg, st, S, cml, unsched_chunk,
                                          n_sched)
     has_i = has.to(I32)
-    st = {**st, "sent": st["sent"].index_add(0, cm, has_i),
+    st = {**st, "sent": st["sent"].scatter_add(1, cml, has_i),
           "uplink_busy": st["uplink_busy"] + has_i}
-    st = proto.sender.on_send(cfg, st, S, cm, has, now)
+    st = proto.sender.on_send(cfg, st, S, cml, has, now)
 
     # ---- 3. route chunks into the first queueing tier: the destination
     # downlink ring (single switch), or the leaf / TOR uplink rings
-    dsts = torch.where(has, S["dst"][cm], H)                  # sentinel H
+    dsts = torch.where(has, S["dst"].gather(1, cml), H)       # sentinel H
     if not cfg.fabric_on:
         r_msg, r_prio, r_seq, r_valid, n_drop = ring_insert(
             st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
-            dsts, has, cm, prio_chunk, now.expand(H))
+            dsts, has, cm, prio_chunk, now.expand(B, H))
         st = {**st, "r_msg": r_msg, "r_prio": r_prio, "r_seq": r_seq,
               "r_valid": r_valid, "lost": st["lost"] + n_drop}
     else:
         st = route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now)
-        st = uplink_drain(cfg, st, S, now)
+        st = uplink_drain(cfg, st, S, now, pre=fused.get("up"))
 
     # ---- 4. downlink drain: strict priority, FIFO within level
-    # (cfg.backend="cuda" runs the priority_arbiter kernel)
+    # (the priority_arbiter kernel on backend="cuda"; pre-solved at slot
+    # start on backend="fused" — this slot's insertions carry seq == now
+    # and cannot be eligible yet, so the hoisted winner is the same)
     eligible = st["r_valid"] & (st["r_seq"] + cfg.net_delay_slots <= now)
-    slot_idx, any_elig, pmin = drain_select(
-        st["r_prio"], st["r_seq"], eligible, backend=cfg.backend)
+    if "down" in fused:
+        slot_idx, any_elig, pmin = fused["down"]
+    else:
+        slot_idx, any_elig, pmin = drain_select(
+            st["r_prio"], st["r_seq"], eligible, backend=cfg.backend)
     drained_msg = torch.where(any_elig, take_slot(st["r_msg"], slot_idx), M)
     any_i = any_elig.to(I32)
-    recv = st["recv"].index_add(0, drained_msg.clamp_max(M - 1), any_i)
+    recv = st["recv"].scatter_add(1, drained_msg.clamp_max(M - 1).long(),
+                                  any_i)
     r_valid = clear_slot(st["r_valid"], slot_idx, any_elig)
     st = proto.on_drain(cfg, st, S, drained_msg, any_elig, now)
 
@@ -300,11 +377,12 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now):
                              now, st["completion"])
 
     # ---- 5. stats
-    qlen = eligible.sum(dim=1, dtype=I32) - any_i
+    qlen = eligible.sum(dim=2, dtype=I32) - any_i
     drained_prio = torch.where(any_elig, pmin.clamp_max(cfg.n_prios - 1), 0)
-    prio_drained = st["prio_drained"].index_add(0, drained_prio, any_i)
+    prio_drained = st["prio_drained"].scatter_add(1, drained_prio.long(),
+                                                  any_i)
     known_inc = (recv > 0) & (completion < 0)
-    has_known = (S["dst_onehot"] & known_inc[None, :]).any(dim=1)
+    has_known = (S["dst_onehot"] & known_inc[:, None, :]).any(dim=2)
     wasted = st["wasted"] + (~any_elig & withheld & has_known).to(I32)
 
     st = {**st, "recv": recv, "r_valid": r_valid, "completion": completion,
@@ -319,8 +397,9 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now):
 
 def run_slots(cfg: SimConfig, proto: Protocol, S, st, n_sched: int,
               start: int, stop: int):
-    """Step the state through slots ``start .. stop-1``. Nothing is read
-    back to the host, so the loop only enqueues work on a card."""
+    """Step the (stacked) state through slots ``start .. stop-1``.
+    Nothing is read back to the host, so the loop only enqueues work on a
+    card."""
     now = torch.full((), start, dtype=I32, device=cfg.device)
     with torch.inference_mode():
         for _ in range(start, stop):
@@ -329,11 +408,18 @@ def run_slots(cfg: SimConfig, proto: Protocol, S, st, n_sched: int,
     return st
 
 
-def _finalize(cfg: SimConfig, table: MessageTable, S, alloc, st,
+def host_state(st: dict) -> dict:
+    """Numpy copies of a (stacked) state, for :func:`_finalize`."""
+    return {k: v.cpu().numpy() for k, v in st.items()}
+
+
+def _finalize(cfg: SimConfig, table: MessageTable, S, alloc, st, b: int,
               return_state: bool) -> SimResult:
-    """Numpy post-processing of one run's final state (host copies)."""
+    """Numpy post-processing of run ``b``: ``S`` is its :func:`prepare`
+    statics, ``st`` the stacked final state of its batch
+    (:func:`host_state`)."""
     S = {k: v.cpu().numpy() for k, v in S.items()}
-    st = {k: v.cpu().numpy() for k, v in st.items()}
+    st = {k: v[b] for k, v in st.items()}
     size_slots = S["size"]
     arrival = S["arrival"]
     done = st["completion"] >= 0
@@ -386,9 +472,31 @@ def simulate(cfg: SimConfig, table: MessageTable,
     S, alloc = prepare(cfg, table, alloc, unsched_limit_bytes)
     n_sched = proto.n_sched(cfg, alloc)
     st0 = _init_state(cfg, proto, len(table.size))
-    st = run_slots(cfg, proto, S, st0, n_sched, 0, cfg.max_slots)
-    return _finalize(cfg, table, S, alloc, st, return_state)
+    st = run_slots(cfg, proto, stack_static([S]), st0, n_sched, 0,
+                   cfg.max_slots)
+    return _finalize(cfg, table, S, alloc, host_state(st), 0, return_state)
 
 
-__all__ = ["SimConfig", "FabricConfig", "simulate", "prepare", "step_fn",
-           "run_slots", "SimResult", "resolve_device"]
+def run_sweep(cfg: SimConfig, spec) -> list:
+    """Run the independent simulations a
+    :class:`repro_torch.core.sweep.SweepSpec` describes, each static-shape
+    group of them as one batch on the step's run axis::
+
+        run_sweep(cfg, SweepSpec(seeds=(0, 1, 2, 3), workload="W1",
+                                 load=0.8, shared_alloc=True,
+                                 chunk_slots=512, streaming=True))
+
+    Returns one result per run, in input order: :class:`SimResult` for
+    exact sweeps, :class:`repro_torch.core.sweep.SweepStats` when
+    ``spec.streaming`` is set. Results are bit-identical to sequential
+    :func:`simulate` calls (see ``repro_torch.core.sweep``)."""
+    from repro_torch.core import sweep
+    if not isinstance(spec, sweep.SweepSpec):
+        raise TypeError(f"run_sweep(cfg, spec) takes a SweepSpec, got "
+                        f"{type(spec).__name__}")
+    return sweep.run_spec(cfg, spec)
+
+
+__all__ = ["SimConfig", "FabricConfig", "simulate", "run_sweep", "prepare",
+           "stack_static", "step_fn", "run_slots", "SimResult",
+           "resolve_device"]

@@ -101,6 +101,9 @@ class WorkloadSpec:
             raise ValueError(f"WorkloadSpec(kind={self.kind!r}) requires "
                              f"{missing}")
 
+    def with_seed(self, seed: int) -> "WorkloadSpec":
+        return dataclasses.replace(self, seed=seed)
+
     def build(self, *, n_hosts: int, slot_bytes: int = 256) -> MessageTable:
         """Generate the table for a concrete topology."""
         return _poisson_table(self, n_hosts, slot_bytes)

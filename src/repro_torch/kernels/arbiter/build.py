@@ -2,8 +2,9 @@
 
 The library has a plain C interface (no PyTorch headers), so a build
 takes seconds. It goes to ``src/repro_torch/kernels/_build/<key>/``, which
-``.gitignore`` lists, where ``<key>`` hashes the source and the flags: an
-edited source builds anew, an unchanged one loads the existing library.
+``.gitignore`` lists, where ``<key>`` hashes every file under ``csrc/``
+(the compiled source and anything it includes) and the flags: an edited
+source builds anew, an unchanged one loads the existing library.
 A build that fails raises with nvcc's output; nothing falls back to the
 plain PyTorch version.
 """
@@ -37,8 +38,10 @@ def nvcc() -> str:
 
 
 def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for f in sorted(SOURCE.parent.iterdir()):
+        h.update(b"\0" + f.name.encode() + b"\0" + f.read_bytes())
+    key = h.hexdigest()[:16]
     return BUILD_ROOT / key / "libarbiter.so"
 
 
@@ -76,6 +79,10 @@ def load_library() -> ctypes.CDLL:
     lib.arbiter_priority_launch.restype = i32
     lib.arbiter_topk_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.arbiter_topk_launch.restype = i32
+    lib.arbiter_fused_launch.argtypes = ([ptr] * 5 + [i32] * 2
+                                         + [ptr] * 5 + [i32] * 2
+                                         + [ptr] * 3 + [i32] * 4 + [ptr])
+    lib.arbiter_fused_launch.restype = i32
     lib.arbiter_error_string.argtypes = [i32]
     lib.arbiter_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,14 +1,20 @@
 // Hand-written Hopper kernels for the simulator's per-slot arbitration.
 //
-// They replace the two Pallas TPU kernels of the JAX package,
-// src/repro/kernels/arbiter/kernel.py:
-//   priority_arbiter_kernel  <- priority_arbiter (_arb_kernel)
-//   srpt_topk_kernel         <- srpt_topk (_topk_kernel)
+// They replace the Pallas TPU kernels of the JAX package:
+//   priority_arbiter_kernel  <- kernels/arbiter/kernel.py priority_arbiter
+//                               (_arb_kernel)
+//   srpt_topk_kernel         <- kernels/arbiter/kernel.py srpt_topk
+//                               (_topk_kernel)
+//   fused_slot_kernel        <- kernels/arbiter/fused.py fused_slot and
+//                               fused_slot_batch (_fused_kernel)
 //
-// Both are integer row reductions: one thread block per row, each thread
+// All are integer row reductions: one thread block per row, each thread
 // scanning a strided set of columns, then a warp-shuffle and shared-memory
-// reduction across the block. Neither keeps the TPU's (8, 128) tiles or
-// its padding: ragged widths are handled by the loop bound.
+// reduction across the block. The per-row bodies are the __device__
+// routines arb_row and topk_row; the staged kernels run one of them on
+// every row, and the fused kernel runs all of a slot's rows in one launch.
+// None keeps the TPU's (8, 128) tiles or its padding: ragged widths are
+// handled by the loop bound.
 //
 // What bounds them on an H100: the bytes each row reads (prio + seq + elig
 // = 9 B per ring slot; 4 B per key and round for the top-K) against the
@@ -20,6 +26,7 @@
 // current stream. Every launcher returns cudaGetLastError().
 
 #include <climits>
+#include <cstddef>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -53,22 +60,20 @@ __device__ __forceinline__ void arb_warp_reduce(int& bp, int& bs, int& bc) {
   }
 }
 
-// Per row: the eligible entry with the smallest (prio, seq), ties to the
-// lowest column. Ineligible entries count as (BIG, BIG), so a row with no
-// eligible entry yields (BIG, 0) like the reference.
-__global__ void __launch_bounds__(kThreads)
-priority_arbiter_kernel(const int* __restrict__ prio,
-                        const int* __restrict__ seq,
-                        const bool* __restrict__ elig,
-                        int* __restrict__ best_prio,
-                        int* __restrict__ best_idx, int cap) {
-  const int row = blockIdx.x;
-  const size_t base = static_cast<size_t>(row) * cap;
+// One row, run by a whole block: the eligible entry with the smallest
+// (prio, seq), ties to the lowest column. Ineligible entries count as
+// (BIG, BIG), so a row with no eligible entry yields (BIG, 0) like the
+// reference.
+__device__ __forceinline__ void arb_row(const int* __restrict__ prio,
+                                        const int* __restrict__ seq,
+                                        const bool* __restrict__ elig,
+                                        int cap, int* __restrict__ best_prio,
+                                        int* __restrict__ best_idx) {
   int bp = kBig, bs = kBig, bc = INT_MAX;
   for (int c = threadIdx.x; c < cap; c += kThreads) {
-    const bool e = elig[base + c];
-    const int p = e ? prio[base + c] : kBig;
-    const int s = e ? seq[base + c] : kBig;
+    const bool e = elig[c];
+    const int p = e ? prio[c] : kBig;
+    const int s = e ? seq[c] : kBig;
     if (arb_better(p, s, c, bp, bs, bc)) {
       bp = p;
       bs = s;
@@ -91,8 +96,8 @@ priority_arbiter_kernel(const int* __restrict__ prio,
     bc = lane < kWarps ? sc[lane] : INT_MAX;
     arb_warp_reduce(bp, bs, bc);
     if (lane == 0) {
-      best_prio[row] = bp;
-      best_idx[row] = bc == INT_MAX ? 0 : bc;   // cap == 0: no column
+      *best_prio = bp;
+      *best_idx = bc == INT_MAX ? 0 : bc;   // cap == 0: no column
     }
   }
 }
@@ -114,17 +119,16 @@ __device__ __forceinline__ void topk_warp_reduce(int& bk, int& bc) {
   }
 }
 
-// Per row: the K largest keys in descending order with their columns, ties
-// to the lowest column. Round r takes the block-wide best entry among
-// those strictly after round r-1's pick in that order, so no per-thread
-// top-K buffer is needed and any K works; rounds past the row's width
-// write (NEG, -1). The caller normalizes (keys clamped at 0, columns -1
-// where the key is not positive).
-__global__ void __launch_bounds__(kThreads)
-srpt_topk_kernel(const int* __restrict__ keys, int* __restrict__ vals,
-                 int* __restrict__ idx, int M, int K) {
-  const int row = blockIdx.x;
-  const int* rk = keys + static_cast<size_t>(row) * M;
+// One row of M keys, run by a whole block: the K largest keys in
+// descending order with their columns, ties to the lowest column. Round r
+// takes the block-wide best entry among those strictly after round r-1's
+// pick in that order, so no per-thread top-K buffer is needed and any K
+// works; rounds past the row's width write (NEG, -1). The caller
+// normalizes (keys clamped at 0, columns -1 where the key is not
+// positive).
+__device__ __forceinline__ void topk_row(const int* __restrict__ rk, int M,
+                                         int K, int* __restrict__ vals,
+                                         int* __restrict__ idx) {
   __shared__ int sk[kWarps], sc[kWarps];
   __shared__ int pick_k, pick_c;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -150,10 +154,9 @@ srpt_topk_kernel(const int* __restrict__ keys, int* __restrict__ vals,
       bc = lane < kWarps ? sc[lane] : INT_MAX;
       topk_warp_reduce(bk, bc);
       if (lane == 0) {
-        const size_t o = static_cast<size_t>(row) * K + r;
         const bool none = bc == INT_MAX;
-        vals[o] = none ? kNeg : bk;
-        idx[o] = none ? -1 : bc;
+        vals[r] = none ? kNeg : bk;
+        idx[r] = none ? -1 : bc;
         pick_k = bk;
         pick_c = bc;
       }
@@ -164,6 +167,86 @@ srpt_topk_kernel(const int* __restrict__ keys, int* __restrict__ vals,
     pk = pick_k;
     pc = pick_c;
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+priority_arbiter_kernel(const int* __restrict__ prio,
+                        const int* __restrict__ seq,
+                        const bool* __restrict__ elig,
+                        int* __restrict__ best_prio,
+                        int* __restrict__ best_idx, int cap) {
+  const int row = blockIdx.x;
+  const size_t base = static_cast<size_t>(row) * cap;
+  arb_row(prio + base, seq + base, elig + base, cap, best_prio + row,
+          best_idx + row);
+}
+
+__global__ void __launch_bounds__(kThreads)
+srpt_topk_kernel(const int* __restrict__ keys, int* __restrict__ vals,
+                 int* __restrict__ idx, int M, int K) {
+  const size_t row = blockIdx.x;
+  topk_row(keys + row * M, M, K, vals + row * K, idx + row * K);
+}
+
+// One slot's stages for B runs. A stage is absent when its row count is 0
+// (its pointers are then null and never read). Every array carries a
+// leading run axis of length B, contiguous: run b's down rings start at
+// b * H * cap, and so on.
+struct FusedArgs {
+  const int* d_prio;
+  const int* d_seq;
+  const bool* d_elig;
+  int* d_best_prio;
+  int* d_best_idx;
+  int H, cap;
+  const int* u_prio;
+  const int* u_seq;
+  const bool* u_elig;
+  int* u_best_prio;
+  int* u_best_idx;
+  int U, ucap;
+  const int* keys;
+  int* vals;
+  int* idx;
+  int H2, M, K;
+};
+
+// Grid (H + U + H2, B): blockIdx.y is the run, blockIdx.x walks the
+// concatenated rows of the present stages — H down rows, then U up rows,
+// then H2 top-K rows — and each block runs the matching row routine. The
+// whole grid is one launch, whatever B is.
+//
+// The TPU version keeps every operand in VMEM at once and so needs a size
+// ceiling (FUSED_VMEM_LIMIT_BYTES in the JAX package's dispatch.py) past
+// which it hands the stages to the staged kernels. Here each block reads
+// its row straight from global memory, so there is no such ceiling and no
+// fallback.
+//
+// Load balance is left as it is: a top-K row of 8000 keys and K rounds
+// takes several times as long as a ring row of 512-1024 slots, and at
+// B = 1 the grid (432 blocks) is one wave on 132 SMs.
+__global__ void __launch_bounds__(kThreads)
+fused_slot_kernel(const FusedArgs a) {
+  const size_t run = blockIdx.y;
+  int row = blockIdx.x;
+  if (row < a.H) {
+    const size_t r = run * a.H + row;
+    const size_t o = r * a.cap;
+    arb_row(a.d_prio + o, a.d_seq + o, a.d_elig + o, a.cap,
+            a.d_best_prio + r, a.d_best_idx + r);
+    return;
+  }
+  row -= a.H;
+  if (row < a.U) {
+    const size_t r = run * a.U + row;
+    const size_t o = r * a.ucap;
+    arb_row(a.u_prio + o, a.u_seq + o, a.u_elig + o, a.ucap,
+            a.u_best_prio + r, a.u_best_idx + r);
+    return;
+  }
+  row -= a.U;
+  const size_t r = run * a.H2 + row;
+  topk_row(a.keys + r * a.M, a.M, a.K, a.vals + r * a.K, a.idx + r * a.K);
 }
 
 }  // namespace
@@ -189,6 +272,45 @@ int arbiter_topk_launch(const void* keys, void* vals, void* idx, int H,
     srpt_topk_kernel<<<H, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(keys), static_cast<int*>(vals),
         static_cast<int*>(idx), M, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage pointers may be null where the stage's row count is 0. A top-K
+// stage needs K >= 1 (the wrapper checks).
+int arbiter_fused_launch(const void* d_prio, const void* d_seq,
+                         const void* d_elig, void* d_best_prio,
+                         void* d_best_idx, int H, int cap,
+                         const void* u_prio, const void* u_seq,
+                         const void* u_elig, void* u_best_prio,
+                         void* u_best_idx, int U, int ucap,
+                         const void* keys, void* vals, void* idx, int H2,
+                         int M, int K, int B, void* stream) {
+  FusedArgs a;
+  a.d_prio = static_cast<const int*>(d_prio);
+  a.d_seq = static_cast<const int*>(d_seq);
+  a.d_elig = static_cast<const bool*>(d_elig);
+  a.d_best_prio = static_cast<int*>(d_best_prio);
+  a.d_best_idx = static_cast<int*>(d_best_idx);
+  a.H = H;
+  a.cap = cap;
+  a.u_prio = static_cast<const int*>(u_prio);
+  a.u_seq = static_cast<const int*>(u_seq);
+  a.u_elig = static_cast<const bool*>(u_elig);
+  a.u_best_prio = static_cast<int*>(u_best_prio);
+  a.u_best_idx = static_cast<int*>(u_best_idx);
+  a.U = U;
+  a.ucap = ucap;
+  a.keys = static_cast<const int*>(keys);
+  a.vals = static_cast<int*>(vals);
+  a.idx = static_cast<int*>(idx);
+  a.H2 = H2;
+  a.M = M;
+  a.K = K;
+  const int rows = H + U + H2;
+  if (rows > 0 && B > 0) {
+    fused_slot_kernel<<<dim3(rows, B), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

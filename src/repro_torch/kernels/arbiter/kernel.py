@@ -1,27 +1,28 @@
 """Python entry points of the hand-written arbitration kernels.
 
-``priority_arbiter`` and ``srpt_topk`` take the tensors the simulator
-holds and run ``csrc/arbiter.cu`` (built by :mod:`.build`) on PyTorch's
-current stream. A tensor on the CPU goes to the plain version in
-:mod:`.ref` instead; a CUDA tensor launches the kernel or raises — a
-failed build or launch never falls back.
+``priority_arbiter``, ``srpt_topk``, ``fused_slot`` and
+``fused_slot_batch`` take the tensors the simulator holds and run
+``csrc/arbiter.cu`` (built by :mod:`.build`) on PyTorch's current stream.
+A tensor on the CPU goes to the plain version in :mod:`.ref` instead; a
+CUDA tensor launches the kernel or raises — a failed build or launch
+never falls back.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``priority_arbiter.launches``, ``srpt_topk.launches``), raised only where
-the kernel is launched, so a run can show that it went through the
-kernels.
+(``priority_arbiter.launches`` and so on), raised only where the kernel
+is launched, so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.arbiter.build import load_library
-from repro_torch.kernels.arbiter.ref import (BIG, NEG, priority_arbiter_ref,
+from repro_torch.kernels.arbiter.ref import (BIG, NEG, fused_slot_ref,
+                                             priority_arbiter_ref,
                                              srpt_topk_ref, topk_normalize)
 
 
-def _check(name, tensors, dtypes):
-    dev = tensors[0].device
+def _check(name, tensors, dtypes, ndim=2, device=None):
+    dev = device or tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: expected CUDA or CPU tensors, got {dev}")
     shape = tensors[0].shape
@@ -30,9 +31,10 @@ def _check(name, tensors, dtypes):
             raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-        if t.dim() != 2 or t.shape != shape:
-            raise ValueError(f"{name}: expected 2-D tensors of one shape, "
-                             f"got {tuple(shape)} and {tuple(t.shape)}")
+        if t.dim() != ndim or t.shape != shape:
+            raise ValueError(f"{name}: expected {ndim}-D tensors of one "
+                             f"shape, got {tuple(shape)} and "
+                             f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
 
@@ -88,10 +90,83 @@ def srpt_topk(keys, K: int):
     return topk_normalize(vals, idx)
 
 
+def _fused(wrapper, down, up, keys, K, batched):
+    """The body of both fused wrappers: the plain version for CPU
+    tensors; otherwise check the present stages, allocate their outputs,
+    launch ``fused_slot_kernel`` once and count it on ``wrapper``.
+    ``batched`` operands carry a leading run axis B; otherwise B = 1 and
+    the outputs have none."""
+    name = wrapper.__name__
+    stages = [s for s in (down, up) if s is not None]
+    if keys is not None:
+        stages.append((keys,))
+    if not stages:
+        raise ValueError(f"{name}: no stage given")
+    dev = stages[0][0].device
+    if dev.type == "cpu":
+        return fused_slot_ref(down, up, keys, K)
+    if keys is not None and K < 1:
+        raise ValueError(f"{name}: K must be >= 1, got {K}")
+    nd = 3 if batched else 2
+    lead = tuple(stages[0][0].shape[:1]) if batched else ()
+    for s in stages:
+        if s[0].dim() != nd or tuple(s[0].shape[:nd - 2]) != lead:
+            raise ValueError(f"{name}: expected {nd}-D operands"
+                             + (" with one leading run axis" if batched
+                                else "") + f", got {tuple(s[0].shape)}")
+    args, out = [], []
+    for s in (down, up):
+        if s is None:
+            args += [None] * 5 + [0, 0]
+            continue
+        _check(name, s, (torch.int32, torch.int32, torch.bool), nd, dev)
+        rows, cols = s[0].shape[-2:]
+        bp = torch.empty(lead + (rows,), dtype=torch.int32, device=dev)
+        bi = torch.empty_like(bp)
+        args += [t.data_ptr() for t in (*s, bp, bi)] + [rows, cols]
+        out += [bp, bi]
+    if keys is None:
+        args += [None] * 3 + [0, 0, 0]
+    else:
+        _check(name, (keys,), (torch.int32,), nd, dev)
+        rows, M = keys.shape[-2:]
+        vals = torch.empty(lead + (rows, K), dtype=torch.int32, device=dev)
+        idx = torch.empty_like(vals)
+        args += [keys.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, M,
+                 K]
+        out += [vals, idx]
+    lib = load_library()
+    rc = lib.arbiter_fused_launch(
+        *args, lead[0] if batched else 1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, name, lib)
+    wrapper.launches += 1
+    return tuple(out)
+
+
+def fused_slot(down=None, up=None, keys=None, K: int = 0):
+    """One slot's arbitration stages in one launch (B = 1). ``down``/``up``
+    are ``(prio (R, cap), seq, elig)`` drain problems as for
+    :func:`priority_arbiter`, ``keys`` an ``(H2, M)`` int32 top-K problem
+    with ``K >= 1``; each is optional. Returns the raw outputs in stage
+    order, ``[d_prio, d_idx][, u_prio, u_idx][, vals, idx]``: the
+    arbiter's ``(BIG, 0)`` for empty rows, the top-K unnormalized
+    (``(NEG, -1)`` past a row's width; callers normalize)."""
+    return _fused(fused_slot, down, up, keys, K, batched=False)
+
+
+def fused_slot_batch(down=None, up=None, keys=None, K: int = 0):
+    """:func:`fused_slot` for B runs in one launch: every operand carries a
+    leading run axis B, and so does every output."""
+    return _fused(fused_slot_batch, down, up, keys, K, batched=True)
+
+
 priority_arbiter.launches = 0
 srpt_topk.launches = 0
+fused_slot.launches = 0
+fused_slot_batch.launches = 0
 
-WRAPPERS = (priority_arbiter, srpt_topk)
+WRAPPERS = (priority_arbiter, srpt_topk, fused_slot, fused_slot_batch)
 
 
 def reset_launch_counts() -> None:
@@ -103,5 +178,5 @@ def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-__all__ = ["BIG", "NEG", "priority_arbiter", "srpt_topk",
-           "reset_launch_counts", "launch_counts"]
+__all__ = ["BIG", "NEG", "priority_arbiter", "srpt_topk", "fused_slot",
+           "fused_slot_batch", "reset_launch_counts", "launch_counts"]

@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the two arbitration kernels.
+"""Plain PyTorch versions of the arbitration kernels.
 
 These are the oracles the CUDA kernels in ``csrc/arbiter.cu`` are held
-to (``chip_smoke.py`` on the card, ``tests/test_torch_arbiter.py`` against
-``repro.kernels.arbiter.ref`` and the Pallas kernels), and what the
-``reference`` backend and every CPU tensor run.
+to (``chip_smoke.py`` on the card, ``tests/test_torch_arbiter.py`` and
+``tests/test_torch_fused.py`` against ``repro.kernels.arbiter`` and the
+Pallas kernels), and what the ``reference`` backend and every CPU tensor
+run. Every function reduces over the last axis, so operands may carry
+any leading axes (the simulator's run axis among them).
 """
 from __future__ import annotations
 
@@ -16,16 +18,17 @@ NEG = -(2 ** 30)   # missing top-K key: below every legitimate key (>= 0)
 def priority_arbiter_ref(prio, seq, elig):
     """Strict-priority, FIFO-within-level selection per row.
 
-    ``prio``/``seq`` ``(H, cap)`` int32, ``elig`` ``(H, cap)`` bool.
-    Returns ``(best_prio (H,), best_idx (H,))`` int32: the lexicographic
-    masked argmin over (prio, seq), ties to the lowest column; a row with
-    no eligible entry gives ``(BIG, 0)``. ``torch.argmin`` returns the
-    first minimal index, which is the tie rule."""
+    ``prio``/``seq`` ``(..., H, cap)`` int32, ``elig`` bool of the same
+    shape. Returns ``(best_prio (..., H), best_idx (..., H))`` int32: the
+    lexicographic masked argmin over (prio, seq), ties to the lowest
+    column; a row with no eligible entry gives ``(BIG, 0)``.
+    ``torch.argmin`` returns the first minimal index, which is the tie
+    rule."""
     p = torch.where(elig, prio, BIG)
     s = torch.where(elig, seq, BIG)
-    pmin = p.amin(dim=1)
-    s_cand = torch.where(p == pmin[:, None], s, BIG)
-    idx = s_cand.argmin(dim=1).to(torch.int32)
+    pmin = p.amin(dim=-1)
+    s_cand = torch.where(p == pmin[..., None], s, BIG)
+    idx = s_cand.argmin(dim=-1).to(torch.int32)
     return pmin, idx
 
 
@@ -35,21 +38,42 @@ def topk_normalize(vals, idx):
     return vals.clamp_min(0), torch.where(vals > 0, idx, -1)
 
 
-def srpt_topk_ref(keys, K: int):
-    """K largest keys per row plus their source columns.
-
-    Returns ``(vals (H, K), idx (H, K))`` int32: descending keys clamped
-    at 0, columns -1 where fewer than K positive keys exist. Ties go to
-    the lowest column (``lax.top_k``'s order), which ``torch.sort(stable=
-    True)`` gives and ``torch.topk`` does not promise. Rows shorter than
-    K pad with ``NEG``, never 0, which is a legitimate key."""
-    H, M = keys.shape
+def srpt_topk_raw(keys, K: int):
+    """K largest keys per row with their source columns, in the kernels'
+    raw convention: ``(vals (..., K), idx (..., K))`` int32, descending,
+    ties to the lowest column (``lax.top_k``'s order, which
+    ``torch.sort(stable=True)`` gives and ``torch.topk`` does not
+    promise); ranks past the row's width are ``(NEG, -1)``."""
+    M = keys.shape[-1]
     if M < K:
-        keys = torch.cat([keys, keys.new_full((H, K - M), NEG)], dim=1)
-    vals, idx = torch.sort(keys, dim=1, descending=True, stable=True)
-    return topk_normalize(vals[:, :K].contiguous(),
-                          idx[:, :K].to(torch.int32))
+        pad = keys.new_full(keys.shape[:-1] + (K - M,), NEG)
+        keys = torch.cat([keys, pad], dim=-1)
+    vals, idx = torch.sort(keys, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :K].contiguous(), idx[..., :K].to(torch.int32)
+    return vals, torch.where(idx < M, idx, -1)
 
 
-__all__ = ["BIG", "NEG", "priority_arbiter_ref", "srpt_topk_ref",
-           "topk_normalize"]
+def srpt_topk_ref(keys, K: int):
+    """:func:`srpt_topk_raw` normalized: keys clamped at 0, columns -1
+    where fewer than K positive keys exist."""
+    return topk_normalize(*srpt_topk_raw(keys, K))
+
+
+def fused_slot_ref(down=None, up=None, keys=None, K: int = 0):
+    """One slot's arbitration stages, each optional: ``down``/``up`` are
+    ``(prio, seq, elig)`` drain problems, ``keys`` the top-K key matrix
+    with ``K >= 1``. Operands may carry a leading run axis. Returns the
+    raw outputs in stage order, ``[d_prio, d_idx][, u_prio, u_idx][,
+    vals, idx]`` — the convention of ``fused.fused_slot`` in the JAX
+    package and of the CUDA ``fused_slot_kernel``."""
+    out = []
+    for stage in (down, up):
+        if stage is not None:
+            out += priority_arbiter_ref(*stage)
+    if keys is not None:
+        out += srpt_topk_raw(keys, K)
+    return tuple(out)
+
+
+__all__ = ["BIG", "NEG", "priority_arbiter_ref", "srpt_topk_raw",
+           "srpt_topk_ref", "topk_normalize", "fused_slot_ref"]

@@ -15,7 +15,8 @@ import torch
 from repro.kernels.arbiter import ops as jops
 from repro.kernels.arbiter import ref as jref
 from repro_torch.kernels.arbiter import dispatch, kernel
-from repro_torch.kernels.arbiter.ref import (BIG, priority_arbiter_ref,
+from repro_torch.kernels.arbiter.ref import (BIG, fused_slot_ref,
+                                             priority_arbiter_ref,
                                              srpt_topk_ref)
 from test_torch_cuda import ARB_CASES, TOPK_CASES, _arb_inputs, _keys
 
@@ -54,8 +55,9 @@ def test_srpt_topk_plain_matches_jax(case):
 
 
 def test_cpu_wrappers_take_the_plain_version():
-    """On CPU tensors the kernel wrappers and the ``cuda`` dispatch path
-    compute the plain version and launch nothing."""
+    """On CPU tensors the kernel wrappers (the fused ones included) and
+    the ``cuda`` dispatch path compute the plain version and launch
+    nothing."""
     kernel.reset_launch_counts()
     prio, seq, elig = (torch.from_numpy(a) for a in _arb_inputs(8, 64, 3))
     want = priority_arbiter_ref(prio, seq, elig)
@@ -67,7 +69,14 @@ def test_cpu_wrappers_take_the_plain_version():
     for got in (kernel.srpt_topk(keys, 3),
                 dispatch.topk(keys, 3, backend="cuda")):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert kernel.launch_counts() == {"priority_arbiter": 0, "srpt_topk": 0}
+    want = fused_slot_ref((prio, seq, elig), None, keys, 3)
+    got = kernel.fused_slot(down=(prio, seq, elig), keys=keys, K=3)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = kernel.fused_slot_batch(down=(prio[None], seq[None], elig[None]),
+                                  keys=keys[None], K=3)
+    assert all(torch.equal(g[0], w) for g, w in zip(got, want))
+    assert kernel.launch_counts() == {"priority_arbiter": 0, "srpt_topk": 0,
+                                      "fused_slot": 0, "fused_slot_batch": 0}
     with pytest.raises(ValueError, match="K must be >= 1"):
         kernel.srpt_topk(keys, 0)
 

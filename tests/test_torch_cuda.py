@@ -1,4 +1,6 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions.
+"""The hand-written CUDA kernels against their plain PyTorch versions
+(the staged arbiter and top-K, and the fused per-slot kernel at every
+stage subset and B in {1, 4, 12}).
 
 These tests need a CUDA card and skip without one (marker ``gpu``); run
 them there with ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py``.
@@ -11,7 +13,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.arbiter import kernel
-from repro_torch.kernels.arbiter.ref import (NEG, priority_arbiter_ref,
+from repro_torch.kernels.arbiter.ref import (NEG, fused_slot_ref,
+                                             priority_arbiter_ref,
                                              srpt_topk_ref)
 
 
@@ -109,3 +112,111 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         kernel.priority_arbiter(p.t(), p.t(), e.t())
     with pytest.raises(ValueError, match="one shape"):
         kernel.priority_arbiter(p, p[:, :4].contiguous(), e)
+
+
+STAGE_SUBSETS = ["down", "up", "topk", "down,up", "down,topk", "up,topk",
+                 "down,up,topk"]
+
+
+def _fused_inputs(stages, B, H, cap, U, ucap, M, K, seed, cuda):
+    """Operands of the present stages, with a leading run axis when ``B``
+    is given; ring row 0 of each run is all-ineligible, keys row 1 empty,
+    and a quarter of the key entries are NEG (a top-K row past its
+    width)."""
+    lead = () if B is None else (B,)
+    rng = np.random.default_rng(seed)
+
+    def ring(R, C):
+        prio = rng.integers(0, 8, lead + (R, C)).astype(np.int32)
+        seq = rng.integers(0, 20_000, lead + (R, C)).astype(np.int32)
+        elig = rng.random(lead + (R, C)) < 0.3
+        elig[..., 0, :] = False
+        return tuple(torch.from_numpy(a).to(cuda) for a in (prio, seq, elig))
+
+    down = ring(H, cap) if "down" in stages else None
+    up = ring(U, ucap) if "up" in stages else None
+    keys = None
+    if "topk" in stages:
+        k = rng.integers(1, 1 << 30, lead + (H, M)).astype(np.int32)
+        k = np.where(rng.random(lead + (H, M)) < 0.05, k, 0)
+        k[..., 1, :] = 0
+        k = np.where(rng.random(lead + (H, M)) < 0.25, NEG, k)
+        keys = torch.from_numpy(k.astype(np.int32)).to(cuda)
+    return down, up, keys
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stages", STAGE_SUBSETS)
+@pytest.mark.parametrize("shape", [
+    # (H, cap, U, ucap, M, K)
+    (144, 1024, 144, 512, 8000, 7),    # the main path's shapes
+    (13, 100, 9, 1, 37, 4),            # ragged; single-slot uplinks
+    (8, 256, 8, 32, 3, 7),             # M < K; single-host racks
+])
+def test_fused_slot_kernel_matches_plain(cuda, stages, shape):
+    H, cap, U, ucap, M, K = shape
+    down, up, keys = _fused_inputs(stages, None, H, cap, U, ucap, M, K, 3,
+                                   cuda)
+    before = kernel.fused_slot.launches
+    got = kernel.fused_slot(down=down, up=up, keys=keys, K=K)
+    want = fused_slot_ref(down, up, keys, K)
+    torch.cuda.synchronize()
+    assert kernel.fused_slot.launches == before + 1
+    assert len(got) == len(want)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stages", STAGE_SUBSETS)
+@pytest.mark.parametrize("B", [1, 4, 12])
+def test_fused_slot_batch_kernel_matches_plain(cuda, stages, B):
+    down, up, keys = _fused_inputs(stages, B, 144, 1024, 144, 512, 8000, 7,
+                                   B, cuda)
+    before = kernel.fused_slot_batch.launches
+    got = kernel.fused_slot_batch(down=down, up=up, keys=keys, K=7)
+    want = fused_slot_ref(down, up, keys, 7)
+    torch.cuda.synchronize()
+    assert kernel.fused_slot_batch.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_fused_backend_launches_one_kernel_per_slot(cuda):
+    """A small leaf-spine run on ``backend="fused"`` equals the staged
+    ``"cuda"`` run and launches one fused kernel per slot, nothing
+    staged; a batch of three runs launches one ``fused_slot_batch``."""
+    from repro_torch.core import (FabricConfig, SimConfig, SweepSpec,
+                                  make_messages, run_sweep, simulate)
+    tables = [make_messages("W2", n_hosts=8, load=0.7, n_messages=60,
+                            slot_bytes=256, seed=s) for s in range(3)]
+    kw = dict(protocol="homa", n_hosts=8, max_slots=300, ring_cap=64,
+              fabric=FabricConfig(racks=4, up_cap=32), device="cuda")
+    staged = simulate(SimConfig(**kw, backend="cuda"), tables[0])
+    kernel.reset_launch_counts()
+    fused = simulate(SimConfig(**kw, backend="fused"), tables[0])
+    assert kernel.launch_counts() == {"priority_arbiter": 0, "srpt_topk": 0,
+                                      "fused_slot": 300,
+                                      "fused_slot_batch": 0}
+    assert (fused.completion == staged.completion).all()
+    assert (fused.q_max_bytes == staged.q_max_bytes).all()
+    kernel.reset_launch_counts()
+    swept = run_sweep(SimConfig(**kw, backend="fused"),
+                      SweepSpec(tables=tables))
+    assert kernel.launch_counts()["fused_slot_batch"] == 300
+    assert (swept[0].completion == staged.completion).all()
+
+
+@pytest.mark.gpu
+def test_fused_wrappers_reject_bad_inputs(cuda):
+    p = torch.zeros((2, 4, 8), dtype=torch.int32, device=cuda)
+    e = torch.ones((2, 4, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="no stage"):
+        kernel.fused_slot()
+    with pytest.raises(ValueError, match="K must be >= 1"):
+        kernel.fused_slot(keys=p[0], K=0)
+    with pytest.raises(ValueError, match="2-D"):
+        kernel.fused_slot(down=(p, p, e))
+    with pytest.raises(ValueError, match="run axis"):
+        kernel.fused_slot_batch(down=(p, p, e), keys=p[:1], K=2)
+    with pytest.raises(TypeError):
+        kernel.fused_slot_batch(down=(p.long(), p, e))

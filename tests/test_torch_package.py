@@ -81,8 +81,6 @@ def test_backend_names_are_the_ports_own(monkeypatch):
     (lambda: FabricConfig(racks=2, faults={"up_loss": 0.01}), "A5"),
     (lambda: FabricConfig(racks=2, routing="flowlet"), "A5"),
     (lambda: FabricConfig(racks=2, routing="adaptive"), "A5"),
-    (lambda: SimConfig(device="cpu", backend="pallas_fused"), "B3"),
-    (lambda: SimConfig(device="cpu", backend="fused"), "B3"),
     (lambda: WorkloadSpec(kind="incast"), "A1"),
     (lambda: WorkloadSpec(kind="hotspot", workload="W1", load=0.5), "A1"),
     (lambda: WorkloadSpec(kind="shuffle"), "A1"),
@@ -92,6 +90,21 @@ def test_backend_names_are_the_ports_own(monkeypatch):
 def test_unported_options_raise(make, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         make()
+
+
+def test_fused_backend_resolves():
+    """The port's fused backend runs on either device: the kernel on a
+    card, the plain fused version on the CPU."""
+    assert SimConfig(device="cpu", backend="fused").backend == "fused"
+    assert dispatch.resolve_backend("fused", "cuda") == "fused"
+    assert dispatch.resolve_backend("fused", "cpu") == "fused"
+
+
+def test_jax_fused_backend_name_is_rejected():
+    """``pallas_fused`` is the JAX package's name; the port's is
+    ``fused``."""
+    with pytest.raises(ValueError, match="unknown backend"):
+        SimConfig(device="cpu", backend="pallas_fused")
 
 
 def test_other_bad_options_raise():

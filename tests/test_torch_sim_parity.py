@@ -4,8 +4,9 @@ Three small random configurations (one single-switch, two leaf-spine,
 with rings small enough to drop chunks) must match on every integer field
 ``tests/test_backend.py::_assert_matches`` checks. Then the carry-across
 test: JAX state after ``t`` slots, handed to the port through
-``repro_torch.convert.from_jax``, stepped ``n`` slots by the port, must
-equal JAX's own state after ``t + n`` slots key by key.
+``repro_torch.convert.from_jax`` (which gives it the port's run axis),
+stepped ``n`` slots by the port, must equal JAX's own state after
+``t + n`` slots key by key.
 """
 import numpy as np
 import pytest
@@ -100,13 +101,15 @@ def test_carry_across_from_jax_state(proto, fabric):
     for k, v in mid.static.items():          # the port's prepare agrees
         np.testing.assert_array_equal(S_port[k].numpy(), v, err_msg=k)
 
+    # the port's step carries a leading run axis: one run here
     S, st = from_jax(mid.static, mid.state, "cpu")
     for k, v in mid.state.items():
-        assert st[k].numpy().dtype == v.dtype and st[k].shape == v.shape, k
+        assert st[k].numpy().dtype == v.dtype, k
+        assert st[k].shape == (1,) + v.shape, k
     pr = get_protocol(proto)
     st = run_slots(tcfg, pr, S, st, pr.n_sched(tcfg, alloc), t, t + n)
     assert set(st) == set(end.state)
     for k, v in end.state.items():
-        got = st[k].numpy()
+        got = st[k][0].numpy()
         assert got.dtype == v.dtype, k
         np.testing.assert_array_equal(got, v, err_msg=f"{proto}: {k}")
