@@ -7,7 +7,9 @@ Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
 
 1. card    the card's name and power limit (``nvidia-smi``), then the
-           build of ``csrc/arbiter.cu`` for sm_90a and its time
+           builds of ``kernels/arbiter/csrc/arbiter.cu`` and
+           ``kernels/ssd/csrc/ssd.cu`` for sm_90a, started together, and
+           their times
 2. kernels each hand-written kernel against its plain PyTorch version on
            the card — full-width shapes of the main path, ragged shapes,
            empty rows, ties, M < K; the fused kernel at all 7 stage
@@ -25,10 +27,11 @@ result line:
            (state identical key by key), and through ``simulate`` on the
            fused backend (one ``fused_slot`` launch per slot, nothing
            staged; integer outputs identical to the staged run)
-5. window  a steady window of that run: no host sync inside the slot
-           loop on either kernel backend, then a profiled stretch of each
-           from one state — device busy share, kernels per slot and each
-           kernel's device time per launch
+5. window  a steady window of that run from phase 4's state at slot
+           5000: no host sync inside the slot loop on either kernel
+           backend, then a profiled stretch of each from that one state —
+           device busy share, kernels per slot and each kernel's device
+           time per launch
 6. sweep   (a) the committed ``benchmarks/baselines/sweep_speed.json``
            mega cell (6 protocols x 3 loads x 4 seeds, 8 hosts, W1,
            chunked and streaming) on the fused backend: pooled p99s and
@@ -37,7 +40,24 @@ result line:
            ``run_sweep`` on the fused and the staged backend: every integer
            of the streaming statistics identical, one
            ``fused_slot_batch`` launch per slot; (c) a profiled window of
-           that batch beside phase 5's single run
+           that batch from slot 1000 beside phase 5's single run
+7. model   Mamba2-130m inference at full width (24 layers, d_model 768,
+           H 24, P 64, N 128, chunk 256; random weights from a seed):
+           (a) the SSD chunk-scan kernel (``csrc/ssd.cu``) against its
+           plain version ``ssd_ref`` on the inputs of layer 0 of a real
+           4 x 4096 prefill, on synthetic inputs at that shape, and on
+           edge cases (pad path, S < chunk, B = 1, one head), with its
+           time; (b) ``forward_prefill`` of 4 x 4096 tokens on the kernel
+           (24 launches, counted and seen by the profiler) against the
+           plain ``ssd_chunked`` path (no SSD launch), layer by layer on
+           the same inputs and end to end; (c) prefill of 4095 tokens
+           plus one ``forward_decode`` against the 4096-token prefill;
+           (d) ``repro_torch.launch.serve.main`` at full width, whose
+           statistics must equal the JAX package's (``SERVE_EXPECTED``)
+
+``--phases card,model`` (any comma-separated subset of card, kernels,
+goldens, full, window, sweep, model) runs only those phases and prints
+no result lines; with no arguments every phase runs.
 
 Then one JSON line with each kernel's numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -64,6 +84,29 @@ SWEEP_LOADS, SWEEP_SEEDS = (0.5, 0.7, 0.8), (0, 1, 2, 3)
 SWEEP_SLOTS = 3000               # phase 6b's depth
 # per run at the main path's shapes (K = 7 for W3's allocation)
 MAIN_FUSED = dict(H=144, cap=1024, U=144, ucap=512, M=8000, K=7)
+# phase 7's serve and its statistics, computed with the JAX package's
+# ``repro.launch.serve.main`` on the CPU with ``["--arch", "mamba2-130m",
+# "--smoke", *SERVE_ARGV]`` (they depend only on the scheduler:
+# ``decode_fn`` answers from each request's remaining budget);
+# tests/test_torch_serve.py checks both packages against them
+SERVE_ARGV = ["--requests", "64", "--batch-size", "4"]
+FP32_FLOP_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
+MODEL = dict(arch="mamba2-130m", batch=4, seq=4096, seed=0)
+# SSD kernel vs ssd_ref, elementwise |got - want| <= atol + rtol |want|:
+# fp32 throughout, the chunked and the sequential forms differ only in
+# summation order (~1e-4 absolute at |y| ~ 90, measured on the CPU)
+SSD_TOL = dict(atol=1e-3, rtol=1e-3)
+# relative RMS error ||got - want|| / ||want|| of the full-width model.
+# Layer by layer on the same bf16 input, kernel and plain SSD give
+# mixer outputs within ~4e-4 (24 layers, d_model 256, on the CPU); end to
+# end, each flipped bf16 rounding is carried and amplified through the 24
+# residual layers of a random-weight model (8% on the last-token logits
+# at d_model 256), so the end-to-end bounds only catch gross faults
+MODEL_TOL = dict(layer=2e-3, logits=0.35, decode_layer=5e-2,
+                 decode_logits=0.35)
+SERVE_EXPECTED = {"served": 64, "steps": 747,
+                  "mean_slowdown": 1.3890566225810979,
+                  "p99_slowdown": 4.0776315789473685}
 
 
 class SmokeFailure(RuntimeError):
@@ -79,11 +122,12 @@ def say(*a) -> None:
     print(*a, flush=True)
 
 
-def time_ms(fn, *, batch: int = 100, reps: int = 15) -> float:
+def time_ms(fn, *, batch: int = 100, reps: int = 15,
+            warmup: int = 10) -> float:
     """Median over ``reps`` of the per-call time of ``batch`` back-to-back
     calls, between CUDA events on the current stream."""
     import torch
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -101,8 +145,11 @@ def time_ms(fn, *, batch: int = 100, reps: int = 15) -> float:
 # ------------------------------------------------------------- phase 1 -----
 
 def phase_card():
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
-    from repro_torch.kernels.arbiter import build
+    from repro_torch.kernels.arbiter import build as arbiter_build
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -110,15 +157,24 @@ def phase_card():
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    build.load_library()
-    dt = time.perf_counter() - t0
-    log = (build.library_path().parent / "build.log").read_text()
-    say(f"[card] built {build.library_path()} in {dt:.2f} s")
-    for line in log.splitlines():
-        if "ptxas" in line and ("registers" in line or "Compiling" in line
-                                or "spill" in line):
-            say(f"[card]   {line.strip()}")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on; the model's fp32 products must run in fp32")
+    libs = (arbiter_build.LIBRARY, ssd_kernel.LIBRARY)
+
+    def timed(lib):
+        t0 = time.perf_counter()
+        lib.load()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per library
+        secs = list(pool.map(timed, libs))
+    for lib, dt in zip(libs, secs):
+        say(f"[card] built {lib.library_path()} in {dt:.2f} s")
+        for line in lib.build_log().splitlines():
+            if "ptxas" in line and ("registers" in line
+                                    or "Compiling" in line
+                                    or "spill" in line):
+                say(f"[card]   {line.strip()}")
     return smi
 
 
@@ -431,16 +487,20 @@ def phase_full():
         S1, alloc = prepare(cfg, tbl)
         S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
         st, t, snaps = _init_state(cfg, proto, len(tbl.size)), 0, []
+        handoff = None
         for stop in stops:
             st = run_slots(cfg, proto, S, st, n_sched, t, stop)
             snaps.append(host_state(st))
+            if stop == PLAIN_SLOTS:      # phase 5's windows start here
+                handoff = (S, n_sched, st)
             t = stop
-        return cfg, tbl, S1, alloc, snaps
+        return cfg, tbl, S1, alloc, snaps, handoff
 
     torch.cuda.synchronize()
     kernel.reset_launch_counts()
     t0 = time.perf_counter()
-    cfg, tbl, S1, alloc, (snap, end) = stepped("cuda", (PLAIN_SLOTS, slots))
+    cfg, tbl, S1, alloc, (snap, end), handoff = stepped(
+        "cuda", (PLAIN_SLOTS, slots))
     r_k = _finalize(cfg, tbl, S1, alloc, end, 0, False)
     wall_k = time.perf_counter() - t0
     launches = {"cuda": kernel.launch_counts()}
@@ -451,7 +511,7 @@ def phase_full():
           f"1 top-K per slot over {slots} slots")
 
     t0 = time.perf_counter()
-    *_, (plain,) = stepped("reference", (PLAIN_SLOTS,))
+    *_, (plain,), _ = stepped("reference", (PLAIN_SLOTS,))
     wall_p = time.perf_counter() - t0
     check(set(plain) == set(snap), "plain and kernel state keys differ")
     for k in snap:
@@ -495,12 +555,13 @@ def phase_full():
         f"{r_k.n_complete}/{r_k.n_messages} "
         f"({r_k.completion_rate:.4f}); p99_small {s['p99_small']}; "
         f"p99_all {s['p99_all']}; lost {r_k.lost_chunks}")
-    return launches, slots / wall_k
+    return launches, slots / wall_k, handoff
 
 
 # ------------------------------------------------------------- phase 5 -----
 
-WINDOW_START, WINDOW_SLOTS = 3000, 100
+WINDOW_SLOTS = 100
+SWEEP_WINDOW_START = 1000        # phase 6c's window: its warm-up's depth
 
 
 def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
@@ -558,20 +619,13 @@ def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
     return out
 
 
-def phase_window():
-    """A steady window of the full run: the state at WINDOW_START, then
+def phase_window(handoff):
+    """A steady window of the full run from phase 4's staged state at
+    slot PLAIN_SLOTS (identical on every backend, phase 4 checks it):
     each kernel backend's window from that one state."""
-    from repro_torch.core.protocols import get_protocol
-    from repro_torch.core.sim import (_init_state, prepare, run_slots,
-                                      stack_static)
+    S, n_sched, st = handoff
     cfgs = {b: _full_config(b)[0] for b in ("cuda", "fused")}
-    cfg, tbl = _full_config("fused")
-    proto = get_protocol(cfg.protocol)
-    S1, alloc = prepare(cfg, tbl)
-    S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
-    st = run_slots(cfg, proto, S, _init_state(cfg, proto, len(tbl.size)),
-                   n_sched, 0, WINDOW_START)
-    w = _windows(cfgs, S, st, n_sched, WINDOW_START, WINDOW_SLOTS, "window")
+    w = _windows(cfgs, S, st, n_sched, PLAIN_SLOTS, WINDOW_SLOTS, "window")
     check("priority_arbiter" in w["cuda"]["per_launch_ms"]
           and "srpt_topk" in w["cuda"]["per_launch_ms"]
           and "fused_slot" in w["fused"]["per_launch_ms"],
@@ -693,8 +747,8 @@ def phase_sweep():
     n_sched = proto.n_sched(cfg, alloc)
     st = run_slots(cfg, proto, S, _init_state(cfg, proto, S["size"].shape[1],
                                               B),
-                   n_sched, 0, WINDOW_START)
-    w = _windows({"fused": cfg}, S, st, n_sched, WINDOW_START,
+                   n_sched, 0, SWEEP_WINDOW_START)
+    w = _windows({"fused": cfg}, S, st, n_sched, SWEEP_WINDOW_START,
                  WINDOW_SLOTS, f"sweep B={B}")["fused"]
     # fused_slot_batch launches the same fused_slot_kernel
     check("fused_slot" in w["per_launch_ms"],
@@ -705,9 +759,330 @@ def phase_sweep():
                                   for b in wall}
 
 
+# ------------------------------------------------------------- phase 7 -----
+
+SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_cb_kernel",
+               "ssd_state_pass_kernel", "ssd_output_kernel")
+
+
+def _rel(got, want) -> float:
+    """Relative RMS error ||got - want|| / ||want||, in fp32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def _ssd_work(B, S, H, P, N, L):
+    """Bytes the SSD must move (inputs read once, outputs written once)
+    and the multiply-adds it needs at these shapes: per (b, chunk, h) the
+    causal att.x (L(L+1)/2 x P), x^T.B (L x P x N) and, past the first
+    chunk, C.state (L x N x P); per (b, chunk) the causal C.B^T
+    (L(L+1)/2 x N)."""
+    nc = S // L
+    nbytes = (B * S * H * P * 2 + B * S * H * 4 + H * 4 + 2 * B * S * N * 2
+              + B * S * H * P * 4 + B * H * P * N * 4)
+    tri = L * (L + 1) // 2
+    macs = (B * nc * H * (tri * P + L * P * N) + B * (nc - 1) * H * L * N * P
+            + B * nc * tri * N)
+    return nbytes, macs
+
+
+def _ssd_check(name, args, chunk):
+    """The kernel (through ``ops.ssd``, padding included) against
+    ``ssd_ref`` on the same inputs: y and the final state elementwise
+    within SSD_TOL. Returns the max abs error of y."""
+    import torch
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    y, fs = ops.ssd(*args, chunk=chunk)
+    yr, fr = ssd_ref(*args)
+    torch.cuda.synchronize()
+    atol, rtol = SSD_TOL["atol"], SSD_TOL["rtol"]
+    shape = tuple(args[0].shape)
+    msg = [f"[model] ssd kernel == ssd_ref: {name} {shape}, chunk {chunk}:"]
+    for what, g, w in (("y", y, yr), ("state", fs, fr)):
+        check(g.shape == w.shape and g.dtype == torch.float32,
+              f"ssd {name}: {what} shape {tuple(g.shape)} / dtype {g.dtype}")
+        check(bool(torch.isfinite(g).all()), f"ssd {name}: {what} not finite")
+        d = (g - w).abs()
+        used = float((d / (atol + rtol * w.abs())).max())
+        big = w.abs() >= atol / rtol          # where rtol dominates
+        mrel = float((d[big] / w.abs()[big]).max()) if big.any() else 0.0
+        msg.append(f"{what} max abs {float(d.max()):.3e}, max rel "
+                   f"{mrel:.3e} (|want| >= 1), tolerance {atol} + {rtol} "
+                   f"|want| ({used:.3f} of it used)")
+        check(used <= 1.0, f"ssd {name}: {what} outside the tolerance "
+                           f"({used:.3f} of it)")
+        if what == "y":
+            err = float(d.max())
+    say(" ".join(msg))
+    return err
+
+
+def _ssd_synthetic(gen, B, S, H, P, N):
+    """As tests/test_kernels.py draws them: x normal, dt = softplus(normal),
+    A = -exp(0.3 normal), B and C 0.5 normal; x/B/C bf16."""
+    import torch
+    import torch.nn.functional as F
+    kw = dict(generator=gen, device=DEVICE)
+    x = torch.randn((B, S, H, P), **kw).bfloat16()
+    dt = F.softplus(torch.randn((B, S, H), **kw))
+    A = -torch.exp(0.3 * torch.randn((H,), **kw))
+    Bm = (0.5 * torch.randn((B, S, N), **kw)).bfloat16()
+    Cm = (0.5 * torch.randn((B, S, N), **kw)).bfloat16()
+    return x, dt, A, Bm, Cm
+
+
+def _profiled(fn):
+    """Run ``fn`` under the profiler; returns (its result, wall seconds,
+    [(kernel name, launches, device us)])."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return r, wall, ev
+
+
+def phase_model():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.arbiter import kernel as arb_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as S
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.params import init_params
+    dev = torch.device(DEVICE)
+    cfg = get_config(MODEL["arch"])
+    Bsz, Slen = MODEL["batch"], MODEL["seq"]
+    H, P, N, L = (cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_dim,
+                  cfg.ssm_chunk)
+    V = cfg.vocab_size
+    gen = torch.Generator(dev).manual_seed(MODEL["seed"])
+    t0 = time.perf_counter()
+    params = init_params(M.model_defs(cfg), gen, dev)
+    tokens = torch.randint(0, V, (Bsz, Slen), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    say(f"[model] {cfg.name}: {M.count_model_params(cfg)} bf16 parameters, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, H {H}, P {P}, "
+        f"N {N}, chunk {L}, vocab {V} (padded {cfg.padded_vocab()}); "
+        f"random weights, seed {MODEL['seed']}; init "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    with torch.inference_mode():
+        # (a) the kernel against its plain version
+        x = M._embed(cfg, params, tokens)
+        lp0 = M._index(params["blocks"], 0)["s0"]
+        _, xin, dt, A, Bv, Cv, _ = S.ssd_inputs(
+            cfg, lp0["mixer"], apply_norm(cfg, lp0["norm1"], x))
+        main_args = (xin, dt, A, Bv, Cv)
+        out["max_abs_err"] = _ssd_check("layer 0 of the prefill", main_args,
+                                        L)
+        sgen = torch.Generator(dev).manual_seed(7)
+        _ssd_check("synthetic", _ssd_synthetic(sgen, Bsz, Slen, H, P, N), L)
+        for name, (b, s_, h, c) in {
+                "pad path (S % chunk != 0)": (Bsz, 1000, H, L),
+                "S < chunk": (Bsz, 100, H, L),
+                "B = 1": (1, 2048, H, L),
+                "one head": (Bsz, 1024, 1, L)}.items():
+            _ssd_check(name, _ssd_synthetic(sgen, b, s_, h, P, N), c)
+        nbytes, macs = _ssd_work(Bsz, Slen, H, P, N, L)
+        out["bytes"], out["macs"] = nbytes, macs
+        out["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                              2 * macs / FP32_FLOP_PER_S) * 1e3
+        out["bound_by"] = ("operations" if 2 * macs / FP32_FLOP_PER_S
+                           > nbytes / HBM_BYTES_PER_S else "bytes")
+        out["ms"] = time_ms(lambda: ssd_kernel.ssd_scan(*main_args, chunk=L),
+                            batch=10, reps=5)
+        out["plain_ms"] = time_ms(lambda: ssd_ref(*main_args), batch=1,
+                                  reps=3, warmup=1)
+        out["chunked_ms"] = time_ms(lambda: S.ssd_chunked(*main_args, L),
+                                    batch=2, reps=3, warmup=1)
+        say(f"[model] ssd kernel at ({Bsz}, {Slen}, {H}, {P}), N {N}, chunk "
+            f"{L}: {out['ms']:.4f} ms a call; plain ssd_ref "
+            f"{out['plain_ms']:.2f} ms; plain ssd_chunked "
+            f"{out['chunked_ms']:.3f} ms; bound {out['bound_ms']:.4f} ms "
+            f"({out['bound_by']}: {nbytes / 1e6:.1f} MB, "
+            f"{2 * macs / 1e9:.2f} GFLOP fp32)")
+        del x, xin, dt, A, Bv, Cv, main_args
+
+        # (b) the main path: one prefill of Bsz x Slen tokens on the kernel
+        M.forward_prefill(cfg, params, tokens)        # warm-up, not counted
+        torch.cuda.synchronize()
+        ssd_kernel.ssd_scan.launches = 0
+        arb_kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = M.forward_prefill(cfg, params, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"] = ssd_kernel.ssd_scan.launches
+        check(out["launches"] == cfg.num_layers,
+              f"prefill launched the SSD kernel {out['launches']} times, "
+              f"expected one per layer ({cfg.num_layers})")
+        check(not any(arb_kernel.launch_counts().values()),
+              "the prefill launched an arbitration kernel")
+        check(logits.shape == (Bsz, cfg.padded_vocab())
+              and bool(torch.isfinite(logits).all())
+              and bool((logits[:, V:] == -1e9).all()),
+              "prefill logits: wrong shape, not finite or padding unmasked")
+        out["tokens_per_s"] = Bsz * Slen / wall
+        say(f"[model] prefill {Bsz} x {Slen} tokens on the kernel: "
+            f"{wall * 1e3:.1f} ms, {out['tokens_per_s']:.0f} tokens/s; "
+            f"ssd_scan launches {out['launches']}")
+        _, pwall, ev = _profiled(lambda: M.forward_prefill(cfg, params,
+                                                           tokens))
+        busy = sum(e[2] for e in ev)
+        dev_us = 0.0
+        for name in SSD_KERNELS:
+            hits = [e for e in ev if name in e[0]]
+            check(len(hits) == 1 and hits[0][1] == cfg.num_layers,
+                  f"profiler: {name} launched "
+                  f"{[h[1] for h in hits]} times, expected "
+                  f"{cfg.num_layers}")
+            dev_us += hits[0][2]
+            say(f"[model]   {name}: {hits[0][1]} launches, "
+                f"{hits[0][2] / hits[0][1]:.1f} us each")
+        out["device_ms_per_launch"] = dev_us / cfg.num_layers / 1e3
+        say(f"[model] profiled prefill: {pwall * 1e3:.1f} ms wall, device "
+            f"busy {busy / 1e6 / pwall:.4f}, SSD {dev_us / 1e3:.2f} ms of "
+            f"{busy / 1e3:.2f} ms device time; "
+            f"{out['device_ms_per_launch']:.4f} ms device time per "
+            f"ssd_scan launch")
+        for us, cnt, key in sorted(((e[2], e[1], e[0]) for e in ev),
+                                   reverse=True)[:6]:
+            say(f"[model]   {us / 1e3:8.2f} ms {cnt:5d}x {key[:80]}")
+
+        (plain, _), pwall, ev = _profiled(
+            lambda: M.forward_prefill(cfg, params, tokens, use_kernel=False))
+        check(not any("ssd_" in e[0] and "_kernel" in e[0] for e in ev),
+              "the plain prefill launched an SSD kernel")
+        err = _rel(logits[:, :V], plain[:, :V])
+        agree = float((logits[:, :V].argmax(-1)
+                       == plain[:, :V].argmax(-1)).float().mean())
+        say(f"[model] plain prefill (ssd_chunked, no SSD launch): "
+            f"{pwall * 1e3:.1f} ms wall; last-token logits rel RMS "
+            f"{err:.4f} (tolerance {MODEL_TOL['logits']}), argmax agrees "
+            f"on {agree:.2f} of rows")
+        check(err <= MODEL_TOL["logits"], "kernel and plain prefill logits "
+                                          "differ beyond the tolerance")
+        del plain
+
+        # layer by layer on the same inputs: kernel vs plain mixer, and
+        # prefill(S-1) + one decode step vs the S-token mixer
+        x = M._embed(cfg, params, tokens)
+        worst = dict(layer=0.0, decode_layer=0.0)
+        for l in range(cfg.num_layers):
+            lp = M._index(params["blocks"], l)["s0"]
+            h = apply_norm(cfg, lp["norm1"], x)
+            yk, (fk, _) = S.mamba_block(cfg, lp["mixer"], h)
+            yp, (fp, _) = S.mamba_block(cfg, lp["mixer"], h,
+                                        use_kernel=False)
+            worst["layer"] = max(worst["layer"], _rel(yk, yp))
+            check(bool(((fk - fp).abs() <= SSD_TOL["atol"]
+                        + SSD_TOL["rtol"] * fp.abs()).all()),
+                  f"layer {l}: kernel and plain final states differ")
+            _, (f1, t1) = S.mamba_block(cfg, lp["mixer"], h[:, :-1])
+            yd, _ = S.mamba_block_decode(
+                cfg, lp["mixer"], h[:, -1:],
+                {"state": f1.to(h.dtype), "conv": t1.to(h.dtype)})
+            worst["decode_layer"] = max(worst["decode_layer"],
+                                        _rel(yd, yk[:, -1:]))
+            x = x + yk
+        say(f"[model] layer by layer, same inputs: kernel vs plain mixer "
+            f"rel RMS <= {worst['layer']:.2e} (tolerance "
+            f"{MODEL_TOL['layer']}), final states within {SSD_TOL}; "
+            f"prefill({Slen - 1}) + decode vs prefill({Slen}) mixer rel RMS "
+            f"<= {worst['decode_layer']:.2e} (tolerance "
+            f"{MODEL_TOL['decode_layer']})")
+        for k in ("layer", "decode_layer"):
+            check(worst[k] <= MODEL_TOL[k], f"layer by layer: {k} beyond the "
+                                            f"tolerance")
+        del x, h, yk, yp
+
+        # (c) prefill(S-1) + one decode step vs the S-token prefill
+        _, caches = M.forward_prefill(cfg, params, tokens[:, :-1])
+        step, _ = M.forward_decode(cfg, params, tokens[:, -1:], Slen - 1,
+                                   caches)
+        err = _rel(step[:, :V], logits[:, :V])
+        say(f"[model] prefill({Slen - 1}) + forward_decode at {Slen - 1} vs "
+            f"prefill({Slen}): logits rel RMS {err:.4f} (tolerance "
+            f"{MODEL_TOL['decode_logits']})")
+        check(bool(torch.isfinite(step).all())
+              and err <= MODEL_TOL["decode_logits"],
+              "prefill + decode differs from the prefill")
+        del caches, step, logits
+
+    # (d) the serving loop at full width
+    torch.cuda.synchronize()
+    ssd_kernel.ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", MODEL["arch"], *SERVE_ARGV,
+                      "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    got = {k: res[k] for k in SERVE_EXPECTED}
+    check(got == SERVE_EXPECTED, f"serve statistics {got} != the JAX "
+                                 f"package's {SERVE_EXPECTED}")
+    out["decode_steps_per_s"] = res["steps"] / wall
+    say(f"[model] serve {MODEL['arch']} {' '.join(SERVE_ARGV)}: {got} == "
+        f"the JAX package's; {wall:.2f} s wall (parameter init included), "
+        f"{out['decode_steps_per_s']:.1f} decode steps/s at batch "
+        f"{SERVE_ARGV[-1]}; ssd_scan launches {ssd_kernel.ssd_scan.launches}"
+        f" (decode runs the recurrence step, not the chunk scan)")
+
+    # a profiled window of the serve's decode step (batch 4, eager)
+    C = int(SERVE_ARGV[-1])
+    with torch.inference_mode():
+        caches = M.zeros_caches(M.cache_shapes(cfg, C, 8), torch.bfloat16,
+                                dev)
+        tok = torch.zeros((C, 1), dtype=torch.int32, device=dev)
+        for _ in range(3):
+            M.forward_decode(cfg, params, tok, 4, caches)
+        n = 10
+
+        def steps():
+            c, t = caches, tok
+            for _ in range(n):
+                lg, c = M.forward_decode(cfg, params, t, 4, c)
+                t = lg.argmax(-1).to(torch.int32)[:, None]
+
+        _, wall, ev = _profiled(steps)
+    busy = sum(e[2] for e in ev)
+    say(f"[model] decode window, batch {C}, {n} steps: "
+        f"{wall / n * 1e3:.2f} ms/step wall, device busy "
+        f"{busy / 1e6 / wall:.4f}, {sum(e[1] for e in ev) / n:.0f} "
+        f"kernels/step, {busy / n / 1e3:.3f} ms/step of device time")
+    for us, cnt, key in sorted(((e[2], e[1], e[0]) for e in ev),
+                               reverse=True)[:5]:
+        say(f"[model]   {us / n / 1e3:8.3f} ms/step {cnt / n:6.1f}/step "
+            f"{key[:80]}")
+    return out
+
+
 # ---------------------------------------------------------------- main -----
 
-def main() -> int:
+PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    bad = sorted(set(phases) - set(PHASES))
+    if bad or ("window" in phases and "full" not in phases):
+        print(f"FAIL: unknown phases {bad} or window without full (its "
+              f"windows start from the full run's state)", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -722,16 +1097,44 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
+    res = {}
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        r = fn(*a)
+        say(f"[summary] phase {name}: {time.perf_counter() - t0:.1f} s")
+        return r
+
     try:
-        phase_card()
-        err, perf = phase_kernels()
-        phase_goldens()
-        full_launches, full_rate = phase_full()
-        window = phase_window()
-        sweep_launches, sweep_window, sweep_rate = phase_sweep()
+        run("card", phase_card)
+        if "kernels" in phases:
+            res["err"], res["perf"] = run("kernels", phase_kernels)
+        if "goldens" in phases:
+            run("goldens", phase_goldens)
+        if "full" in phases:
+            (res["full_launches"], res["full_rate"],
+             res["handoff"]) = run("full", phase_full)
+        if "window" in phases:
+            res["window"] = run("window", phase_window, res["handoff"])
+        if "sweep" in phases:
+            (res["sweep_launches"], res["sweep_window"],
+             res["sweep_rate"]) = run("sweep", phase_sweep)
+        if "model" in phases:
+            res["model"] = run("model", phase_model)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    say(f"[summary] phases {','.join(phases)}: "
+        f"{time.perf_counter() - t_start:.1f} s")
+    if set(phases) != set(PHASES):
+        say("[summary] a subset of the phases ran: no result lines")
+        return 0
+    full_rate, window = res["full_rate"], res["window"]
+    sweep_rate, sweep_window = res["sweep_rate"], res["sweep_window"]
+    full_launches, sweep_launches = res["full_launches"], \
+        res["sweep_launches"]
+    err, perf, model = res["err"], res["perf"], res["model"]
     say(f"[summary] runs*slots/s: B=1 cuda {full_rate:.1f}; B=12 "
         + ", ".join(f"{b} {r:.1f}" for b, r in sweep_rate.items()))
     say(f"[summary] ms/slot (device busy): B=1 cuda "
@@ -739,6 +1142,9 @@ def main() -> int:
         f" B=1 fused {window['fused']['ms_per_slot']:.3f} "
         f"({window['fused']['busy']:.4f}), B=12 fused "
         f"{sweep_window['ms_per_slot']:.3f} ({sweep_window['busy']:.4f})")
+    say(f"[summary] mamba2-130m: prefill {model['tokens_per_s']:.0f} "
+        f"tokens/s (4 x 4096), serve {model['decode_steps_per_s']:.1f} "
+        f"decode steps/s (batch 4)")
     src = "src/repro_torch/kernels/arbiter/csrc/arbiter.cu"
     rows = {
         # name: (replaces, launches on its path, device ms per launch)
@@ -757,14 +1163,24 @@ def main() -> int:
                              sweep_window["per_launch_ms"]
                              ["fused_slot_batch"]),
     }
-    say(json.dumps({"kernels": [
+    kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err[name], "ms": perf[name]["ms"],
          "plain_ms": perf[name]["plain_ms"],
          "bound_ms": perf[name]["bound_ms"], "bound_by": "bytes",
          "library_ms": perf[name]["library_ms"],
          "device_ms_per_launch": dev_ms}
-        for name, (rep, n, dev_ms) in rows.items()]}))
+        for name, (rep, n, dev_ms) in rows.items()]
+    kernels.append(
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+         "replaces": "src/repro/kernels/ssd/kernel.py:69",
+         "launches": model["launches"], "max_abs_err": model["max_abs_err"],
+         "ms": model["ms"], "plain_ms": model["plain_ms"],
+         "bound_ms": model["bound_ms"], "bound_by": model["bound_by"],
+         "library_ms": None,
+         "device_ms_per_launch": model["device_ms_per_launch"]})
+    say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

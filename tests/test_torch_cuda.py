@@ -1,12 +1,13 @@
 """The hand-written CUDA kernels against their plain PyTorch versions
-(the staged arbiter and top-K, and the fused per-slot kernel at every
-stage subset and B in {1, 4, 12}).
+(the staged arbiter and top-K, the fused per-slot kernel at every stage
+subset and B in {1, 4, 12}, and the SSD chunk scan).
 
 These tests need a CUDA card and skip without one (marker ``gpu``); run
 them there with ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py``.
 The module imports nothing of JAX, so it also runs where JAX is absent.
-The input generators and cases are shared with ``test_torch_arbiter.py``,
-which holds the plain versions to the JAX package on the CPU.
+The input generators and cases are shared with ``test_torch_arbiter.py``
+and ``test_torch_ssd.py``, which hold the plain versions to the JAX
+package on the CPU.
 """
 import numpy as np
 import pytest
@@ -220,3 +221,109 @@ def test_fused_wrappers_reject_bad_inputs(cuda):
         kernel.fused_slot_batch(down=(p, p, e), keys=p[:1], K=2)
     with pytest.raises(TypeError):
         kernel.fused_slot_batch(down=(p.long(), p, e))
+
+
+# ------------------------------------------------------------------ SSD ----
+
+SSD_CASES = [
+    # (B, S, H, P, N, chunk): the JAX package's cases (test_kernels.py)
+    (1, 32, 2, 8, 8, 8),
+    (2, 64, 3, 8, 16, 16),
+    (1, 48, 1, 16, 16, 16),   # pad path
+    (2, 128, 4, 16, 32, 32),
+]
+
+SSD_KERNEL_CASES = SSD_CASES + [
+    (1, 1024, 3, 64, 128, 256),   # the model's head and state widths
+    (2, 350, 2, 80, 160, 100),    # P > 64, N > 128, chunk not /64; pad
+    (1, 70, 1, 8, 16, 256),       # S < chunk: one chunk of 70
+    (2, 40, 16, 8, 16, 8),        # the reduced model's SSD shape
+]
+
+# fp32 throughout; the chunked and the sequential forms differ only in
+# summation order (~1e-4 absolute at |y| ~ 90, S = 1024-2048, measured
+# on the CPU), so 1e-3 + 1e-3 * |ref| leaves a tenfold margin
+SSD_ATOL = SSD_RTOL = 1e-3
+
+
+def _ssd_inputs(B, S, H, P, N, seed, *, bf16=False):
+    """Inputs as ``tests/test_kernels.py`` draws them: x normal, dt =
+    softplus(normal), A = -exp(0.3 normal), B and C 0.5 normal; numpy
+    f32 arrays, x/B/C rounded to bf16 values when ``bf16`` (returned as
+    f32 arrays holding bf16 values)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.logaddexp(0.0, rng.standard_normal((B, S, H))).astype(np.float32)
+    A = -np.exp(0.3 * rng.standard_normal(H)).astype(np.float32)
+    Bm = (0.5 * rng.standard_normal((B, S, N))).astype(np.float32)
+    Cm = (0.5 * rng.standard_normal((B, S, N))).astype(np.float32)
+    if bf16:
+        x, Bm, Cm = (torch.from_numpy(a).bfloat16().float().numpy()
+                     for a in (x, Bm, Cm))
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_tensors(arrays, device):
+    """``_ssd_inputs`` as the kernel takes them: x/B/C bf16, dt/A f32."""
+    x, dt, A, Bm, Cm = (torch.from_numpy(a).to(device) for a in arrays)
+    return x.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_KERNEL_CASES)
+def test_ssd_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels.ssd import kernel as ssd_kernel, ops
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    B, S, H, P, N, chunk = case
+    args = _ssd_tensors(_ssd_inputs(B, S, H, P, N, 7, bf16=True), cuda)
+    before = ssd_kernel.ssd_scan.launches
+    y, fs = ops.ssd(*args, chunk=chunk)
+    yr, fr = ssd_ref(*args)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_scan.launches == before + 1
+    assert y.shape == yr.shape and fs.shape == fr.shape
+    assert y.dtype == fs.dtype == torch.float32
+    torch.testing.assert_close(y, yr, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(fs, fr, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_rejects_bad_inputs(cuda):
+    from repro_torch.kernels.ssd.kernel import ssd_scan
+    x, dt, A, Bm, Cm = _ssd_tensors(_ssd_inputs(1, 32, 2, 8, 8, 0), cuda)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan(x, dt, A, Bm, Cm, chunk=5)
+    with pytest.raises(TypeError, match="x must be"):
+        ssd_scan(x.float(), dt, A, Bm, Cm, chunk=8)
+    with pytest.raises(TypeError, match="dt must be"):
+        ssd_scan(x, dt.bfloat16(), A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3), dt, A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="do not agree"):
+        ssd_scan(x, dt, A[:1], Bm, Cm, chunk=8)
+
+
+@pytest.mark.gpu
+def test_mamba_block_runs_the_kernel_on_a_card(cuda):
+    """On a CUDA tensor ``mamba_block`` launches the SSD kernel once by
+    default and never with ``use_kernel=False``; the two agree."""
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.models import model as M, ssm
+    from repro_torch.models.params import init_params
+    cfg = reduced_config("mamba2-130m")
+    params = init_params(M.model_defs(cfg),
+                         torch.Generator(cuda).manual_seed(0), cuda)
+    p = {k: v[0] for k, v in params["blocks"]["s0"]["mixer"].items()}
+    x = torch.randn((2, 37, cfg.d_model), generator=torch.Generator(cuda)
+                    .manual_seed(1), device=cuda).bfloat16()
+    before = ssd_kernel.ssd_scan.launches
+    out, (fs, tail) = ssm.mamba_block(cfg, p, x)
+    assert ssd_kernel.ssd_scan.launches == before + 1
+    out_p, (fs_p, tail_p) = ssm.mamba_block(cfg, p, x, use_kernel=False)
+    assert ssd_kernel.ssd_scan.launches == before + 1
+    torch.testing.assert_close(fs, fs_p, atol=SSD_ATOL, rtol=SSD_RTOL)
+    assert torch.equal(tail, tail_p)
+    # bf16 output: one-ulp flips of bf16 roundings between the two paths
+    torch.testing.assert_close(out.float(), out_p.float(), atol=2e-2,
+                               rtol=2e-2)

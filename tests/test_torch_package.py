@@ -19,7 +19,9 @@ PORT = ROOT / "src" / "repro_torch"
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.kernels.arbiter.kernel; "
+            "repro_torch.kernels.arbiter.kernel, "
+            "repro_torch.kernels.ssd.ops, repro_torch.models.model, "
+            "repro_torch.launch.serve; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro'))")
@@ -151,3 +153,32 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
                         lambda self: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
+
+
+def test_one_builder_two_libraries():
+    """Both kernel libraries go through the one builder, each keyed on its
+    own ``csrc/`` into its own directory under ``_build/``."""
+    from repro_torch.kernels import build as builder
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    arb, ssd = build.LIBRARY, ssd_kernel.LIBRARY
+    assert isinstance(arb, builder.CudaLibrary)
+    assert isinstance(ssd, builder.CudaLibrary)
+    assert [f.name for f in arb.sources] == ["arbiter.cu"]
+    assert [f.name for f in ssd.sources] == ["ssd.cu"]
+    pa, ps = arb.library_path(), ssd.library_path()
+    assert pa.parent.parent == ps.parent.parent == builder.BUILD_ROOT
+    assert pa.parent != ps.parent
+    assert (pa.name, ps.name) == ("libarbiter.so", "libssd.so")
+    assert build.library_path() == pa
+
+
+def test_ssd_wrapper_rejects_other_devices():
+    """The SSD wrapper runs its plain version only for a CPU tensor and
+    raises on a device that is neither CPU nor CUDA."""
+    from repro_torch.kernels.ssd.kernel import ssd_scan
+    x = torch.zeros((1, 8, 1, 4), device="meta")
+    dt = torch.zeros((1, 8, 1), device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ssd_scan(x, dt, torch.zeros(1, device="meta"),
+                 torch.zeros((1, 8, 4), device="meta"),
+                 torch.zeros((1, 8, 4), device="meta"), chunk=8)
