@@ -7,9 +7,10 @@ Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
 
 1. card    the card's name and power limit (``nvidia-smi``), then the
-           builds of ``kernels/arbiter/csrc/arbiter.cu`` and
-           ``kernels/ssd/csrc/ssd.cu`` for sm_90a, started together, and
-           their times
+           builds of ``kernels/arbiter/csrc/arbiter.cu``,
+           ``kernels/ssd/csrc/ssd.cu`` and
+           ``kernels/attention/csrc/attention.cu`` for sm_90a, started
+           together, and their times
 2. kernels each hand-written kernel against its plain PyTorch version on
            the card — full-width shapes of the main path, ragged shapes,
            empty rows, ties, M < K; the fused kernel at all 7 stage
@@ -21,7 +22,8 @@ result line:
            replayed for all six protocols on the staged (``cuda``) and the
            fused kernel backend, bit-exact
 4. full    the paper's 144-host, 9-rack full-bisection leaf-spine network,
-           W3 at load 0.8 with 8000 messages, homa, 20000 slots, on the
+           W3 at load 0.8 with 8000 messages, homa, 12000 slots (every
+           message has arrived by slot 9186), on the
            staged kernel backend (launches counted; its state kept at
            slot 5000), on the plain backend for the first 5000 slots
            (state identical key by key), and through ``simulate`` on the
@@ -54,10 +56,27 @@ result line:
            plus one ``forward_decode`` against the 4096-token prefill;
            (d) ``repro_torch.launch.serve.main`` at full width, whose
            statistics must equal the JAX package's (``SERVE_EXPECTED``)
+8. llama   Llama-3.2-3B inference at full width (28 layers, d_model 3072,
+           24 heads over 8 KV heads of 128, d_ff 8192; random weights
+           from a seed): (a) the flash-attention kernel
+           (``csrc/attention.cu``) against its plain version
+           ``attention_ref`` on layer 0's q, k, v of a real 4 x 4096
+           prefill, on synthetic inputs at that shape and on edge cases
+           (fp32, window, non-causal, KV = 1, Sq 4095, Sq < 8), with its
+           time beside ``attention_ref``'s and one
+           ``scaled_dot_product_attention`` call's (the yardstick; the
+           port never calls it); (b) ``forward_prefill`` of 4 x 4096
+           tokens on the kernel (28 launches, counted and seen by the
+           profiler) against the ``use_kernel=False`` path
+           (``blockwise_attention``, no launch), layer by layer on the same
+           inputs and end to end; (c) prefill of 4095 tokens plus one
+           ``forward_decode`` against the 4096-token prefill; (d) the
+           full-width serve, whose statistics must equal
+           ``SERVE_EXPECTED``
 
-``--phases card,model`` (any comma-separated subset of card, kernels,
-goldens, full, window, sweep, model) runs only those phases and prints
-no result lines; with no arguments every phase runs.
+``--phases card,llama`` (any comma-separated subset of card, kernels,
+goldens, full, window, sweep, model, llama) runs only those phases and
+prints no result lines; with no arguments every phase runs.
 
 Then one JSON line with each kernel's numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -78,7 +97,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 PROTOCOLS = ("homa", "basic", "phost", "pias", "pfabric", "ndp")
 FULL = dict(workload="W3", load=0.8, n_messages=8000, seed=0, n_hosts=144,
             racks=9, oversub=1.0, ring_cap=1024, up_cap=512,
-            max_slots=20000)
+            max_slots=12000)
 PLAIN_SLOTS = 5000               # phase 4's plain run stops here
 SWEEP_LOADS, SWEEP_SEEDS = (0.5, 0.7, 0.8), (0, 1, 2, 3)
 SWEEP_SLOTS = 3000               # phase 6b's depth
@@ -104,6 +123,32 @@ SSD_TOL = dict(atol=1e-3, rtol=1e-3)
 # at d_model 256), so the end-to-end bounds only catch gross faults
 MODEL_TOL = dict(layer=2e-3, logits=0.35, decode_layer=5e-2,
                  decode_logits=0.35)
+LLAMA = dict(arch="llama3.2-3b", batch=4, seq=4096, seed=0)
+TC_BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
+# flash-attention kernel vs attention_ref, elementwise |got - want| <=
+# tol + tol |want|: the JAX package's own tolerances for its kernel vs
+# oracle (tests/test_kernels.py), fp32 arithmetic in both
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# and, per case, the relative RMS error ||got - want|| / ||want|| over the
+# whole output ("rms") and over the worst query row ("row"): at 4 x 4096
+# the later rows' outputs are small (RMS ~0.03), so the elementwise atol
+# alone would pass a kernel that drops or double-counts a K tile there
+# (a relative error of ~0.1 on those rows). Each is ~4x the largest
+# value over this phase's cases on an H100 (NVIDIA H100 80GB HBM3,
+# 700.00 W): bf16 rel RMS 7.0e-5, worst row 2.5e-3 (the output's own
+# rounding to bf16 is 1.6e-3 rel RMS: kernel and attention_ref round the
+# same fp32 values, so few roundings flip); fp32 4.6e-7 and 1.9e-6
+ATTN_RMS_TOL = {"float32": dict(rms=2e-6, row=8e-6),
+                "bfloat16": dict(rms=3e-4, row=1e-2)}
+# relative RMS error of the kernel path against the plain path
+# (blockwise_attention, which rounds p to bf16 before p.V), measured on
+# the CPU with the kernel's plain version by ``python
+# tests/test_torch_llama.py``: attention output 2.8e-3 layer by layer
+# (reduced config, and 28 layers at d_model 256); one decode step
+# against the prefill's last row 3.0e-3; last-token logits 1.8e-2 end to
+# end and prefill + decode 1.7e-2 (28 layers, d_model 256, S 512)
+LLAMA_TOL = dict(layer=1e-2, decode_layer=1e-2, logits=5e-2,
+                 decode_logits=5e-2)
 SERVE_EXPECTED = {"served": 64, "steps": 747,
                   "mean_slowdown": 1.3890566225810979,
                   "p99_slowdown": 4.0776315789473685}
@@ -149,6 +194,7 @@ def phase_card():
 
     import torch
     from repro_torch.kernels.arbiter import build as arbiter_build
+    from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -159,7 +205,7 @@ def phase_card():
         f"count {torch.cuda.device_count()}")
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on; the model's fp32 products must run in fp32")
-    libs = (arbiter_build.LIBRARY, ssd_kernel.LIBRARY)
+    libs = (arbiter_build.LIBRARY, ssd_kernel.LIBRARY, attn_kernel.LIBRARY)
 
     def timed(lib):
         t0 = time.perf_counter()
@@ -1037,7 +1083,15 @@ def phase_model():
         f"{SERVE_ARGV[-1]}; ssd_scan launches {ssd_kernel.ssd_scan.launches}"
         f" (decode runs the recurrence step, not the chunk scan)")
 
-    # a profiled window of the serve's decode step (batch 4, eager)
+    out["decode"] = _decode_window(cfg, params, dev, "model")
+    return out
+
+
+def _decode_window(cfg, params, dev, tag):
+    """A profiled window of the serve's decode step (batch 4, eager, on
+    the serve's caches); returns its wall ms per step and device busy."""
+    import torch
+    from repro_torch.models import model as M
     C = int(SERVE_ARGV[-1])
     with torch.inference_mode():
         caches = M.zeros_caches(M.cache_shapes(cfg, C, 8), torch.bfloat16,
@@ -1055,20 +1109,301 @@ def phase_model():
 
         _, wall, ev = _profiled(steps)
     busy = sum(e[2] for e in ev)
-    say(f"[model] decode window, batch {C}, {n} steps: "
+    say(f"[{tag}] decode window, batch {C}, {n} steps: "
         f"{wall / n * 1e3:.2f} ms/step wall, device busy "
         f"{busy / 1e6 / wall:.4f}, {sum(e[1] for e in ev) / n:.0f} "
         f"kernels/step, {busy / n / 1e3:.3f} ms/step of device time")
     for us, cnt, key in sorted(((e[2], e[1], e[0]) for e in ev),
                                reverse=True)[:5]:
-        say(f"[model]   {us / n / 1e3:8.3f} ms/step {cnt / n:6.1f}/step "
+        say(f"[{tag}]   {us / n / 1e3:8.3f} ms/step {cnt / n:6.1f}/step "
             f"{key[:80]}")
+    return dict(ms_per_step=wall / n * 1e3, busy=busy / 1e6 / wall)
+
+
+# ------------------------------------------------------------- phase 8 -----
+
+def _attn_work(q, k, v, causal):
+    """Bytes the attention must move (q, k, v read once, the output
+    written once) and the operations it needs over every query-key pair
+    it keeps (the causal half when causal): those of q.k and those of
+    p.v, separately."""
+    B, Sq, H, d = q.shape
+    Skv, dv = k.shape[1], v.shape[-1]
+    pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
+             else Sq * Skv) * B * H
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
+        + B * Sq * H * dv * q.element_size()
+    return nbytes, 2 * pairs * d, 2 * pairs * dv
+
+
+def _attn_check(name, q, k, v, *, causal=True, window=None):
+    """The kernel (through ``ops.attention``, padding included) against
+    ``attention_ref`` on the same inputs, elementwise within ATTN_TOL and
+    in relative RMS within ATTN_RMS_TOL. Every case here has a valid key
+    in every row, so the padding does not change the function. Returns
+    the max abs error."""
+    import torch
+    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
+    check(got.shape == want.shape and got.dtype == q.dtype,
+          f"attention {name}: shape {tuple(got.shape)} / dtype {got.dtype}")
+    check(bool(torch.isfinite(got).all()), f"attention {name}: not finite")
+    d = (got.float() - want.float()).abs()
+    used = float((d / (tol + tol * want.float().abs())).max())
+    err = float(d.max())
+    rtol = ATTN_RMS_TOL[str(q.dtype).removeprefix("torch.")]
+    diff = got.float() - want.float()
+    rms = float(diff.norm() / want.float().norm())
+    row = float((diff.norm(dim=-1)
+                 / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+    # the size of the output's own rounding to q's dtype, for scale
+    exact = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                          window=window)
+    rounding = _rel(want, exact)
+    del exact
+    say(f"[llama] attention kernel == attention_ref: {name} q "
+        f"{tuple(q.shape)} kv {tuple(k.shape)} {str(q.dtype)[6:]}, causal "
+        f"{causal}, window {window}: max abs {err:.3e}, tolerance {tol} + "
+        f"{tol} |want| ({used:.3f} of it used); rel RMS {rms:.3e} "
+        f"(tolerance {rtol['rms']}), worst row {row:.3e} (tolerance "
+        f"{rtol['row']}); the output's rounding to {str(q.dtype)[6:]} "
+        f"alone: rel RMS {rounding:.3e}")
+    check(used <= 1.0, f"attention {name}: outside the tolerance "
+                       f"({used:.3f} of it)")
+    check(rms <= rtol["rms"] and row <= rtol["row"],
+          f"attention {name}: rel RMS {rms:.3e} / worst row {row:.3e} "
+          f"outside {rtol}")
+    return err
+
+
+def phase_llama():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.arbiter import kernel as arb_kernel
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    dev = torch.device(DEVICE)
+    cfg = get_config(LLAMA["arch"])
+    Bsz, Slen = LLAMA["batch"], LLAMA["seq"]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    V = cfg.vocab_size
+    gen = torch.Generator(dev).manual_seed(LLAMA["seed"])
+    t0 = time.perf_counter()
+    params = init_params(M.model_defs(cfg), gen, dev)
+    tokens = torch.randint(0, V, (Bsz, Slen), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    say(f"[llama] {cfg.name}: {M.count_model_params(cfg)} bf16 parameters, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {H} heads over "
+        f"{KV} KV heads of {hd}, d_ff {cfg.d_ff}, vocab {V} (padded "
+        f"{cfg.padded_vocab()}); random weights, seed {LLAMA['seed']}; "
+        f"init {time.perf_counter() - t0:.2f} s")
+    out = {}
+    pos = torch.arange(Slen, device=dev)
+    with torch.inference_mode():
+        # (a) the kernel against its plain version
+        x = M._embed(cfg, params, tokens)
+        lp0 = M._index(params["blocks"], 0)["s0"]
+        q, k, v = L._qkv(cfg, lp0["mixer"], L.apply_norm(cfg, lp0["norm1"],
+                                                         x))
+        cos, sin = L.rope_cos_sin(pos, hd, cfg.rope_theta)
+        q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+        out["max_abs_err"] = _attn_check("layer 0 of the prefill", q, k, v)
+        sgen = torch.Generator(dev).manual_seed(7)
+
+        def synth(b, s, h, kv, dtype=torch.bfloat16):
+            return [torch.randn(shape, generator=sgen, device=dev)
+                    .to(dtype) for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                             (b, s, kv, hd))]
+
+        _attn_check("synthetic", *synth(Bsz, Slen, H, KV))
+        _attn_check("fp32", *synth(2, 2048, H, KV, torch.float32))
+        _attn_check("window 256", *synth(Bsz, Slen, H, KV), window=256)
+        _attn_check("non-causal", *synth(2, 2048, H, KV), causal=False)
+        _attn_check("KV = 1", *synth(2, 2048, H, 1))
+        _attn_check("Sq 4095 (pad path)", *synth(Bsz, Slen - 1, H, KV))
+        _attn_check("Sq < 8", *synth(Bsz, 5, H, KV))
+
+        nbytes, qk_flops, pv_flops = _attn_work(q, k, v, True)
+        flops = qk_flops + pv_flops
+        # The function's bound: q.k of bf16 operands is exact in fp32 on
+        # the bf16 tensor cores; p.v with fp32 p is not, so it needs the
+        # fp32 CUDA cores. The two units may run at once, so the least
+        # time is the larger of the two, not their sum.
+        ops_s = max(qk_flops / TC_BF16_FLOP_PER_S, pv_flops / FP32_FLOP_PER_S)
+        bounds = {"q.k on bf16 tensor cores, p.v on fp32 CUDA cores": ops_s,
+                  "both on fp32 CUDA cores (this kernel's design)":
+                      flops / FP32_FLOP_PER_S,
+                  "both on bf16 tensor cores (another function)":
+                      flops / TC_BF16_FLOP_PER_S,
+                  "bytes": nbytes / HBM_BYTES_PER_S}
+        out["bound_ms"] = max(ops_s, nbytes / HBM_BYTES_PER_S) * 1e3
+        out["bound_by"] = ("operations" if ops_s > nbytes / HBM_BYTES_PER_S
+                           else "bytes")
+        out["ms"] = time_ms(lambda: attn_kernel.flash_attention(q, k, v),
+                            batch=5, reps=5, warmup=2)
+        out["plain_ms"] = time_ms(lambda: attention_ref(q, k, v), batch=1,
+                                  reps=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        out["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True,
+                                                   enable_gqa=True),
+            batch=10, reps=5, warmup=3)
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+        check(_rel(sdpa.transpose(1, 2), attention_ref(q, k, v)) < 1e-2,
+              "scaled_dot_product_attention computes another function")
+        say(f"[llama] attention kernel at q {tuple(q.shape)}, kv "
+            f"{tuple(k.shape)} bf16, causal: {out['ms']:.4f} ms a call; "
+            f"plain attention_ref {out['plain_ms']:.3f} ms; "
+            f"scaled_dot_product_attention {out['library_ms']:.4f} ms; "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB: bounds "
+            + ", ".join(f"{n} {b * 1e3:.4f} ms" for n, b in bounds.items())
+            + f"; the function's bound {out['bound_ms']:.4f} ms "
+            f"({out['bound_by']}; q.k and p.v one after the other "
+            f"{(qk_flops / TC_BF16_FLOP_PER_S + pv_flops / FP32_FLOP_PER_S) * 1e3:.4f} ms)")
+        del x, q, k, v, qt, kt, vt, sdpa
+
+        # (b) the main path: one prefill of Bsz x Slen tokens on the kernel
+        M.forward_prefill(cfg, params, tokens)        # warm-up, not counted
+        torch.cuda.synchronize()
+        attn_kernel.flash_attention.launches = 0
+        ssd_kernel.ssd_scan.launches = 0
+        arb_kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = M.forward_prefill(cfg, params, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"] = attn_kernel.flash_attention.launches
+        check(out["launches"] == cfg.num_layers,
+              f"prefill launched the attention kernel {out['launches']} "
+              f"times, expected one per layer ({cfg.num_layers})")
+        check(ssd_kernel.ssd_scan.launches == 0
+              and not any(arb_kernel.launch_counts().values()),
+              "the prefill launched an SSD or arbitration kernel")
+        check(logits.shape == (Bsz, cfg.padded_vocab())
+              and bool(torch.isfinite(logits).all())
+              and bool((logits[:, V:] == -1e9).all()),
+              "prefill logits: wrong shape, not finite or padding unmasked")
+        out["tokens_per_s"] = Bsz * Slen / wall
+        say(f"[llama] prefill {Bsz} x {Slen} tokens on the kernel: "
+            f"{wall * 1e3:.1f} ms, {out['tokens_per_s']:.0f} tokens/s; "
+            f"flash_attention launches {out['launches']}")
+        _, pwall, ev = _profiled(lambda: M.forward_prefill(cfg, params,
+                                                           tokens))
+        busy = sum(e[2] for e in ev)
+        hits = [e for e in ev if "flash_attention_kernel" in e[0]]
+        check(len(hits) == 1 and hits[0][1] == cfg.num_layers,
+              f"profiler: flash_attention_kernel launched "
+              f"{[h[1] for h in hits]} times, expected {cfg.num_layers}")
+        attn_us = hits[0][2]
+        gemm_us = sum(e[2] for e in ev if "gemm" in e[0].lower())
+        out["device_ms_per_launch"] = attn_us / cfg.num_layers / 1e3
+        say(f"[llama] profiled prefill: {pwall * 1e3:.1f} ms wall, device "
+            f"busy {busy / 1e6 / pwall:.4f}, {busy / 1e3:.2f} ms device "
+            f"time: attention kernel {attn_us / 1e3:.2f} ms "
+            f"({attn_us / busy:.3f}), GEMM {gemm_us / 1e3:.2f} ms "
+            f"({gemm_us / busy:.3f}); {out['device_ms_per_launch']:.4f} ms "
+            f"device time per flash_attention launch")
+        for us, cnt, key in sorted(((e[2], e[1], e[0]) for e in ev),
+                                   reverse=True)[:6]:
+            say(f"[llama]   {us / 1e3:8.2f} ms {cnt:5d}x {key[:80]}")
+
+        attn_kernel.flash_attention.launches = 0
+        (plain, _), pwall, ev = _profiled(
+            lambda: M.forward_prefill(cfg, params, tokens, use_kernel=False))
+        check(attn_kernel.flash_attention.launches == 0
+              and not any("flash_attention" in e[0] for e in ev),
+              "the plain prefill launched the attention kernel")
+        err = _rel(logits[:, :V], plain[:, :V])
+        agree = float((logits[:, :V].argmax(-1)
+                       == plain[:, :V].argmax(-1)).float().mean())
+        out["plain_prefill_ms"] = pwall * 1e3
+        say(f"[llama] plain prefill (blockwise_attention, no attention "
+            f"launch): {pwall * 1e3:.1f} ms wall; last-token logits rel RMS "
+            f"{err:.4f} (tolerance {LLAMA_TOL['logits']}), argmax agrees "
+            f"on {agree:.2f} of rows")
+        check(err <= LLAMA_TOL["logits"], "kernel and plain prefill logits "
+                                          "differ beyond the tolerance")
+        del plain
+
+        # layer by layer on the same inputs: kernel vs plain attention, and
+        # one decode step on the first S-1 keys vs the last prefill row
+        x = M._embed(cfg, params, tokens)
+        worst = dict(layer=0.0, decode_layer=0.0)
+        for l in range(cfg.num_layers):
+            lp = M._index(params["blocks"], l)["s0"]
+            h = L.apply_norm(cfg, lp["norm1"], x)
+            yk, (k, v) = L.self_attention(cfg, lp["mixer"], h, pos)
+            yp, _ = L.self_attention(cfg, lp["mixer"], h, pos,
+                                     use_kernel=False)
+            worst["layer"] = max(worst["layer"], _rel(yk, yp))
+            yd, _ = L.self_attention_decode(
+                cfg, lp["mixer"], h[:, -1:], Slen - 1,
+                {"k": k[:, :-1], "v": v[:, :-1]})
+            worst["decode_layer"] = max(worst["decode_layer"],
+                                        _rel(yd, yk[:, -1:]))
+            x = M._ffn(cfg, lp, x + yk)
+        say(f"[llama] layer by layer, same inputs: kernel vs plain "
+            f"attention rel RMS <= {worst['layer']:.2e} (tolerance "
+            f"{LLAMA_TOL['layer']}); decode at {Slen - 1} on the first "
+            f"{Slen - 1} keys vs the prefill's last row rel RMS <= "
+            f"{worst['decode_layer']:.2e} (tolerance "
+            f"{LLAMA_TOL['decode_layer']})")
+        for key in ("layer", "decode_layer"):
+            check(worst[key] <= LLAMA_TOL[key],
+                  f"layer by layer: {key} beyond the tolerance")
+        del x, h, yk, yp, k, v
+
+        # (c) prefill(S-1) + one decode step vs the S-token prefill
+        _, caches = M.forward_prefill(cfg, params, tokens[:, :-1])
+        step, _ = M.forward_decode(cfg, params, tokens[:, -1:], Slen - 1,
+                                   caches)
+        err = _rel(step[:, :V], logits[:, :V])
+        say(f"[llama] prefill({Slen - 1}) + forward_decode at {Slen - 1} vs "
+            f"prefill({Slen}): logits rel RMS {err:.4f} (tolerance "
+            f"{LLAMA_TOL['decode_logits']})")
+        check(bool(torch.isfinite(step).all())
+              and err <= LLAMA_TOL["decode_logits"],
+              "prefill + decode differs from the prefill")
+        del caches, step, logits
+    torch.cuda.empty_cache()
+
+    # (d) the serving loop at full width
+    torch.cuda.synchronize()
+    attn_kernel.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", LLAMA["arch"], *SERVE_ARGV, "--device",
+                      DEVICE])
+    wall = time.perf_counter() - t0
+    got = {k: res[k] for k in SERVE_EXPECTED}
+    check(got == SERVE_EXPECTED, f"serve statistics {got} != the JAX "
+                                 f"package's {SERVE_EXPECTED}")
+    out["decode_steps_per_s"] = res["steps"] / wall
+    say(f"[llama] serve {LLAMA['arch']} {' '.join(SERVE_ARGV)}: {got} == "
+        f"the JAX package's; {wall:.2f} s wall (parameter init included), "
+        f"{out['decode_steps_per_s']:.1f} decode steps/s at batch "
+        f"{SERVE_ARGV[-1]}; flash_attention launches "
+        f"{attn_kernel.flash_attention.launches} (decode attends one "
+        f"token: decode_attention)")
+    out["decode"] = _decode_window(cfg, params, dev, "llama")
     return out
 
 
 # ---------------------------------------------------------------- main -----
 
-PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model")
+PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model",
+          "llama")
 
 
 def main(argv=None) -> int:
@@ -1122,6 +1457,8 @@ def main(argv=None) -> int:
              res["sweep_rate"]) = run("sweep", phase_sweep)
         if "model" in phases:
             res["model"] = run("model", phase_model)
+        if "llama" in phases:
+            res["llama"] = run("llama", phase_llama)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1134,7 +1471,8 @@ def main(argv=None) -> int:
     sweep_rate, sweep_window = res["sweep_rate"], res["sweep_window"]
     full_launches, sweep_launches = res["full_launches"], \
         res["sweep_launches"]
-    err, perf, model = res["err"], res["perf"], res["model"]
+    err, perf, model, llama = (res["err"], res["perf"], res["model"],
+                               res["llama"])
     say(f"[summary] runs*slots/s: B=1 cuda {full_rate:.1f}; B=12 "
         + ", ".join(f"{b} {r:.1f}" for b, r in sweep_rate.items()))
     say(f"[summary] ms/slot (device busy): B=1 cuda "
@@ -1144,6 +1482,9 @@ def main(argv=None) -> int:
         f"{sweep_window['ms_per_slot']:.3f} ({sweep_window['busy']:.4f})")
     say(f"[summary] mamba2-130m: prefill {model['tokens_per_s']:.0f} "
         f"tokens/s (4 x 4096), serve {model['decode_steps_per_s']:.1f} "
+        f"decode steps/s (batch 4)")
+    say(f"[summary] llama3.2-3b: prefill {llama['tokens_per_s']:.0f} "
+        f"tokens/s (4 x 4096), serve {llama['decode_steps_per_s']:.1f} "
         f"decode steps/s (batch 4)")
     src = "src/repro_torch/kernels/arbiter/csrc/arbiter.cu"
     rows = {
@@ -1180,6 +1521,15 @@ def main(argv=None) -> int:
          "bound_ms": model["bound_ms"], "bound_by": model["bound_by"],
          "library_ms": None,
          "device_ms_per_launch": model["device_ms_per_launch"]})
+    kernels.append(
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/attention/csrc/attention.cu",
+         "replaces": "src/repro/kernels/attention/kernel.py:74",
+         "launches": llama["launches"], "max_abs_err": llama["max_abs_err"],
+         "ms": llama["ms"], "plain_ms": llama["plain_ms"],
+         "bound_ms": llama["bound_ms"], "bound_by": llama["bound_by"],
+         "library_ms": llama["library_ms"],
+         "device_ms_per_launch": llama["device_ms_per_launch"]})
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

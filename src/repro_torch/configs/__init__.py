@@ -1,8 +1,8 @@
 """Config registry: one module per architecture the port runs.
 
-Only ``mamba2-130m`` so far; the JAX package's other architectures need
-attention, MoE or encoder code the port does not have yet (ROADMAP
-A11/B5).
+``mamba2-130m`` (ssm) and ``llama3.2-3b`` (dense GQA attention) so far;
+the JAX package's other architectures need MLA, MoE, cross-attention or
+encoder code the port does not have yet (ROADMAP A11).
 """
 import importlib
 
@@ -12,6 +12,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _ARCH_MODULES = [
     "mamba2_130m",
+    "llama3_2_3b",
 ]
 
 _loaded = False
@@ -26,4 +27,4 @@ def load_all() -> None:
         importlib.import_module(f"repro_torch.configs.{m}")
 
 
-ARCH_NAMES = ["mamba2-130m"]
+ARCH_NAMES = ["mamba2-130m", "llama3.2-3b"]

@@ -124,5 +124,5 @@ def get_config(name: str) -> ModelConfig:
     _pkg.load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port runs "
-                       f"{sorted(_REGISTRY)} (the others: ROADMAP A11/B5)")
+                       f"{sorted(_REGISTRY)} (the others: ROADMAP A11)")
     return _REGISTRY[name]

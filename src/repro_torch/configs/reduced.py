@@ -30,4 +30,6 @@ def reduced_config(name: str) -> ModelConfig:
     )
     if cfg.ssm_state_dim:
         kw.update(ssm_state_dim=16, ssm_head_dim=8, ssm_chunk=8)
+    if cfg.sliding_window:
+        kw.update(sliding_window=16)
     return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,109 @@
+"""Python entry point of the hand-written flash-attention kernel.
+
+``flash_attention(q, k, v, causal=, window=, scale=, kv_len=)`` computes
+what the JAX package's ``kernels/attention/kernel.py:flash_attention``
+computes — online-softmax attention with causal masking, a sliding
+window, GQA (query head h reads kv head h // (H // KV)) and a ``kv_len``
+mask, accumulated in fp32 — with ``csrc/attention.cu`` (built by
+:mod:`repro_torch.kernels.build`) on PyTorch's current stream. A tensor
+on the CPU goes to the plain version (``ref.attention_ref``) instead; a
+CUDA tensor launches the kernel or raises — a failed build or launch
+never falls back.
+
+Each call launches one kernel and counts it in the plain integer
+``flash_attention.launches``, raised only where the kernel is launched,
+so a run can show that it went through it.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.build import CudaLibrary
+
+MAX_HEAD_DIM = 128    # the kernel's register tiles hold 128 columns of v
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.attention_launch.argtypes = ([ptr] * 4 + [i32] * 12
+                                     + [ctypes.c_float, ptr])
+    lib.attention_launch.restype = i32
+    lib.attention_error_string.argtypes = [i32]
+    lib.attention_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = CudaLibrary("attention", Path(__file__).resolve().parent / "csrc",
+                      _declare)
+
+
+def _check(q, k, v):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: expected CUDA or CPU tensors, "
+                         f"got {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: q must be float32 or bfloat16, "
+                        f"got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: tensors on {q.device} and "
+                             f"{t.device}")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be 4-D, got "
+                             f"shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    B, Sq, H, d = q.shape
+    _, Skv, KV, dv = v.shape
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != d
+            or KV < 1 or H % KV):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
+    if min(B, Sq, Skv, H, d, dv) < 1:
+        raise ValueError(f"flash_attention: empty operand, q "
+                         f"{tuple(q.shape)}, v {tuple(v.shape)}")
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dims d {d}, dv {dv}; the "
+                         f"kernel takes at most {MAX_HEAD_DIM}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, scale: float | None = None,
+                    kv_len: int | None = None):
+    """q: (B, Sq, H, d); k/v: (B, Skv, KV, d/dv), all float32 or all
+    bfloat16, contiguous, H % KV == 0, d and dv at most 128 on a card.
+    Keys at positions >= ``kv_len`` (default Skv) are masked. Returns
+    (B, Sq, H, dv) in q's dtype."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale, kv_len=kv_len)
+    _check(q, k, v)
+    B, Sq, H, d = q.shape
+    _, Skv, KV, dv = v.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kv_len = Skv if kv_len is None else kv_len
+    out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
+    lib = LIBRARY.load()
+    rc = lib.attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, Sq, Skv, H, KV, d, dv, int(causal),
+        int(window is not None), int(window or 0), int(kv_len), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: CUDA launch failed ({rc}: "
+                           f"{lib.attention_error_string(rc).decode()})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+__all__ = ["MAX_HEAD_DIM", "LIBRARY", "flash_attention"]

@@ -1,7 +1,8 @@
 """Build a kernel library's ``csrc/`` with nvcc at first use and load it
 with ctypes.
 
-Each library (``arbiter``, ``ssd``) is a :class:`CudaLibrary`: a source
+Each library (``arbiter``, ``ssd``, ``attention``) is a
+:class:`CudaLibrary`: a source
 directory whose ``*.cu`` files compile into one shared library with a
 plain C interface (no PyTorch headers), so a build takes seconds. It goes
 to ``src/repro_torch/kernels/_build/<key>/lib<name>.so``, which

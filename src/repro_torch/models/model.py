@@ -1,5 +1,7 @@
-"""Model assembly for ``ssm`` architectures, the part of the JAX
-package's ``models/model.py`` an attention-free model runs.
+"""Model assembly for decoder-only models whose layers are ``ssm``
+(Mamba2) or ``attn`` (GQA self-attention) mixers with an optional dense
+MLP: the part of the JAX package's ``models/model.py`` that inference of
+such a model runs.
 
 Entrypoints
 -----------
@@ -13,9 +15,9 @@ Parameters and caches keep the JAX package's stacked layout: every leaf
 under ``blocks`` carries a leading block axis ``nb`` (``blocks/s0/...``).
 Where JAX runs ``lax.scan`` over that axis, the port loops over the
 blocks in Python, so a tree carried across from JAX
-(:func:`repro_torch.convert.params_from_jax`) is used as it is. Layers of
-other kinds (attention, cross-attention, MLP/MoE, encoder) raise
-``NotImplementedError`` naming ROADMAP A11/B5.
+(:func:`repro_torch.convert.params_from_jax`) is used as it is. MLA,
+cross-attention, MoE and encoder layers raise ``NotImplementedError``
+naming ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -33,21 +35,35 @@ F32 = torch.float32
 
 def _unported(what: str):
     return NotImplementedError(
-        f"{what}: the port runs ssm layers only; attention, cross-attention, "
-        f"MLP/MoE and encoder layers are ROADMAP A11/B5")
+        f"{what}: the port runs ssm and GQA attention layers with dense "
+        f"MLPs; MLA, cross-attention, MoE and encoder layers are ROADMAP "
+        f"A11")
+
+
+def _check_ported(cfg: ModelConfig, l: int) -> str:
+    """Layer ``l``'s mixer kind, raising for what the port lacks."""
+    kind = cfg.layer_kind(l)
+    if kind not in ("attn", "ssm"):
+        raise _unported(f"layer {l} of {cfg.name} is {kind!r}")
+    if kind == "attn" and cfg.use_mla:
+        raise _unported(f"layer {l} of {cfg.name} is MLA")
+    if cfg.is_encoder_decoder:
+        raise _unported(f"{cfg.name} is an encoder-decoder")
+    if cfg.is_moe_layer(l):
+        raise _unported(f"layer {l} of {cfg.name} is MoE")
+    return kind
 
 
 # ------------------------------------------------------------- defs tree ---
 
 def layer_defs(cfg: ModelConfig, l: int):
-    kind = cfg.layer_kind(l)
-    if kind != "ssm":
-        raise _unported(f"layer {l} of {cfg.name} is {kind!r}")
-    if cfg.is_encoder_decoder:
-        raise _unported(f"{cfg.name} is an encoder-decoder")
-    if cfg.d_ff > 0 or cfg.is_moe_layer(l):
-        raise _unported(f"layer {l} of {cfg.name} has a feed-forward block")
-    return {"norm1": L.norm_defs(cfg), "mixer": S.ssm_defs(cfg)}
+    kind = _check_ported(cfg, l)
+    d: dict[str, Any] = {"norm1": L.norm_defs(cfg)}
+    d["mixer"] = L.attn_defs(cfg) if kind == "attn" else S.ssm_defs(cfg)
+    if cfg.d_ff > 0:
+        d["norm2"] = L.norm_defs(cfg)
+        d["ffn"] = L.mlp_defs(cfg)
+    return d
 
 
 def model_defs(cfg: ModelConfig):
@@ -92,28 +108,52 @@ def _stack(trees: list):
 
 # --------------------------------------------------------- layer forward ---
 
+def _ffn(cfg, lp, x):
+    h = L.apply_norm(cfg, lp["norm2"], x)
+    return x + L.mlp(cfg, lp["ffn"], h)
+
+
 def layer_forward(cfg: ModelConfig, lp, x, l: int, *,
                   use_kernel: bool | None = None):
-    """One layer, full sequence (prefill). Returns (x, new_cache).
-    ``use_kernel`` is passed to ``mamba_block``."""
-    kind = cfg.layer_kind(l)
-    if kind != "ssm":
-        raise _unported(f"layer {l} of {cfg.name} is {kind!r}")
+    """One layer, full sequence (prefill from position 0). Returns (x,
+    new_cache). ``use_kernel`` is passed to the mixer (``self_attention``
+    or ``mamba_block``)."""
+    kind = _check_ported(cfg, l)
     h = L.apply_norm(cfg, lp["norm1"], x)
-    y, (final_state, conv_tail) = S.mamba_block(cfg, lp["mixer"], h,
-                                                use_kernel=use_kernel)
-    return x + y, {"state": final_state.to(x.dtype),
-                   "conv": conv_tail.to(x.dtype)}
+    if kind == "attn":
+        positions = torch.arange(x.shape[1], device=x.device)
+        y, (k, v) = L.self_attention(cfg, lp["mixer"], h, positions,
+                                     window=cfg.sliding_window,
+                                     use_kernel=use_kernel)
+        if cfg.sliding_window:   # ring cache: keep last `window`
+            w = min(cfg.sliding_window, k.shape[1])
+            k, v = k[:, -w:], v[:, -w:]
+        new_cache = {"k": k, "v": v}
+    else:
+        y, (final_state, conv_tail) = S.mamba_block(cfg, lp["mixer"], h,
+                                                    use_kernel=use_kernel)
+        new_cache = {"state": final_state.to(x.dtype),
+                     "conv": conv_tail.to(x.dtype)}
+    x = x + y
+    if "ffn" in lp:
+        x = _ffn(cfg, lp, x)
+    return x, new_cache
 
 
 def layer_decode(cfg: ModelConfig, lp, x, l: int, *, pos, cache):
     """One layer, one token. Returns (x, cache_delta)."""
-    kind = cfg.layer_kind(l)
-    if kind != "ssm":
-        raise _unported(f"layer {l} of {cfg.name} is {kind!r}")
+    kind = _check_ported(cfg, l)
     h = L.apply_norm(cfg, lp["norm1"], x)
-    y, delta = S.mamba_block_decode(cfg, lp["mixer"], h, cache)
-    return x + y, delta
+    if kind == "attn":
+        y, (kn, vn) = L.self_attention_decode(
+            cfg, lp["mixer"], h, pos, cache, window=cfg.sliding_window)
+        delta = {"k": kn, "v": vn}
+    else:
+        y, delta = S.mamba_block_decode(cfg, lp["mixer"], h, cache)
+    x = x + y
+    if "ffn" in lp:
+        x = _ffn(cfg, lp, x)
+    return x, delta
 
 
 # ----------------------------------------------------------- full stacks ---
@@ -140,8 +180,8 @@ def forward_prefill(cfg: ModelConfig, params, tokens, *,
     """tokens: (B, S) -> (logits for last position (B, Vp), caches tree).
 
     Cache leaves are stacked over blocks: (nb, B, ...). ``use_kernel``
-    goes to every layer's ``mamba_block`` (``None``: the SSD kernel on a
-    card)."""
+    goes to every layer's mixer (``None``: the SSD or flash-attention
+    kernel on a card)."""
     x = _embed(cfg, params, tokens)
     prefix_caches = {}
     for i in range(cfg.first_dense_layers):
@@ -189,9 +229,11 @@ def forward_decode(cfg: ModelConfig, params, token, pos, caches):
 # ----------------------------------------------------------- cache decls ---
 
 def _layer_cache_shape(cfg: ModelConfig, l: int, batch: int, seq: int):
-    kind = cfg.layer_kind(l)
-    if kind != "ssm" or cfg.is_encoder_decoder:
-        raise _unported(f"cache of layer {l} of {cfg.name} ({kind!r})")
+    kind = _check_ported(cfg, l)
+    if kind == "attn":
+        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        s = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
+        return {"k": (batch, s, KV, hd), "v": (batch, s, KV, hd)}
     return S.ssm_cache_shape(cfg, batch)
 
 

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import _proj, rmsnorm
 from repro_torch.models.params import ParamDef
 
 F32 = torch.float32
@@ -48,12 +48,6 @@ def ssm_defs(cfg: ModelConfig):
         "norm": ParamDef((H, P), ("tp", "tp2"), init="ones"),
         "w_out": ParamDef((H, P, D), ("tp", "tp2", "fsdp"), init="scaled", fan_in=din),
     }
-
-
-def _proj(eq: str, x, w):
-    """``einsum`` of bf16 operands with an fp32 result, as JAX's
-    ``preferred_element_type=F32``: both operands are cast to fp32."""
-    return torch.einsum(eq, x.to(F32), w.to(F32))
 
 
 def _causal_conv(x, kernel):

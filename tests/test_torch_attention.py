@@ -1,0 +1,152 @@
+"""The port's flash attention (``repro_torch.kernels.attention``) against
+the JAX package on the CPU.
+
+Inputs are drawn with numpy from a seed and given to both packages. On
+the CPU the kernel wrapper runs its plain version (``ref.attention_ref``),
+so ``ops.attention`` here tests the block choice and padding around the
+kernel's call site; ``test_torch_cuda.py`` holds the CUDA kernel to
+``attention_ref`` on a card with the same cases. Tolerances are the JAX
+package's own for kernel vs oracle (``tests/test_kernels.py``): 2e-5 on
+fp32 inputs, 2e-2 on bf16.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from repro.kernels.attention.kernel import flash_attention as jflash
+from repro.kernels.attention.ops import attention as jattention
+from repro.kernels.attention.ref import attention_ref as jattention_ref
+from repro_torch.kernels.attention import kernel as attn_kernel, ops
+from repro_torch.kernels.attention.kernel import flash_attention
+from repro_torch.kernels.attention.ref import attention_ref
+from test_torch_cuda import (ATTN_CASES, ATTN_KERNEL_CASES, ATTN_TOL,
+                             _attn_inputs)
+
+torch.set_num_threads(1)
+JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _both(arrays, dtype):
+    """The same values in both packages (bf16 rounded once, by torch)."""
+    t = [torch.from_numpy(a).to(TDT[dtype]) for a in arrays]
+    return t, [jnp.asarray(x.float().numpy()).astype(JDT[dtype]) for x in t]
+
+
+def _close(got, want, dtype):
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", ATTN_KERNEL_CASES)
+def test_attention_ref_matches_jax(case):
+    """Both oracles: fp32 naive attention, the same masks and the same
+    NEG_INF sentinel (so rows with no valid key average v alike)."""
+    B, Sq, Skv, H, KV, d, causal, window, dtype = case
+    t, j = _both(_attn_inputs(B, Sq, Skv, H, KV, d, 42), dtype)
+    _close(attention_ref(*t, causal=causal, window=window),
+           jattention_ref(*j, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_ops_attention_matches_jax_kernel(case):
+    """``ops.attention`` (plain on the CPU, pad path included) against
+    JAX ``attention`` running the Pallas kernel in interpret mode, with
+    the blocks of the JAX package's test; no launch is counted."""
+    B, Sq, Skv, H, KV, d, causal, window, dtype = case
+    t, j = _both(_attn_inputs(B, Sq, Skv, H, KV, d, 42), dtype)
+    before = attn_kernel.flash_attention.launches
+    got = ops.attention(*t, causal=causal, window=window, block_q=32,
+                        block_kv=32)
+    assert attn_kernel.flash_attention.launches == before
+    assert got.dtype == TDT[dtype] and got.shape == (B, Sq, H, d)
+    _close(got, jattention(*j, causal=causal, window=window, block_q=32,
+                           block_kv=32, interpret=True), dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv_len", [1, 21, 40])
+def test_kv_len_matches_jax_kernel(causal, kv_len):
+    """``kv_len`` < Skv masks the tail keys, as JAX's kernel does."""
+    t, j = _both(_attn_inputs(2, 48, 48, 4, 2, 16, 5), "f32")
+    got = flash_attention(*t, causal=causal, kv_len=kv_len)
+    _close(got, jflash(*j, causal=causal, kv_len=kv_len, block_q=16,
+                       block_kv=16, interpret=True), "f32")
+    _close(got, jattention_ref(*j, causal=causal, kv_len=kv_len), "f32")
+
+
+def test_row_with_no_valid_key_averages_v():
+    """Non-causal, window 8, kv_len 10: queries 17.. see no valid key and
+    average v over all 64 keys uniformly — in the port, in JAX's oracle
+    and in JAX's kernel alike (a finite NEG_INF, never -inf: no NaN)."""
+    t, j = _both(_attn_inputs(1, 64, 64, 2, 1, 16, 9), "f32")
+    got = flash_attention(*t, causal=False, window=8, kv_len=10)
+    assert torch.isfinite(got).all()
+    mean_v = t[2].mean(1, keepdim=True).expand(-1, 47, 2, -1)
+    torch.testing.assert_close(got[:, 17:], mean_v, atol=2e-6, rtol=2e-6)
+    _close(got, jattention_ref(*j, causal=False, window=8, kv_len=10),
+           "f32")
+    _close(got, jflash(*j, causal=False, window=8, kv_len=10, block_q=16,
+                       block_kv=16, interpret=True), "f32")
+
+
+def test_causal_rows_without_valid_key_follow_the_oracle():
+    """Causal, window 2, kv_len 8: queries 9.. see no valid key. The port
+    averages all 64 keys, as JAX's oracle does; JAX's kernel averages only
+    the blocks up to the diagonal, so its rows 9..47 (q blocks 0-2 of 16)
+    differ from its own oracle — the model never builds such a row."""
+    t, j = _both(_attn_inputs(1, 64, 64, 1, 1, 8, 0), "f32")
+    got = flash_attention(*t, causal=True, window=2, kv_len=8)
+    _close(got, jattention_ref(*j, causal=True, window=2, kv_len=8), "f32")
+    jk = np.asarray(jflash(*j, causal=True, window=2, kv_len=8, block_q=16,
+                           block_kv=16, interpret=True))
+    rows = np.abs(jk - got.numpy()).max(axis=(0, 2, 3)) > 1e-5
+    assert np.flatnonzero(rows).tolist() == list(range(9, 48))
+
+
+def test_first_tiles_fully_masked():
+    """Causal window 4 over 64 keys in blocks of 16: the first tiles a
+    late query sees are all masked (p = 1 there) until a valid key wipes
+    them out with corr = 0, as in the JAX kernel."""
+    t, j = _both(_attn_inputs(1, 64, 64, 2, 2, 8, 11), "f32")
+    got = ops.attention(*t, causal=True, window=4, block_q=16, block_kv=16)
+    _close(got, jattention(*j, causal=True, window=4, block_q=16,
+                           block_kv=16, interpret=True), "f32")
+
+
+def _convex(b, kv, g, d, causal, seed):
+    """Rows of the attention output are convex combinations of V rows:
+    the output lies within [min(v), max(v)]."""
+    q, k, v = (torch.from_numpy(a) for a in
+               _attn_inputs(b, 40, 40, kv * g, kv, d, seed))
+    out = ops.attention(q, k, v, causal=causal, block_q=16, block_kv=16)
+    assert torch.isfinite(out).all()
+    assert out.max() <= v.max() + 1e-3 and out.min() >= v.min() - 1e-3
+
+
+@settings(max_examples=15, deadline=None)
+@given(st.integers(1, 3), st.integers(1, 4), st.integers(1, 3),
+       st.sampled_from([8, 16, 32]), st.booleans())
+def test_attention_property(b, kv, g, d, causal):
+    _convex(b, kv, g, d, causal, b * 100 + kv * 10 + g)
+
+
+@pytest.mark.parametrize("b,kv,g,d,causal", [(1, 1, 3, 8, True),
+                                             (3, 2, 2, 32, False),
+                                             (2, 4, 1, 16, True)])
+def test_attention_convex_cases(b, kv, g, d, causal):
+    """The property test's check on fixed draws, so it runs where
+    hypothesis is not installed."""
+    _convex(b, kv, g, d, causal, 7)
+
+
+def test_wrapper_rejects_other_devices():
+    """The wrapper runs its plain version only for a CPU tensor and
+    raises on a device that is neither CPU nor CUDA."""
+    x = torch.zeros((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        flash_attention(x, x, x)

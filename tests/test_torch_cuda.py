@@ -1,13 +1,13 @@
 """The hand-written CUDA kernels against their plain PyTorch versions
 (the staged arbiter and top-K, the fused per-slot kernel at every stage
-subset and B in {1, 4, 12}, and the SSD chunk scan).
+subset and B in {1, 4, 12}, the SSD chunk scan and flash attention).
 
 These tests need a CUDA card and skip without one (marker ``gpu``); run
 them there with ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py``.
 The module imports nothing of JAX, so it also runs where JAX is absent.
 The input generators and cases are shared with ``test_torch_arbiter.py``
-and ``test_torch_ssd.py``, which hold the plain versions to the JAX
-package on the CPU.
+``test_torch_ssd.py`` and ``test_torch_attention.py``, which hold the
+plain versions to the JAX package on the CPU.
 """
 import numpy as np
 import pytest
@@ -325,5 +325,144 @@ def test_mamba_block_runs_the_kernel_on_a_card(cuda):
     torch.testing.assert_close(fs, fs_p, atol=SSD_ATOL, rtol=SSD_RTOL)
     assert torch.equal(tail, tail_p)
     # bf16 output: one-ulp flips of bf16 roundings between the two paths
+    torch.testing.assert_close(out.float(), out_p.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+# ------------------------------------------------------------ attention ----
+
+ATTN_CASES = [
+    # (B, Sq, Skv, H, KV, d, causal, window, dtype): the JAX package's
+    # cases (test_kernels.py)
+    (1, 64, 64, 4, 4, 32, True, None, "f32"),
+    (2, 96, 96, 4, 2, 16, True, None, "f32"),
+    (1, 128, 128, 8, 1, 64, True, 32, "f32"),
+    (2, 64, 64, 2, 2, 32, False, None, "f32"),
+    (1, 80, 80, 4, 4, 32, True, None, "bf16"),
+    (1, 33, 33, 2, 2, 8, True, None, "f32"),     # ragged block
+]
+
+ATTN_KERNEL_CASES = ATTN_CASES + [
+    (2, 300, 300, 6, 2, 128, True, None, "bf16"),   # the model's head dim
+    (1, 130, 130, 3, 1, 128, False, None, "f32"),   # KV = 1, d 128, fp32
+    (1, 5, 5, 4, 2, 128, True, None, "bf16"),       # Sq < 8: the pad path
+    (1, 200, 200, 2, 2, 13, True, 5, "f32"),        # d not /4: scalar loads
+    (2, 100, 40, 4, 2, 24, False, 10, "bf16"),      # rows q >= 49 have no
+    (1, 100, 40, 2, 1, 16, True, 10, "f32"),        # valid key: uniform
+]
+
+# the JAX package's own tolerances for kernel vs oracle
+# (tests/test_kernels.py): fp32 throughout, so only the order of the fp32
+# sums differs
+ATTN_TOL = {"f32": 2e-5, "bf16": 2e-2}
+TORCH_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _attn_inputs(B, Sq, Skv, H, KV, d, seed):
+    """Standard normal q (B,Sq,H,d), k and v (B,Skv,KV,d) as numpy f32."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, d)).astype(np.float32),
+            rng.standard_normal((B, Skv, KV, d)).astype(np.float32),
+            rng.standard_normal((B, Skv, KV, d)).astype(np.float32))
+
+
+def _attn_tensors(arrays, dtype, device):
+    return [torch.from_numpy(a).to(device=device, dtype=TORCH_DTYPE[dtype])
+            for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ATTN_KERNEL_CASES)
+def test_attention_kernel_matches_plain(cuda, case):
+    """``ops.attention`` (pad path included) launches the kernel once and
+    matches ``attention_ref`` on the same padded call."""
+    from repro_torch.kernels.attention import kernel as attn_kernel, ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    B, Sq, Skv, H, KV, d, causal, window, dtype = case
+    q, k, v = _attn_tensors(_attn_inputs(B, Sq, Skv, H, KV, d, 42), dtype,
+                            cuda)
+    before = attn_kernel.flash_attention.launches
+    out = ops.attention(q, k, v, causal=causal, window=window, block_q=32,
+                        block_kv=32)
+    torch.cuda.synchronize()
+    assert attn_kernel.flash_attention.launches == before + 1
+    ref = ops.attention(q.cpu(), k.cpu(), v.cpu(), causal=causal,
+                        window=window, block_q=32, block_kv=32)
+    assert out.dtype == q.dtype and out.shape == ref.shape
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.cpu().float(), ref.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_len", [1, 37, 100])
+def test_attention_kernel_kv_len(cuda, kv_len):
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.kernels.attention.ref import attention_ref
+    q, k, v = _attn_tensors(_attn_inputs(2, 100, 100, 4, 2, 64, 3), "f32",
+                            cuda)
+    for causal in (True, False):
+        out = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        ref = attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_kernel_rows_without_valid_key(cuda, causal):
+    """Window 2, kv_len 8 over 200 keys: queries 9.. see no valid key and
+    average v over all 200, as ``attention_ref`` does — the kernel goes on
+    past the tiles that hold valid keys while such a row remains."""
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.kernels.attention.ref import attention_ref
+    q, k, v = _attn_tensors(_attn_inputs(2, 200, 200, 4, 2, 32, 4), "f32",
+                            cuda)
+    out = flash_attention(q, k, v, causal=causal, window=2, kv_len=8)
+    ref = attention_ref(q, k, v, causal=causal, window=2, kv_len=8)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_attention_kernel_rejects_bad_inputs(cuda):
+    from repro_torch.kernels.attention.kernel import flash_attention
+    q, k, v = _attn_tensors(_attn_inputs(1, 16, 16, 2, 1, 256, 0), "bf16",
+                            cuda)
+    with pytest.raises(ValueError, match="at most 128"):
+        flash_attention(q, k, v)
+    q, k, v = _attn_tensors(_attn_inputs(1, 16, 16, 2, 1, 32, 0), "bf16",
+                            cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="k is"):
+        flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="do not agree"):
+        flash_attention(q, k[..., :16].contiguous(), v)
+
+
+@pytest.mark.gpu
+def test_self_attention_runs_the_kernel_on_a_card(cuda):
+    """On a CUDA tensor ``self_attention`` launches the kernel once by
+    default and never with ``use_kernel=False``; the two agree within the
+    bf16 rounding of p that only the plain path takes."""
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.models import layers, model as M
+    from repro_torch.models.params import init_params
+    cfg = reduced_config("llama3.2-3b")
+    params = init_params(M.model_defs(cfg),
+                         torch.Generator(cuda).manual_seed(0), cuda)
+    p = {k: v[0] for k, v in params["blocks"]["s0"]["mixer"].items()}
+    x = torch.randn((2, 37, cfg.d_model), generator=torch.Generator(cuda)
+                    .manual_seed(1), device=cuda).bfloat16()
+    pos = torch.arange(37, device=cuda)
+    before = attn_kernel.flash_attention.launches
+    out, (k, v) = layers.self_attention(cfg, p, x, pos)
+    assert attn_kernel.flash_attention.launches == before + 1
+    out_p, (k_p, v_p) = layers.self_attention(cfg, p, x, pos,
+                                              use_kernel=False)
+    assert attn_kernel.flash_attention.launches == before + 1
+    assert torch.equal(k, k_p) and torch.equal(v, v_p)
     torch.testing.assert_close(out.float(), out_p.float(), atol=2e-2,
                                rtol=2e-2)

@@ -123,7 +123,7 @@ def test_config_matches_jax(cfgs):
         (24, 768, 24, 64, 128, 256)
     assert M.count_model_params(cfg) == JM.count_model_params(jcfg)
     with pytest.raises(KeyError, match="A11"):
-        get_config("llama3.2-3b")
+        get_config("deepseek-v2-lite-16b")
 
 
 def test_params_cross_bit_for_bit(jparams):
@@ -158,12 +158,15 @@ def test_init_params_follows_the_defs(cfgs):
 
 
 def test_unported_layer_kinds_raise():
+    """A hybrid of Mamba and MoE layers: the MoE layers raise."""
     import dataclasses
-    cfg = dataclasses.replace(reduced_config(ARCH), family="dense",
-                              num_heads=4, num_kv_heads=2, head_dim=16)
-    with pytest.raises(NotImplementedError, match="A11/B5"):
+    cfg = dataclasses.replace(reduced_config(ARCH), family="hybrid",
+                              num_heads=4, num_kv_heads=2, head_dim=16,
+                              attn_layer_period=2, num_experts=4,
+                              experts_per_token=2, moe_d_ff=64)
+    with pytest.raises(NotImplementedError, match="A11"):
         M.model_defs(cfg)
-    with pytest.raises(NotImplementedError, match="A11/B5"):
+    with pytest.raises(NotImplementedError, match="A11"):
         M.cache_shapes(cfg, 2, 8)
 
 

@@ -20,7 +20,8 @@ PORT = ROOT / "src" / "repro_torch"
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.kernels.arbiter.kernel, "
-            "repro_torch.kernels.ssd.ops, repro_torch.models.model, "
+            "repro_torch.kernels.ssd.ops, repro_torch.kernels.attention.ops, "
+            "repro_torch.models.model, repro_torch.configs.llama3_2_3b, "
             "repro_torch.launch.serve; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
@@ -156,20 +157,21 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_one_builder_two_libraries():
-    """Both kernel libraries go through the one builder, each keyed on its
-    own ``csrc/`` into its own directory under ``_build/``."""
+    """Every kernel library goes through the one builder, each keyed on
+    its own ``csrc/`` into its own directory under ``_build/``."""
     from repro_torch.kernels import build as builder
+    from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
-    arb, ssd = build.LIBRARY, ssd_kernel.LIBRARY
-    assert isinstance(arb, builder.CudaLibrary)
-    assert isinstance(ssd, builder.CudaLibrary)
-    assert [f.name for f in arb.sources] == ["arbiter.cu"]
-    assert [f.name for f in ssd.sources] == ["ssd.cu"]
-    pa, ps = arb.library_path(), ssd.library_path()
-    assert pa.parent.parent == ps.parent.parent == builder.BUILD_ROOT
-    assert pa.parent != ps.parent
-    assert (pa.name, ps.name) == ("libarbiter.so", "libssd.so")
-    assert build.library_path() == pa
+    libs = (build.LIBRARY, ssd_kernel.LIBRARY, attn_kernel.LIBRARY)
+    names = ("arbiter", "ssd", "attention")
+    paths = [lib.library_path() for lib in libs]
+    for lib, name, path in zip(libs, names, paths):
+        assert isinstance(lib, builder.CudaLibrary)
+        assert [f.name for f in lib.sources] == [f"{name}.cu"]
+        assert path.parent.parent == builder.BUILD_ROOT
+        assert path.name == f"lib{name}.so"
+    assert len({p.parent for p in paths}) == 3
+    assert build.library_path() == paths[0]
 
 
 def test_ssd_wrapper_rejects_other_devices():

@@ -101,6 +101,51 @@ def test_serve_stats_are_the_committed_ones():
     assert _stats(serve.main(argv + ["--device", "cpu"])) == expected
 
 
+def test_llama_serve_matches_jax():
+    """The Llama smoke serve gives the JAX package's statistics, which are
+    the committed ones (``SERVE_EXPECTED``) whatever the model."""
+    argv = ["--arch", "llama3.2-3b", "--smoke"] + _chip_smoke().SERVE_ARGV
+    got = serve.main(argv + ["--device", "cpu"])
+    want = jserve.main(argv)
+    assert _stats(got) == _stats(want) == _chip_smoke().SERVE_EXPECTED
+
+
+def test_llama_serve_caches_take_the_delta_shape(monkeypatch):
+    """As in the JAX driver, the first step's caches are
+    ``cache_shapes(cfg, C, 8)`` and every later step attends to the
+    previous step's decode deltas, ``(nb, C, 1, KV, hd)``, at position 4:
+    the driver replaces its caches with the deltas and does not append
+    them. Both packages show the same shapes at every step."""
+    import jax
+    from repro.models import model as JM
+    from repro_torch.models import model as M
+
+    def record(mod, tree_shapes):
+        seen = []
+        real = mod.forward_decode
+
+        def spy(cfg, params, token, pos, caches, **kw):
+            seen.append((pos, tree_shapes(caches)))
+            return real(cfg, params, token, pos, caches, **kw)
+        monkeypatch.setattr(mod, "forward_decode", spy)
+        return seen
+
+    t_seen = record(M, lambda c: {k: tuple(v.shape) for k, v in
+                                  c["blocks"]["s0"].items()})
+    j_seen = record(JM, lambda c: {k: tuple(v.shape) for k, v in
+                                   c["blocks"]["s0"].items()})
+    argv = ["--arch", "llama3.2-3b", "--smoke", "--requests", "3",
+            "--batch-size", "2"]
+    serve.main(argv + ["--device", "cpu"])
+    with jax.disable_jit():
+        jserve.main(argv)
+    assert t_seen == j_seen and len(t_seen) > 2
+    first = {"k": (2, 2, 8, 2, 16), "v": (2, 2, 8, 2, 16)}
+    later = {"k": (2, 2, 1, 2, 16), "v": (2, 2, 1, 2, 16)}
+    assert t_seen[0] == (4, first)
+    assert all(s == (4, later) for s in t_seen[1:])
+
+
 def test_serve_needs_a_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
