@@ -62,11 +62,15 @@ result line:
            (``csrc/attention.cu``) against its plain version
            ``attention_ref`` on layer 0's q, k, v of a real 4 x 4096
            prefill, on synthetic inputs at that shape and on edge cases
-           (fp32, window, non-causal, KV = 1, Sq 4095, Sq < 8), with its
-           time beside ``attention_ref``'s and one
-           ``scaled_dot_product_attention`` call's (the yardstick; the
-           port never calls it); (b) ``forward_prefill`` of 4 x 4096
-           tokens on the kernel (28 launches, counted and seen by the
+           (fp32 and d 100 on the CUDA-core kernel; window, non-causal,
+           KV = 1, Sq 4095, Sq < 8, d 64, kv_len < Skv and rows with no
+           valid key on the tensor-core one, the counters showing
+           which), with its time beside the CUDA-core kernel's,
+           ``attention_ref``'s and one ``scaled_dot_product_attention``
+           call's (the yardstick; the port never calls it), and its
+           bound as three bf16 tensor-core products; (b)
+           ``forward_prefill`` of 4 x 4096 tokens on the kernel (28
+           launches, all on the tensor cores, counted and seen by the
            profiler) against the ``use_kernel=False`` path
            (``blockwise_attention``, no launch), layer by layer on the same
            inputs and end to end; (c) prefill of 4095 tokens plus one
@@ -219,7 +223,8 @@ def phase_card():
         for line in lib.build_log().splitlines():
             if "ptxas" in line and ("registers" in line
                                     or "Compiling" in line
-                                    or "spill" in line):
+                                    or "spill" in line
+                                    or "Performance Loss" in line):
                 say(f"[card]   {line.strip()}")
     return smi
 
@@ -1136,18 +1141,32 @@ def _attn_work(q, k, v, causal):
     return nbytes, 2 * pairs * d, 2 * pairs * dv
 
 
-def _attn_check(name, q, k, v, *, causal=True, window=None):
-    """The kernel (through ``ops.attention``, padding included) against
-    ``attention_ref`` on the same inputs, elementwise within ATTN_TOL and
-    in relative RMS within ATTN_RMS_TOL. Every case here has a valid key
-    in every row, so the padding does not change the function. Returns
-    the max abs error."""
+def _attn_check(name, q, k, v, *, causal=True, window=None, kv_len=None,
+                tc=True):
+    """The kernel against ``attention_ref`` on the same inputs,
+    elementwise within ATTN_TOL and in relative RMS within ATTN_RMS_TOL;
+    one launch, of the tensor-core kernel iff ``tc`` (the counters say
+    which). Without ``kv_len`` the call goes through ``ops.attention``
+    (padding included: every such case has a valid key in every row, so
+    the padding does not change the function); with it, straight to
+    ``kernel.flash_attention`` at the unpadded shape. Returns the max abs
+    error."""
     import torch
-    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.attention import kernel as attn_kernel, ops
     from repro_torch.kernels.attention.ref import attention_ref
-    got = ops.attention(q, k, v, causal=causal, window=window)
-    want = attention_ref(q, k, v, causal=causal, window=window)
+    fa = attn_kernel.flash_attention
+    n, n_tc = fa.launches, fa.launches_tc
+    if kv_len is None:
+        got = ops.attention(q, k, v, causal=causal, window=window)
+    else:
+        got = fa(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    want = attention_ref(q, k, v, causal=causal, window=window,
+                         kv_len=kv_len)
     torch.cuda.synchronize()
+    check((fa.launches - n, fa.launches_tc - n_tc) == (1, int(tc)),
+          f"attention {name}: {fa.launches - n} launches, "
+          f"{fa.launches_tc - n_tc} on the tensor cores; expected 1, "
+          f"{int(tc)}")
     tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
     check(got.shape == want.shape and got.dtype == q.dtype,
           f"attention {name}: shape {tuple(got.shape)} / dtype {got.dtype}")
@@ -1162,13 +1181,14 @@ def _attn_check(name, q, k, v, *, causal=True, window=None):
                  / want.float().norm(dim=-1).clamp_min(1e-30)).max())
     # the size of the output's own rounding to q's dtype, for scale
     exact = attention_ref(q.float(), k.float(), v.float(), causal=causal,
-                          window=window)
+                          window=window, kv_len=kv_len)
     rounding = _rel(want, exact)
     del exact
     say(f"[llama] attention kernel == attention_ref: {name} q "
         f"{tuple(q.shape)} kv {tuple(k.shape)} {str(q.dtype)[6:]}, causal "
-        f"{causal}, window {window}: max abs {err:.3e}, tolerance {tol} + "
-        f"{tol} |want| ({used:.3f} of it used); rel RMS {rms:.3e} "
+        f"{causal}, window {window}, kv_len {kv_len}, "
+        f"{'tensor' if tc else 'CUDA'} cores: max abs {err:.3e}, tolerance "
+        f"{tol} + {tol} |want| ({used:.3f} of it used); rel RMS {rms:.3e} "
         f"(tolerance {rtol['rms']}), worst row {row:.3e} (tolerance "
         f"{rtol['row']}); the output's rounding to {str(q.dtype)[6:]} "
         f"alone: rel RMS {rounding:.3e}")
@@ -1178,6 +1198,30 @@ def _attn_check(name, q, k, v, *, causal=True, window=None):
           f"attention {name}: rel RMS {rms:.3e} / worst row {row:.3e} "
           f"outside {rtol}")
     return err
+
+
+def _cuda_core_ms(q, k, v):
+    """Time of the CUDA-core kernel (the earlier design) on a bf16 causal
+    call, launched through the library directly so that the wrapper's
+    rule, which sends such a call to the tensor cores, is bypassed and
+    nothing is counted: the earlier design's time, taken in the same run
+    as the new one's."""
+    import math
+    import torch
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    lib = attn_kernel.LIBRARY.load()
+    B, Sq, H, d = q.shape
+    _, Skv, KV, dv = v.shape
+    out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = lib.attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  out.data_ptr(), 1, B, Sq, Skv, H, KV, d,
+                                  dv, 1, 0, 0, Skv, 1.0 / math.sqrt(d),
+                                  stream)
+        check(rc == 0, f"CUDA-core attention launch failed ({rc})")
+    return time_ms(call, batch=3, reps=3, warmup=1)
 
 
 def phase_llama():
@@ -1220,37 +1264,48 @@ def phase_llama():
         out["max_abs_err"] = _attn_check("layer 0 of the prefill", q, k, v)
         sgen = torch.Generator(dev).manual_seed(7)
 
-        def synth(b, s, h, kv, dtype=torch.bfloat16):
+        def synth(b, s, h, kv, dtype=torch.bfloat16, d=hd):
             return [torch.randn(shape, generator=sgen, device=dev)
-                    .to(dtype) for shape in ((b, s, h, hd), (b, s, kv, hd),
-                                             (b, s, kv, hd))]
+                    .to(dtype) for shape in ((b, s, h, d), (b, s, kv, d),
+                                             (b, s, kv, d))]
 
         _attn_check("synthetic", *synth(Bsz, Slen, H, KV))
-        _attn_check("fp32", *synth(2, 2048, H, KV, torch.float32))
+        _attn_check("fp32", *synth(2, 2048, H, KV, torch.float32), tc=False)
         _attn_check("window 256", *synth(Bsz, Slen, H, KV), window=256)
         _attn_check("non-causal", *synth(2, 2048, H, KV), causal=False)
         _attn_check("KV = 1", *synth(2, 2048, H, 1))
         _attn_check("Sq 4095 (pad path)", *synth(Bsz, Slen - 1, H, KV))
         _attn_check("Sq < 8", *synth(Bsz, 5, H, KV))
+        _attn_check("d 64", *synth(2, 2048, H, KV, d=64))
+        _attn_check("d 100 (not a multiple of 8: CUDA cores)",
+                    *synth(2, 1000, H, KV, d=100), tc=False)
+        _attn_check("kv_len 3000 of 4095", *synth(2, Slen - 1, H, KV),
+                    kv_len=3000)
+        _attn_check("rows with no valid key (window 2, kv_len 8)",
+                    *synth(2, 1000, H, KV), window=2, kv_len=8)
+        _attn_check("non-causal, rows with no valid key",
+                    *synth(2, 1000, H, KV), causal=False, window=2,
+                    kv_len=8)
 
         nbytes, qk_flops, pv_flops = _attn_work(q, k, v, True)
         flops = qk_flops + pv_flops
-        # The function's bound: q.k of bf16 operands is exact in fp32 on
-        # the bf16 tensor cores; p.v with fp32 p is not, so it needs the
-        # fp32 CUDA cores. The two units may run at once, so the least
-        # time is the larger of the two, not their sum.
-        ops_s = max(qk_flops / TC_BF16_FLOP_PER_S, pv_flops / FP32_FLOP_PER_S)
-        bounds = {"q.k on bf16 tensor cores, p.v on fp32 CUDA cores": ops_s,
-                  "both on fp32 CUDA cores (this kernel's design)":
-                      flops / FP32_FLOP_PER_S,
-                  "both on bf16 tensor cores (another function)":
-                      flops / TC_BF16_FLOP_PER_S,
+        # The function's bound: q.k of bf16 operands is exact on the bf16
+        # tensor cores; p.v with fp32 p is p_hi.v + p_lo.v, two more bf16
+        # products with exact products and fp32 sums (csrc/attention.cu).
+        ops_s = (qk_flops + 2 * pv_flops) / TC_BF16_FLOP_PER_S
+        bounds = {"q.k, p_hi.v and p_lo.v on bf16 tensor cores": ops_s,
+                  "both products on fp32 CUDA cores (the CUDA-core "
+                  "kernel's design)": flops / FP32_FLOP_PER_S,
                   "bytes": nbytes / HBM_BYTES_PER_S}
         out["bound_ms"] = max(ops_s, nbytes / HBM_BYTES_PER_S) * 1e3
         out["bound_by"] = ("operations" if ops_s > nbytes / HBM_BYTES_PER_S
                            else "bytes")
-        out["ms"] = time_ms(lambda: attn_kernel.flash_attention(q, k, v),
-                            batch=5, reps=5, warmup=2)
+        fa = attn_kernel.flash_attention
+        n_tc = fa.launches_tc
+        out["ms"] = time_ms(lambda: fa(q, k, v), batch=5, reps=5, warmup=2)
+        check(fa.launches_tc > n_tc, "the prefill-shape call did not run "
+                                     "on the tensor cores")
+        out["cuda_core_ms"] = _cuda_core_ms(q, k, v)
         out["plain_ms"] = time_ms(lambda: attention_ref(q, k, v), batch=1,
                                   reps=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1264,20 +1319,24 @@ def phase_llama():
         check(_rel(sdpa.transpose(1, 2), attention_ref(q, k, v)) < 1e-2,
               "scaled_dot_product_attention computes another function")
         say(f"[llama] attention kernel at q {tuple(q.shape)}, kv "
-            f"{tuple(k.shape)} bf16, causal: {out['ms']:.4f} ms a call; "
-            f"plain attention_ref {out['plain_ms']:.3f} ms; "
-            f"scaled_dot_product_attention {out['library_ms']:.4f} ms; "
-            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB: bounds "
+            f"{tuple(k.shape)} bf16, causal: tensor cores {out['ms']:.4f} "
+            f"ms a call ({out['bound_ms'] / out['ms']:.3f} of the bound); "
+            f"CUDA cores (the earlier design) {out['cuda_core_ms']:.4f} ms; "
+            f"scaled_dot_product_attention {out['library_ms']:.4f} ms "
+            f"({out['bound_ms'] / out['library_ms']:.3f} of the bound, "
+            f"with p rounded to bf16); plain attention_ref "
+            f"{out['plain_ms']:.3f} ms; {flops / 1e9:.1f} GFLOP of q.k and "
+            f"p.v, {nbytes / 1e6:.1f} MB: bounds "
             + ", ".join(f"{n} {b * 1e3:.4f} ms" for n, b in bounds.items())
             + f"; the function's bound {out['bound_ms']:.4f} ms "
-            f"({out['bound_by']}; q.k and p.v one after the other "
-            f"{(qk_flops / TC_BF16_FLOP_PER_S + pv_flops / FP32_FLOP_PER_S) * 1e3:.4f} ms)")
+            f"({out['bound_by']})")
         del x, q, k, v, qt, kt, vt, sdpa
 
         # (b) the main path: one prefill of Bsz x Slen tokens on the kernel
         M.forward_prefill(cfg, params, tokens)        # warm-up, not counted
         torch.cuda.synchronize()
         attn_kernel.flash_attention.launches = 0
+        attn_kernel.flash_attention.launches_tc = 0
         ssd_kernel.ssd_scan.launches = 0
         arb_kernel.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1285,9 +1344,11 @@ def phase_llama():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         out["launches"] = attn_kernel.flash_attention.launches
-        check(out["launches"] == cfg.num_layers,
+        out["launches_tc"] = attn_kernel.flash_attention.launches_tc
+        check(out["launches"] == out["launches_tc"] == cfg.num_layers,
               f"prefill launched the attention kernel {out['launches']} "
-              f"times, expected one per layer ({cfg.num_layers})")
+              f"times, {out['launches_tc']} of them on the tensor cores; "
+              f"expected one per layer ({cfg.num_layers}), all on them")
         check(ssd_kernel.ssd_scan.launches == 0
               and not any(arb_kernel.launch_counts().values()),
               "the prefill launched an SSD or arbitration kernel")
@@ -1298,14 +1359,17 @@ def phase_llama():
         out["tokens_per_s"] = Bsz * Slen / wall
         say(f"[llama] prefill {Bsz} x {Slen} tokens on the kernel: "
             f"{wall * 1e3:.1f} ms, {out['tokens_per_s']:.0f} tokens/s; "
-            f"flash_attention launches {out['launches']}")
+            f"flash_attention launches {out['launches']}, on the tensor "
+            f"cores {out['launches_tc']}")
         _, pwall, ev = _profiled(lambda: M.forward_prefill(cfg, params,
                                                            tokens))
         busy = sum(e[2] for e in ev)
-        hits = [e for e in ev if "flash_attention_kernel" in e[0]]
-        check(len(hits) == 1 and hits[0][1] == cfg.num_layers,
-              f"profiler: flash_attention_kernel launched "
-              f"{[h[1] for h in hits]} times, expected {cfg.num_layers}")
+        hits = [e for e in ev if "flash_attention_tc_kernel" in e[0]]
+        check(len(hits) == 1 and hits[0][1] == cfg.num_layers
+              and not any("flash_attention_kernel" in e[0] for e in ev),
+              f"profiler: flash_attention_tc_kernel launched "
+              f"{[h[1] for h in hits]} times, expected {cfg.num_layers} "
+              f"and no CUDA-core attention kernel")
         attn_us = hits[0][2]
         gemm_us = sum(e[2] for e in ev if "gemm" in e[0].lower())
         out["device_ms_per_launch"] = attn_us / cfg.num_layers / 1e3
@@ -1529,7 +1593,9 @@ def main(argv=None) -> int:
          "ms": llama["ms"], "plain_ms": llama["plain_ms"],
          "bound_ms": llama["bound_ms"], "bound_by": llama["bound_by"],
          "library_ms": llama["library_ms"],
-         "device_ms_per_launch": llama["device_ms_per_launch"]})
+         "device_ms_per_launch": llama["device_ms_per_launch"],
+         "launches_tc": llama["launches_tc"],
+         "cuda_core_ms": llama["cuda_core_ms"]})
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -11,42 +11,77 @@
 //   valid  = j < kv_len  [&& j <= i if causal]  [&& j > i - window]
 //   o_i    = sum_j softmax_j(s[i,:]) v_j,  cast to q's dtype,
 //
-// with every product, sum and exponential in fp32. A row with no valid
-// key averages v over all Skv keys, as attention_ref does (its masked
-// scores are all equal); keys past Skv do not exist and weigh 0.
+// with every product exact and every sum and exponential in fp32. A row
+// with no valid key averages v over all Skv keys, as attention_ref does
+// (its masked scores are all equal); keys past Skv do not exist and
+// weigh 0.
 //
-// Design (a first version, on fp32 CUDA cores; no wgmma, no TMA): one
-// block of 256 threads per (64-row q tile, head, batch), heaviest causal
-// tiles launched first. The q tile sits in shared memory as fp32; a loop
-// over 64-key tiles loads K and V (converted to fp32), forms the 64 x 64
-// scores in registers (4 x 4 per thread), updates the running max m and
-// sum l of each row, writes p over the K tile's buffer and adds p . V to
-// the fp32 accumulator in registers (4 rows x 8 columns per thread). The
-// loop stops after the diagonal tile when causal and after kv_len (as
-// the TPU kernel skips blocks above the diagonal); it goes on through
-// the remaining tiles only while a row of the tile has seen no valid
-// key, so such a row averages all keys, as attention_ref does. At the
-// end o = acc / max(l, 1e-30). The accurate expf is used (no fast math):
-// the kernel is held to attention_ref within 2e-5 on fp32 inputs.
+// Two kernels compute it; the wrapper (kernel.py) picks one by a stated
+// rule:
+//
+// * flash_attention_tc_kernel, for bf16 operands whose rows TMA can load
+//   (d and dv multiples of 8, 16-byte aligned): both products on the bf16
+//   tensor cores (wgmma), K and V through a TMA + mbarrier ring. p is
+//   fp32; it splits exactly into p_hi = bf16(p) and p_lo = bf16(p - p_hi)
+//   (p - p_hi is exact in fp32, and p_lo leaves at most 2^-17 p), so
+//   p.v = p_hi.v + p_lo.v is two bf16 products with exact products and
+//   fp32 sums: the same function as fp32 p.v to ~1e-6 relative, where
+//   rounding p to bf16 alone would move the output ~2e-3 (a different
+//   function; tests/test_torch_attention.py models both).
+// * flash_attention_kernel, the first design, on the fp32 CUDA cores: for
+//   fp32 inputs (held to attention_ref within 2e-5) and bf16 shapes the
+//   tensor-core kernel does not take.
+//
+// Bound at Llama-3.2-3B's prefill shape (B 4, S 4096, H 24, KV 8, d 128,
+// causal, bf16): 206.2 GFLOP of q.k and 206.2 GFLOP of p.v over the
+// causal half, against 268.4 MB of operands (0.080 ms by bytes). On the
+// bf16 tensor cores (989 TFLOP/s) the function is three such products,
+// q.k, p_hi.v and p_lo.v: 618.6 GFLOP, 0.6255 ms. That is the bound.
+//
+// Tensor-core design: one block of three warpgroups per (128-row q tile,
+// head, batch), heaviest causal tiles first. Warpgroup 0 is the producer:
+// one thread loads the q tile once and then K and V tiles of 128 keys
+// with TMA into a ring of two stages (128-byte swizzled 64-column panels,
+// out-of-bounds rows and columns zero-filled), each guarded by a "full"
+// mbarrier (transaction bytes) and an "empty" one (8 consumer warps).
+// Warpgroups 1 and 2 own 64 query rows each (setmaxnreg moves registers
+// to them) and, per tile: S = Q K^T by wgmma m64n128k16 from shared
+// memory into 64 fp32 registers; mask (only on tiles that need it), row
+// max by quad shuffles, corr = exp(m - m_new), p = exp(s - m_new), l
+// summed from the fp32 p; O *= corr; then O += p_hi V and O += p_lo V by
+// wgmma with A from registers (the S accumulator's layout is the A
+// fragment's, so p needs no shuffle) and V row-major in shared memory
+// (the transpose bit). At the end o = O / max(l, 1e-30), rounded to
+// bf16. The accurate expf is used (no fast math).
+//
+// What holds it back. The two consumer warpgroups, released by the same
+// barriers, compute their softmax at the same time, and the tensor cores
+// idle then; loads are not the limit (the consumers wait little on the
+// full barriers). Overlapping one warpgroup's softmax with products (the
+// FlashAttention-3 ping-pong, with tile t+1's q.k issued beside tile t's
+// p.v) needs more registers than a consumer thread has at 128-key tiles
+// (O, S and p_hi/p_lo take 64 each): ptxas then serializes the wgmmas
+// (C7512, which chip_smoke.py prints) or spills. At 64-key tiles it fits
+// but gains nothing.
 //
 // Masked scores are the finite NEG_INF, never -inf: a row whose first
 // tiles are all masked gets p = exp(0) = 1 there until a valid key
 // arrives, and then corr = exp(NEG_INF - m) = 0 wipes them out, exactly
 // as in the TPU kernel. Only keys past Skv get -inf (p = 0, never NaN,
-// since m starts at NEG_INF).
-//
-// Bound at Llama-3.2-3B's prefill shape (B 4, S 4096, H 24, KV 8, d 128,
-// causal, bf16): 206.2 GFLOP of q.k and 206.2 GFLOP of p.v over the
-// causal half, against 268.4 MB of operands (0.080 ms by bytes). q.k of
-// bf16 operands is exact on the bf16 tensor cores (989 TFLOP/s, 0.208
-// ms); p.v with fp32 p needs the fp32 CUDA cores (67 TFLOP/s, 3.08 ms).
-// So the function's bound is 3.08 ms. This design runs both products on
-// the CUDA cores, which alone takes 6.16 ms.
+// since m starts at NEG_INF). Which key tiles a block visits follows from
+// the masks alone: the tiles up to the last valid key of its rows (from
+// the first one that can hold a valid key, under a window), or every
+// tile when one of its rows has no valid key at all, so that row
+// averages all keys. Producer and consumers compute that range alike and
+// need no flag between them.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -325,12 +360,340 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------- tensor-core kernel ----
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int BQ = 128;             // query rows per block
+constexpr int BK = 128;             // keys per tile
+constexpr int STAGES = 2;           // K/V tiles in flight
+constexpr int kThreads = 384;       // producer + two consumer warpgroups
+constexpr int PANEL = 64;           // bf16 columns in a 128-byte row
+constexpr uint32_t TILE = 128 * 128;  // bytes of one 128-row panel
+constexpr uint32_t ROW_BYTES = 128;
+
+// The key tiles [start, end) a block visits (see the header comment).
+// Every warp of the block computes it alike.
+struct TileRange {
+  int start, end;
+};
+
+__device__ TileRange key_tiles(int q0, int Sq, int Skv, int causal,
+                               int has_window, int window, int kv_len) {
+  const int lane = threadIdx.x & 31;
+  const int valid_hi = min(Skv, kv_len);
+  bool starved = false;
+#pragma unroll
+  for (int u = 0; u < BQ / 32; ++u) {
+    const int i = q0 + lane + 32 * u;
+    if (i >= Sq) continue;
+    const int hi = causal ? min(valid_hi, i + 1) : valid_hi;
+    const int lo = has_window ? max(0, i - window + 1) : 0;
+    starved |= lo >= hi;  // row i has no valid key
+  }
+  const int n_tiles = (Skv + BK - 1) / BK;
+  if (__any_sync(0xffffffffu, starved)) return {0, n_tiles};
+  const int kv_hi = min(causal ? min(Skv, q0 + BQ) : Skv, valid_hi);
+  const int start = has_window ? max(0, q0 - window + 1) / BK : 0;
+  return {start, (kv_hi + BK - 1) / BK};
+}
+
+// DP, DVP: 64-column panels of q/k (d <= 64 DP) and of v (dv <= 64 DVP).
+template <int DP, int DVP>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    int Sq, int Skv, int H, int KV, int dv, int causal, int has_window,
+    int window, int kv_len, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sK = sQ + DP * TILE;             // stage s: + s DP TILE
+  const uint32_t sV = sK + STAGES * DP * TILE;    // stage s: + s DVP TILE
+  const uint32_t bars = sV + STAGES * DVP * TILE;
+  const uint32_t full_q = bars;
+  auto full_k = [&](int s) { return bars + 8 * (1 + s); };
+  auto full_v = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * STAGES + s); };
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest tiles first
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const TileRange tiles =
+      key_tiles(q0, Sq, Skv, causal, has_window, window, kv_len);
+
+  if (warp < 4) {
+    // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      mbar_arrive_expect_tx(full_q, DP * TILE);
+#pragma unroll
+      for (int p = 0; p < DP; ++p)
+        tma_load_4d(sQ + p * TILE, &tm_q, full_q, p * PANEL, h, q0, b);
+      for (int t = tiles.start, i = 0; t < tiles.end; ++t, ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
+        mbar_arrive_expect_tx(full_k(s), DP * TILE);
+#pragma unroll
+        for (int p = 0; p < DP; ++p)
+          tma_load_4d(sK + (s * DP + p) * TILE, &tm_k, full_k(s), p * PANEL,
+                      kvh, t * BK, b);
+        mbar_arrive_expect_tx(full_v(s), DVP * TILE);
+#pragma unroll
+        for (int p = 0; p < DVP; ++p)
+          tma_load_4d(sV + (s * DVP + p) * TILE, &tm_v, full_v(s),
+                      p * PANEL, kvh, t * BK, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup c owns rows q0 + 64 c .. + 63; in the wgmma
+  // accumulator layout thread (warp w, lane 4 g + tq) holds rows
+  // 16 w + g and 16 w + g + 8 of them (register j: row (j >> 1) & 1,
+  // column 8 (j >> 2) + 2 tq + (j & 1))
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = (warp >> 2) - 1;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r_lo = q0 + 64 * c;
+  const int row0 = r_lo + 16 * (warp & 3) + g;
+  const int valid_hi = min(Skv, kv_len);
+  constexpr int NO = 32 * DVP;  // O registers a thread: 64 x 64 DVP / 128
+
+  float acc[NO];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  mbar_wait(full_q, 0);
+  for (int t = tiles.start, i = 0; t < tiles.end; ++t, ++i) {
+    const int s = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    const int k0 = t * BK;
+
+    // S = Q K^T: 64 rows x 128 keys, fp32, d / 16 steps of k16
+    mbar_wait(full_k(s), ph);
+    __syncwarp();
+    float sc[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * DP; ++kk) {
+      const uint32_t qa =
+          sQ + (kk >> 2) * TILE + c * 64 * ROW_BYTES + (kk & 3) * 32;
+      const uint32_t ka = sK + (s * DP + (kk >> 2)) * TILE + (kk & 3) * 32;
+      wgmma_ss_n128(sc, desc_sw128(qa, 16, 1024), desc_sw128(ka, 16, 1024),
+                    kk);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // mask (only where some key of the tile is invalid for some row of
+    // the warpgroup), then the online-softmax update of each row
+    float mx[2] = {-INFINITY, -INFINITY};
+    const bool full = k0 + BK <= valid_hi &&
+                      (!causal || k0 + BK - 1 <= r_lo) &&
+                      (!has_window || k0 > r_lo + 63 - window);
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        sc[j] *= scale;
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        const int key = k0 + 8 * (j >> 2) + 2 * tq + (j & 1);
+        const int row = row0 + 8 * ((j >> 1) & 1);
+        float x;
+        if (key >= Skv) {
+          x = -INFINITY;  // no such key
+        } else {
+          bool ok = key < kv_len;
+          if (causal) ok = ok && key <= row;
+          if (has_window) ok = ok && key > row - window;
+          x = ok ? sc[j] * scale : NEG_INF;
+        }
+        sc[j] = x;
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = mx[r];
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[r], x);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      sc[j] = expf(sc[j] - m[(j >> 1) & 1]);
+      ps[(j >> 1) & 1] += sc[j];
+    }
+    // l is this thread's share of the row sum; the quad adds them at the
+    // end (corr is the same across the quad)
+    l[0] = l[0] * corr[0] + ps[0];
+    l[1] = l[1] * corr[1] + ps[1];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) acc[j] *= corr[(j >> 1) & 1];
+
+    // p = p_hi + p_lo, each as the bf16 A fragment of k step kk: register
+    // q of step kk holds accumulator registers 8 kk + 2 q and + 1
+    uint32_t phi[8][4], plo[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = 8 * kk + 2 * q;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(sc[j], sc[j + 1]);
+        const float2 hf = __bfloat1622float2(hi);
+        const __nv_bfloat162 lo =
+            __floats2bfloat162_rn(sc[j] - hf.x, sc[j + 1] - hf.y);
+        phi[kk][q] = *reinterpret_cast<const uint32_t*>(&hi);
+        plo[kk][q] = *reinterpret_cast<const uint32_t*>(&lo);
+      }
+
+    // O += p_hi V + p_lo V: V is [128 keys x 64 DVP] row-major (MN-major
+    // for wgmma's B): 8-key groups 1024 bytes apart, panels TILE apart
+    mbar_wait(full_v(s), ph);
+    __syncwarp();
+    const uint32_t vs = sV + s * DVP * TILE;
+    wgmma_fence();
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t dvd = desc_sw128(vs + kk * 16 * ROW_BYTES, TILE, 1024);
+        if constexpr (DVP == 2)
+          wgmma_rs_n128(acc, half ? plo[kk] : phi[kk], dvd);
+        else
+          wgmma_rs_n64(acc, half ? plo[kk] : phi[kk], dvd);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = l[r];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    const float li = fmaxf(x, 1e-30f);
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    __nv_bfloat16* orow =
+        o + ((int64_t)b * Sq + row) * H * dv + (int64_t)h * dv;
+#pragma unroll
+    for (int n8 = 0; n8 < 8 * DVP; ++n8) {
+      const int col = 8 * n8 + 2 * tq;  // dv % 8 == 0: col + 1 < dv too
+      if (col < dv)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(acc[4 * n8 + 2 * r] / li,
+                                  acc[4 * n8 + 2 * r + 1] / li);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver, found through the runtime
+// (the library is not linked against libcuda); null if it is missing
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous bf16 tensor (batch, seq, heads, inner) as a 4-D map whose
+// box is one head's 128 rows x 64 columns, 128-byte swizzled.
+bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
+                int inner, int heads, int seq, int batch) {
+  const cuuint64_t dims[4] = {(cuuint64_t)inner, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)inner * 2,
+                                 (cuuint64_t)heads * inner * 2,
+                                 (cuuint64_t)seq * heads * inner * 2};
+  const cuuint32_t box[4] = {PANEL, 1, 128, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, int DVP>
+cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
+                   const CUtensorMap& mv, void* o, int B, int Sq, int Skv,
+                   int H, int KV, int dv, int causal, int has_window,
+                   int window, int kv_len, float scale,
+                   cudaStream_t stream) {
+  constexpr size_t smem = 1024 + (size_t)(DP + STAGES * (DP + DVP)) * TILE +
+                          8 * (1 + 3 * STAGES);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc_kernel<DP, DVP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+  flash_attention_tc_kernel<DP, DVP><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KV, dv, causal,
+      has_window, window, kv_len, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+constexpr int kNoEncoder = -1;   // the driver has no cuTensorMapEncodeTiled
+constexpr int kMapRefused = -2;  // it refused a tensor map
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16 (q, k, v and o all of it). All tensors
-// contiguous; 1 <= d, dv <= 128; H % KV == 0. Returns a cudaError_t.
+// The CUDA-core kernel. dtype: 0 fp32, 1 bf16 (q, k, v and o all of it).
+// All tensors contiguous; 1 <= d, dv <= 128; H % KV == 0. Returns a
+// cudaError_t.
 int attention_launch(const void* q, const void* k, const void* v, void* o,
                      int dtype, int B, int Sq, int Skv, int H, int KV, int d,
                      int dv, int causal, int has_window, int window,
@@ -347,7 +710,47 @@ int attention_launch(const void* q, const void* k, const void* v, void* o,
                                     s);
 }
 
+// The tensor-core kernel: bf16 q, k, v and o, contiguous, each 16-byte
+// aligned; d and dv multiples of 8 in [8, 128]; H % KV == 0. Returns a
+// cudaError_t, or kNoEncoder / kMapRefused.
+int attention_tc_launch(const void* q, const void* k, const void* v, void* o,
+                        int B, int Sq, int Skv, int H, int KV, int d, int dv,
+                        int causal, int has_window, int window, int kv_len,
+                        float scale, void* stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || d < 8 ||
+      d > kMaxD || d % 8 != 0 || dv < 8 || dv > kMaxD || dv % 8 != 0 ||
+      !aligned(q) || !aligned(k) || !aligned(v) || !aligned(o))
+    return (int)cudaErrorInvalidValue;
+  const tc::EncodeTiled fn = tc::encode_tiled();
+  if (fn == nullptr) return kNoEncoder;
+  CUtensorMap mq, mk, mv;
+  if (!tc::encode_map(fn, &mq, q, d, H, Sq, B) ||
+      !tc::encode_map(fn, &mk, k, d, KV, Skv, B) ||
+      !tc::encode_map(fn, &mv, v, dv, KV, Skv, B))
+    return kMapRefused;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int dp = d > 64 ? 2 : 1, dvp = dv > 64 ? 2 : 1;
+  if (dp == 2 && dvp == 2)
+    return (int)tc::launch<2, 2>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
+                                 has_window, window, kv_len, scale, s);
+  if (dp == 2)
+    return (int)tc::launch<2, 1>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
+                                 has_window, window, kv_len, scale, s);
+  if (dvp == 2)
+    return (int)tc::launch<1, 2>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
+                                 has_window, window, kv_len, scale, s);
+  return (int)tc::launch<1, 1>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
+                               has_window, window, kv_len, scale, s);
+}
+
 const char* attention_error_string(int err) {
+  if (err == kNoEncoder)
+    return "the CUDA driver has no cuTensorMapEncodeTiled";
+  if (err == kMapRefused)
+    return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

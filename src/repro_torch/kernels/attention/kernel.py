@@ -1,4 +1,4 @@
-"""Python entry point of the hand-written flash-attention kernel.
+"""Python entry point of the hand-written flash-attention kernels.
 
 ``flash_attention(q, k, v, causal=, window=, scale=, kv_len=)`` computes
 what the JAX package's ``kernels/attention/kernel.py:flash_attention``
@@ -7,12 +7,24 @@ window, GQA (query head h reads kv head h // (H // KV)) and a ``kv_len``
 mask, accumulated in fp32 — with ``csrc/attention.cu`` (built by
 :mod:`repro_torch.kernels.build`) on PyTorch's current stream. A tensor
 on the CPU goes to the plain version (``ref.attention_ref``) instead; a
-CUDA tensor launches the kernel or raises — a failed build or launch
+CUDA tensor launches a kernel or raises — a failed build or launch
 never falls back.
 
-Each call launches one kernel and counts it in the plain integer
-``flash_attention.launches``, raised only where the kernel is launched,
-so a run can show that it went through it.
+Which kernel a CUDA call launches (:func:`takes_tensor_cores`):
+
+* the tensor-core kernel (``flash_attention_tc_kernel``: wgmma, TMA)
+  when q, k and v are bfloat16, d and dv are multiples of 8 and every
+  operand starts on a 16-byte boundary — what TMA needs to load rows;
+* the CUDA-core kernel (``flash_attention_kernel``, fp32 arithmetic)
+  otherwise: every float32 call, and bf16 calls with d or dv not a
+  multiple of 8 or an operand off a 16-byte boundary.
+
+Both compute the same function (``csrc/attention.cu`` says how the
+tensor-core kernel keeps p·V fp32-exact). Each call launches one kernel
+and counts it in the plain integer ``flash_attention.launches``; a launch
+of the tensor-core kernel also counts in ``flash_attention.launches_tc``.
+Both are raised only where a kernel is launched, so a run can show which
+design it went through.
 """
 from __future__ import annotations
 
@@ -34,6 +46,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.attention_launch.argtypes = ([ptr] * 4 + [i32] * 12
                                      + [ctypes.c_float, ptr])
     lib.attention_launch.restype = i32
+    lib.attention_tc_launch.argtypes = ([ptr] * 4 + [i32] * 11
+                                        + [ctypes.c_float, ptr])
+    lib.attention_tc_launch.restype = i32
     lib.attention_error_string.argtypes = [i32]
     lib.attention_error_string.restype = ctypes.c_char_p
 
@@ -75,6 +90,16 @@ def _check(q, k, v):
                          f"kernel takes at most {MAX_HEAD_DIM}")
 
 
+def takes_tensor_cores(q, k, v) -> bool:
+    """The wrapper's rule: a CUDA call runs the tensor-core kernel iff
+    q, k and v are bfloat16, d and dv are multiples of 8 and each
+    operand's data starts on a 16-byte boundary; otherwise the CUDA-core
+    kernel."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
+            and v.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None,
                     kv_len: int | None = None):
@@ -92,18 +117,28 @@ def flash_attention(q, k, v, *, causal: bool = True,
     kv_len = Skv if kv_len is None else kv_len
     out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     lib = LIBRARY.load()
-    rc = lib.attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, Sq, Skv, H, KV, d, dv, int(causal),
-        int(window is not None), int(window or 0), int(kv_len), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    masks = (int(causal), int(window is not None), int(window or 0),
+             int(kv_len), float(scale))
+    tc = takes_tensor_cores(q, k, v)
+    if tc:
+        rc = lib.attention_tc_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, KV, d, dv, *masks, stream)
+    else:
+        rc = lib.attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, Sq, Skv, H, KV, d, dv, *masks, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: CUDA launch failed ({rc}: "
                            f"{lib.attention_error_string(rc).decode()})")
     flash_attention.launches += 1
+    flash_attention.launches_tc += int(tc)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 
-__all__ = ["MAX_HEAD_DIM", "LIBRARY", "flash_attention"]
+__all__ = ["MAX_HEAD_DIM", "LIBRARY", "flash_attention",
+           "takes_tensor_cores"]

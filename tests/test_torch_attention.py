@@ -20,9 +20,9 @@ from repro.kernels.attention.ops import attention as jattention
 from repro.kernels.attention.ref import attention_ref as jattention_ref
 from repro_torch.kernels.attention import kernel as attn_kernel, ops
 from repro_torch.kernels.attention.kernel import flash_attention
-from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.attention.ref import NEG_INF, attention_ref
 from test_torch_cuda import (ATTN_CASES, ATTN_KERNEL_CASES, ATTN_TOL,
-                             _attn_inputs)
+                             _attn_inputs, _chip_smoke)
 
 torch.set_num_threads(1)
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -150,3 +150,133 @@ def test_wrapper_rejects_other_devices():
     x = torch.zeros((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         flash_attention(x, x, x)
+
+
+# ------------------- the tensor-core kernel's arithmetic, modelled ----
+
+def _tc_model(q, k, v, *, causal=True, window=None, kv_len=None,
+              split=True, block=128):
+    """A plain-torch model of ``flash_attention_tc_kernel``'s arithmetic:
+    per 128-row q block, the key tiles its masks need (every tile when a
+    row has no valid key), bf16 q.k with exact products summed in fp32,
+    the online softmax with the finite NEG_INF, l summed from the fp32 p,
+    and p.V as p_hi.V + p_lo.V with p_hi = bf16(p), p_lo = bf16(p - p_hi)
+    (``split=False``: p_hi.V alone, p rounded to bf16 as SDPA does).
+    Returns (B, Sq, H, dv) in fp32, before the output's rounding."""
+    B, Sq, H, d = q.shape
+    _, Skv, KV, dv = v.shape
+    G = H // KV
+    scale = 1.0 / np.sqrt(d)
+    kv_len = Skv if kv_len is None else kv_len
+    valid_hi = min(Skv, kv_len)
+    kf = k.float().repeat_interleave(G, dim=2)      # (B, Skv, H, d)
+    vf = v.float().repeat_interleave(G, dim=2)
+    out = torch.empty((B, Sq, H, dv))
+    n_tiles = -(-Skv // block)
+    for q0 in range(0, Sq, block):
+        rows = torch.arange(q0, min(q0 + block, Sq))
+        hi = torch.full_like(rows, valid_hi)
+        if causal:
+            hi = torch.minimum(hi, rows + 1)
+        lo = (rows - window + 1).clamp_min(0) if window is not None \
+            else torch.zeros_like(rows)
+        if bool((lo >= hi).any()):
+            t0, t1 = 0, n_tiles
+        else:
+            kv_hi = min(min(Skv, q0 + block) if causal else Skv, valid_hi)
+            t0 = max(0, q0 - window + 1) // block if window is not None \
+                else 0
+            t1 = -(-kv_hi // block)
+        qf = q[:, q0:q0 + len(rows)].float()
+        m = torch.full((B, len(rows), H), NEG_INF)
+        l = torch.zeros((B, len(rows), H))
+        acc = torch.zeros((B, len(rows), H, dv))
+        for t in range(t0, t1):
+            keys = torch.arange(t * block, min((t + 1) * block, Skv))
+            s = torch.einsum("bqhd,bjhd->bqhj", qf, kf[:, keys]) * scale
+            ok = keys[None, :] < kv_len
+            if causal:
+                ok = ok & (keys[None, :] <= rows[:, None])
+            if window is not None:
+                ok = ok & (keys[None, :] > rows[:, None] - window)
+            s = torch.where(ok[None, :, None, :], s, torch.tensor(NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            p_hi = p.bfloat16().float()
+            pv = torch.einsum("bqhj,bjhd->bqhd", p_hi, vf[:, keys])
+            if split:
+                p_lo = (p - p_hi).bfloat16().float()
+                pv = pv + torch.einsum("bqhj,bjhd->bqhd", p_lo, vf[:, keys])
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out[:, q0:q0 + len(rows)] = acc / l.clamp_min(1e-30)[..., None]
+    return out
+
+
+def _rel_rms(got, want):
+    """(relative RMS over the whole output, worst query row)."""
+    diff = got.float() - want.float()
+    rows = diff.norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)
+    return float(diff.norm() / want.float().norm()), float(rows.max())
+
+
+def test_tc_arithmetic_split_is_fp32_exact_and_bf16_p_is_not():
+    """At (1, 1024, 4 heads over 2, d 128), bf16, causal: the split
+    p_hi + p_lo keeps the kernel within ATTN_RMS_TOL of both oracles
+    (the torch and the JAX ``attention_ref``); p rounded to bf16 alone,
+    as SDPA computes it, lands above that bound — another function."""
+    tol = _chip_smoke().ATTN_RMS_TOL["bfloat16"]
+    t, j = _both(_attn_inputs(1, 1024, 1024, 4, 2, 128, 3), "bf16")
+    want = attention_ref(*t)
+    want_jax = torch.from_numpy(np.array(
+        jattention_ref(*j).astype(jnp.float32)))
+    exact = attention_ref(*(x.float() for x in t))
+    split = _tc_model(*t)
+    bf16_p = _tc_model(*t, split=False)
+    # before the output's rounding: the split leaves ~1e-6, bf16 p ~1e-3
+    assert _rel_rms(split, exact)[0] < 1e-5
+    assert _rel_rms(bf16_p, exact)[0] > 5e-4
+    for oracle in (want, want_jax):
+        rms, row = _rel_rms(split.bfloat16(), oracle)
+        assert rms <= tol["rms"] and row <= tol["row"], (rms, row)
+        assert _rel_rms(bf16_p.bfloat16(), oracle)[0] > tol["rms"]
+
+
+@pytest.mark.parametrize("causal,window,kv_len", [
+    (True, None, None), (False, None, 150), (True, 40, None),
+    (False, 2, 8), (True, 2, 8), (True, None, 37)])
+def test_tc_tile_range_matches_the_oracle(causal, window, kv_len):
+    """The kernel's choice of key tiles per 128-row block — up to the
+    last valid key, from the first under a window, or every tile when a
+    row has no valid key (rows 9.. with window 2, kv_len 8) — gives
+    ``attention_ref``'s function, starved rows averaging all keys."""
+    t, j = _both(_attn_inputs(2, 300, 300, 4, 2, 32, 13), "f32")
+    got = _tc_model(*t, causal=causal, window=window, kv_len=kv_len)
+    _close(got, jattention_ref(*j, causal=causal, window=window,
+                               kv_len=kv_len), "f32")
+    torch.testing.assert_close(
+        got, attention_ref(*t, causal=causal, window=window, kv_len=kv_len),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape,dtype,offset,tc", [
+    ((128, 128), torch.bfloat16, 0, True),
+    ((64, 64), torch.bfloat16, 0, True),
+    ((128, 64), torch.bfloat16, 0, True),
+    ((128, 128), torch.float32, 0, False),
+    ((20, 20), torch.bfloat16, 0, False),
+    ((64, 12), torch.bfloat16, 0, False),
+    ((128, 128), torch.bfloat16, 1, False)])
+def test_routing_rule(shape, dtype, offset, tc):
+    """``takes_tensor_cores``: bf16, d and dv multiples of 8, every
+    operand on a 16-byte boundary; anything else goes to the CUDA-core
+    kernel (the rule reads shapes, dtypes and addresses only, so it is
+    checked here on CPU tensors)."""
+    d, dv = shape
+    q = torch.zeros((1, 8, 4, d), dtype=dtype)
+    k = torch.zeros((1, 8, 2, d), dtype=dtype)
+    buf = torch.zeros(1 * 8 * 2 * dv + 8, dtype=dtype)
+    v = buf[offset:offset + 16 * dv].view(1, 8, 2, dv)
+    assert attn_kernel.takes_tensor_cores(q, k, v) == tc

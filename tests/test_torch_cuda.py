@@ -466,3 +466,135 @@ def test_self_attention_runs_the_kernel_on_a_card(cuda):
     assert torch.equal(k, k_p) and torch.equal(v, v_p)
     torch.testing.assert_close(out.float(), out_p.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+# ----------------------------------------------- tensor-core attention ----
+
+ATTN_TC_CASES = [
+    # (B, Sq, Skv, H, KV, d, dv, causal, window, kv_len): every one runs
+    # the tensor-core kernel (bf16, d and dv multiples of 8)
+    (1, 64, 64, 2, 2, 64, 64, False, None, None),       # one tile
+    (2, 200, 200, 6, 2, 128, 128, True, None, None),    # ragged, group 3
+    (1, 333, 333, 8, 1, 128, 128, True, None, None),    # KV = 1, group 8
+    (2, 150, 300, 4, 4, 64, 64, False, None, None),     # group 1, Sq < Skv
+    (1, 300, 40, 4, 2, 128, 128, False, None, None),    # Skv < one tile
+    (1, 257, 257, 6, 2, 128, 128, True, 100, None),     # window
+    (2, 300, 300, 4, 2, 64, 64, False, None, 170),      # kv_len
+    (1, 260, 260, 3, 1, 128, 128, True, None, 37),      # causal + kv_len
+    (2, 200, 200, 4, 2, 64, 64, False, 2, 8),           # rows 9.. have no
+    (1, 200, 200, 4, 2, 128, 128, True, 2, 8),          # valid key
+    (1, 5, 5, 4, 2, 128, 128, True, None, None),        # Sq < 8
+    (1, 100, 100, 4, 2, 32, 32, True, None, None),      # d < one panel
+    (1, 130, 130, 2, 1, 96, 96, True, None, None),      # d 1.5 panels
+    (1, 140, 140, 4, 2, 128, 64, True, None, None),     # dv < d
+    (1, 140, 140, 4, 2, 64, 128, False, 50, None),      # dv > d
+]
+
+
+def _chip_smoke():
+    """``chip_smoke.py``'s module (its tolerances), loaded by path."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tc_inputs(B, Sq, Skv, H, KV, d, dv, seed, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device=device, dtype=torch.bfloat16)
+            for shape in ((B, Sq, H, d), (B, Skv, KV, d), (B, Skv, KV, dv))]
+
+
+def _assert_attention_close(out, ref):
+    """Elementwise within ATTN_TOL and in relative RMS (whole output and
+    worst row) within chip_smoke's ATTN_RMS_TOL, bf16."""
+    tol = ATTN_TOL["bf16"]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    rtol = _chip_smoke().ATTN_RMS_TOL["bfloat16"]
+    diff = out.float() - ref.float()
+    assert float(diff.norm() / ref.float().norm()) <= rtol["rms"]
+    rows = diff.norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-30)
+    assert float(rows.max()) <= rtol["row"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ATTN_TC_CASES)
+def test_attention_tc_kernel_matches_plain(cuda, case):
+    """The tensor-core kernel, called directly (ragged tails reach it
+    unpadded), against ``attention_ref``; one launch, counted in both
+    counters."""
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.kernels.attention.ref import attention_ref
+    B, Sq, Skv, H, KV, d, dv, causal, window, kv_len = case
+    q, k, v = _tc_inputs(B, Sq, Skv, H, KV, d, dv, 21, cuda)
+    n, n_tc = flash_attention.launches, flash_attention.launches_tc
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_tc) \
+        == (n + 1, n_tc + 1)
+    ref = attention_ref(q, k, v, causal=causal, window=window,
+                        kv_len=kv_len)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    _assert_attention_close(out, ref)
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["bf16 d 128", "bf16 d 64", "fp32",
+                                   "bf16 d 20", "bf16 dv 12",
+                                   "bf16 misaligned"])
+def test_attention_routing_rule(cuda, route):
+    """``takes_tensor_cores`` decides, and the counters show it: bf16 with
+    d and dv multiples of 8 on 16-byte boundaries runs the tensor-core
+    kernel, anything else the CUDA-core kernel; both match
+    ``attention_ref``."""
+    from repro_torch.kernels.attention.kernel import (flash_attention,
+                                                      takes_tensor_cores)
+    from repro_torch.kernels.attention.ref import attention_ref
+    d, dv = {"bf16 d 64": (64, 64), "bf16 d 20": (20, 20),
+             "bf16 dv 12": (64, 12)}.get(route, (128, 128))
+    q, k, v = _tc_inputs(2, 70, 70, 4, 2, d, dv, 5, cuda)
+    if route == "fp32":
+        q, k, v = q.float(), k.float(), v.float()
+    if route == "bf16 misaligned":
+        q = _misaligned(q)
+        assert q.data_ptr() % 16 == 2
+    tc = route in ("bf16 d 128", "bf16 d 64")
+    assert takes_tensor_cores(q, k, v) == tc
+    n, n_tc = flash_attention.launches, flash_attention.launches_tc
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - n,
+            flash_attention.launches_tc - n_tc) == (1, int(tc))
+    ref = attention_ref(q, k, v, causal=True)
+    if route == "fp32":
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    else:
+        _assert_attention_close(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_attention_kernels_are_deterministic(cuda, dtype):
+    """Two calls on the same inputs give bit-identical outputs (no
+    atomics, a fixed order of sums) on either kernel."""
+    from repro_torch.kernels.attention.kernel import flash_attention
+    q, k, v = _tc_inputs(2, 300, 300, 6, 2, 128, 128, 8, cuda)
+    if dtype == "f32":
+        q, k, v = q.float(), k.float(), v.float()
+    a = flash_attention(q, k, v, causal=True, window=90)
+    b = flash_attention(q, k, v, causal=True, window=90)
+    assert torch.equal(a, b)
