@@ -13,20 +13,27 @@ result line:
            together, and their times
 2. kernels each hand-written kernel against its plain PyTorch version on
            the card — full-width shapes of the main path, ragged shapes,
-           empty rows, ties, M < K; the fused kernel at all 7 stage
-           subsets, single and batched (B = 1, 4, 12) — requiring exact
+           empty rows, ties (across the one-pass top-K's threads and
+           warps too), M < K (with keys of NEG and below too), K at and
+           past the one-pass cap (the rounds routine past 8, checked by
+           its counter); the fused
+           kernel at all 7 stage subsets, single and batched (B = 1, 4,
+           12), and at B = 12 with every ring row empty — requiring exact
            equality; then each kernel's time beside the plain version's
            and the library call's (CUDA events, median of repeated
-           batches)
+           batches), and its device time per launch from the profiler
+           (for the top-K also ``torch.topk``'s and the stable
+           ``torch.sort``'s device time per call)
 3. goldens ``tests/golden/fabric_disabled.json`` and ``fabric_enabled.json``
            replayed for all six protocols on the staged (``cuda``) and the
            fused kernel backend, bit-exact
 4. full    the paper's 144-host, 9-rack full-bisection leaf-spine network,
            W3 at load 0.8 with 8000 messages, homa, 12000 slots (every
            message has arrived by slot 9186), on the
-           staged kernel backend (launches counted; its state kept at
-           slot 5000), on the plain backend for the first 5000 slots
-           (state identical key by key), and through ``simulate`` on the
+           staged kernel backend (launches counted, every top-K launch
+           on the one-pass routine; its state kept at slot 5000), on
+           the plain backend for the first 5000 slots (state identical
+           key by key), and through ``simulate`` on the
            fused backend (one ``fused_slot`` launch per slot, nothing
            staged; integer outputs identical to the staged run)
 5. window  a steady window of that run from phase 4's state at slot
@@ -291,7 +298,36 @@ def _topk_cases(rng):
                           [1, 2, 3]], dtype=torch.int32, device=DEVICE)
     cases["M<K zeros and NEG 5x3 K=7"] = (small, 7)
     cases["M<K 4x1 K=2"] = (_topk_keys(rng, 4, 1, p_pos=0.5), 2)
+    cases["ties across threads and warps 144x8000 K=7"] = (
+        _boundary_ties(rng, 144, 8000), 7)
+    cases["keys below NEG, M<K 6x5 K=7"] = (_below_neg_keys(rng, 6, 5), 7)
+    for K in (8, 9):     # the one-pass cap, and past it
+        cases[f"ties 16x1000 K={K}"] = (_topk_keys(rng, 16, 1000, p_pos=0.5,
+                                                   hi=6), K)
     return cases
+
+
+def _below_neg_keys(rng, H, M, lead=()):
+    """Keys drawn from 0, 1, 5, NEG and the values below it: with K > M
+    the padding ranks between the row's keys of NEG and those below."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.arbiter.ref import NEG
+    pool = np.array([-(1 << 31), -(1 << 31) + 1, NEG - 1, NEG, 0, 1, 5],
+                    np.int32)
+    keys = pool[rng.integers(0, len(pool), lead + (H, M))]
+    return torch.from_numpy(keys).to(DEVICE)
+
+
+def _boundary_ties(rng, H, M):
+    """Grant-like keys whose 8 largest entries per row are equal and fall
+    at columns read by different threads, warps and load batches of the
+    one-pass routine: only the tie rule orders them."""
+    keys = _topk_keys(rng, H, M, hi=1 << 20)
+    cols = [4 * 31 + 3, 4 * 32, 4 * 255 + 3, 4 * 256, 4 * 257 + 1, 4000,
+            M - 5, M - 1]
+    keys[:, cols] = 1 << 21
+    return keys
 
 
 def _fused_bytes(H, cap, U, ucap, M, K) -> int:
@@ -358,16 +394,76 @@ def _fused_cases(rng):
         d, u, keys = _fused_inputs(rng, "topk", B, 6, 8, 4, 8, 40, 9)
         cases[f"K above eligible 6x40 K=9 B={B or 1}"] = (fn, (d, u, keys),
                                                           9)
+        # K past the one-pass cap: the rounds routine
+        cases[f"rounds route 16x256, 16x128, 16x1000 K=9 B={B or 1}"] = (
+            fn, _fused_inputs(rng, "down,up,topk", B, 16, 256, 16, 128, 1000,
+                              9), 9)
+        lead = () if B is None else (B,)
+        for K in (7, 9):     # both routines, raw
+            cases[f"keys below NEG, M<K 6x5 K={K} B={B or 1}"] = (
+                fn, (None, None, _below_neg_keys(rng, 6, 5, lead)), K)
     empty = torch.zeros((3, 16, 500), dtype=torch.int32, device=DEVICE)
     none = torch.zeros((3, 16, 500), dtype=torch.bool, device=DEVICE)
     cases["all-ineligible, empty grant sets B=3"] = (
         "fused_slot_batch", ((empty, empty, none), (empty, empty, none),
                              empty.clone()), 5)
+    # only the top-K rows carry work: every ring row empty
+    d, u, keys = _fused_inputs(rng, "down,up,topk", 12, f["H"], f["cap"],
+                               f["U"], f["ucap"], f["M"], f["K"])
+    cases["empty rings, main shapes B=12"] = (
+        "fused_slot_batch", (tuple(t.zero_() if t.dtype == torch.bool else t
+                                   for t in d),
+                             tuple(t.zero_() if t.dtype == torch.bool else t
+                                   for t in u), keys), f["K"])
     return cases
 
 
 def _max_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def _route_of(wrapper, rounds_before, K) -> str:
+    """The top-K routine the wrapper's last launch took, checked against
+    its rule: the one-pass routine up to the largest cap, else rounds."""
+    from repro_torch.kernels.arbiter import kernel
+    took = wrapper.launches_rounds - rounds_before
+    want = int(kernel.topk_cap(K) == 0)
+    check(took == want, f"{wrapper.__name__} K={K}: {took} launches on the "
+                        f"rounds routine, expected {want}")
+    return "rounds" if took else f"one pass, cap {kernel.topk_cap(K)}"
+
+
+def _device_ms(fn, name=None, n=50) -> float:
+    """Device time per call of ``fn`` from the profiler, in ms: of the one
+    kernel whose name holds ``name`` (launched once a call), or of every
+    kernel the call runs. Every launch must be recorded. The trace is
+    kept idle for a moment before the first launch and after the last:
+    without that, some windows lost launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if name is not None:
+        kern = [e for e in kern if name in e.key]
+        check(len(kern) == 1 and kern[0].count == n,
+              f"profiler: {[(e.key, e.count) for e in kern]} for {name}, "
+              f"expected one kernel launched {n} times")
+    check(all(e.count % n == 0 for e in kern),
+          f"profiler: {[(e.key, e.count) for e in kern]}: a launch of "
+          f"{name or fn} was not recorded")
+    us = sum(e.device_time_total for e in kern) / n
+    check(us > 0, f"profiler shows no device time for {name or fn}")
+    return us / 1e3
 
 
 def phase_kernels():
@@ -389,24 +485,30 @@ def phase_kernels():
                                           _max_err(g, w))
         say(f"[kernels] priority_arbiter == plain: {name}")
     for name, (keys, K) in _topk_cases(rng).items():
+        rounds = kernel.srpt_topk.launches_rounds
         got = kernel.srpt_topk(keys, K)
         want = srpt_topk_ref(keys, K)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             check(torch.equal(g, w), f"srpt_topk differs: {name}")
             err["srpt_topk"] = max(err["srpt_topk"], _max_err(g, w))
-        say(f"[kernels] srpt_topk == plain: {name}")
+        route = _route_of(kernel.srpt_topk, rounds, K)
+        say(f"[kernels] srpt_topk == plain ({route}): {name}")
 
     err["fused_slot"] = err["fused_slot_batch"] = 0
     for name, (fn, args, K) in _fused_cases(rng).items():
-        got = getattr(kernel, fn)(*args, K=K)
+        wrapper = getattr(kernel, fn)
+        rounds = wrapper.launches_rounds
+        got = wrapper(*args, K=K)
         want = fused_slot_ref(*args, K=K)
         torch.cuda.synchronize()
         check(len(got) == len(want), f"{fn} output count: {name}")
         for g, w in zip(got, want):
             check(torch.equal(g, w), f"{fn} differs: {name}")
             err[fn] = max(err[fn], _max_err(g, w))
-        say(f"[kernels] {fn} == plain: {name}")
+        route = (_route_of(wrapper, rounds, K) if args[2] is not None
+                 else "no top-K")
+        say(f"[kernels] {fn} == plain ({route}): {name}")
 
     # times at the main path's shapes (inputs stay in L2, as in the loop,
     # where the preceding operations have just written them)
@@ -431,7 +533,17 @@ def phase_kernels():
         ms=time_ms(lambda: kernel.srpt_topk(keys, K)),
         plain_ms=time_ms(lambda: srpt_topk_ref(keys, K)),
         library_ms=time_ms(lambda: torch.topk(keys, K, dim=1)),
-        bound_ms=(H * M * 4 + 2 * H * K * 4) / HBM_BYTES_PER_S * 1e3)
+        bound_ms=(H * M * 4 + 2 * H * K * 4) / HBM_BYTES_PER_S * 1e3,
+        device_ms=_device_ms(lambda: kernel.srpt_topk(keys, K),
+                             "srpt_topk_kernel"),
+        # another function (ties unspecified), and the plain version's
+        # stable sort, both as device time per call
+        library_device_ms=_device_ms(lambda: torch.topk(keys, K, dim=1)),
+        sort_device_ms=_device_ms(lambda: torch.sort(keys, dim=1,
+                                                     descending=True,
+                                                     stable=True)))
+    perf["priority_arbiter"]["device_ms"] = _device_ms(
+        lambda: kernel.priority_arbiter(p, s, e), "priority_arbiter_kernel")
     f = MAIN_FUSED
     for fn, B in (("fused_slot", None), ("fused_slot_batch", 12)):
         d, u, keys = _fused_inputs(rng, "down,up,topk", B, f["H"], f["cap"],
@@ -445,7 +557,9 @@ def phase_kernels():
             plain_ms=time_ms(lambda: fused_slot_ref(d, u, keys, K=f["K"]),
                              batch=20),
             library_ms=None,
-            bound_ms=nb * _fused_bytes(**f) / HBM_BYTES_PER_S * 1e3)
+            bound_ms=nb * _fused_bytes(**f) / HBM_BYTES_PER_S * 1e3,
+            device_ms=_device_ms(lambda: run(d, u, keys, K=f["K"]),
+                                 "fused_slot_kernel"))
     for name, d in perf.items():
         say(f"[kernels] {name} {d['shape']}: "
             + ", ".join(f"{k}={v!r}" for k, v in d.items() if k != "shape"))
@@ -560,6 +674,7 @@ def phase_full():
                                "fused_slot_batch": 0},
           f"staged run launches {launches['cuda']}, expected 2 arbiter and "
           f"1 top-K per slot over {slots} slots")
+    rounds = {"srpt_topk": kernel.srpt_topk.launches_rounds}
 
     t0 = time.perf_counter()
     *_, (plain,), _ = stepped("reference", (PLAIN_SLOTS,))
@@ -582,6 +697,10 @@ def phase_full():
                                 "fused_slot": slots, "fused_slot_batch": 0},
           f"fused run launches {launches['fused']}, expected one fused_slot "
           f"per slot over {slots} slots and nothing staged")
+    rounds["fused_slot"] = kernel.fused_slot.launches_rounds
+    check(rounds == {"srpt_topk": 0, "fused_slot": 0},
+          f"full run: top-K launches on the rounds routine {rounds}; the "
+          f"main path's K = 7 must take the one-pass routine")
     for field in INT_FIELDS:
         check(np.array_equal(getattr(r_k, field), getattr(r_f, field)),
               f"full run: fused and staged backends differ in {field}")
@@ -602,10 +721,13 @@ def phase_full():
         f"identical to the cuda run's at slot {PLAIN_SLOTS}, key by key")
     say(f"[full] fused backend: {wall_f:.2f} s wall, "
         f"{slots / wall_f:.1f} slots/s; launches {launches['fused']}")
+    say(f"[full] top-K launches on the rounds routine: {rounds} (all on "
+        f"the one-pass routine)")
     say(f"[full] identical integer outputs; completed "
         f"{r_k.n_complete}/{r_k.n_messages} "
         f"({r_k.completion_rate:.4f}); p99_small {s['p99_small']}; "
         f"p99_all {s['p99_all']}; lost {r_k.lost_chunks}")
+    launches["rounds"] = rounds
     return launches, slots / wall_k, handoff
 
 
@@ -753,7 +875,7 @@ def phase_sweep():
     B = len(tables)
     spec = SweepSpec(tables=tables, shared_alloc=True, chunk_slots=1000,
                      streaming=True)
-    stats, launches, wall = {}, {}, {}
+    stats, launches, wall, rounds = {}, {}, {}, {}
     for backend in ("fused", "cuda"):
         kernel.reset_launch_counts()
         torch.cuda.synchronize()
@@ -761,6 +883,8 @@ def phase_sweep():
         stats[backend] = run_sweep(_sweep_config(backend), spec)
         wall[backend] = time.perf_counter() - t0
         launches[backend] = kernel.launch_counts()
+        rounds[backend] = {fn.__name__: fn.launches_rounds
+                           for fn in kernel.TOPK_WRAPPERS}
         say(f"[sweep] {B} full-width runs (W3, loads {SWEEP_LOADS} x seeds "
             f"{SWEEP_SEEDS}), {SWEEP_SLOTS} slots, {backend}: "
             f"{wall[backend]:.2f} s wall, "
@@ -774,6 +898,9 @@ def phase_sweep():
     check(launches["cuda"]["priority_arbiter"] == 2 * SWEEP_SLOTS
           and launches["cuda"]["srpt_topk"] == SWEEP_SLOTS,
           f"staged sweep launches {launches['cuda']}")
+    check(all(n == 0 for r in rounds.values() for n in r.values()),
+          f"sweep: top-K launches on the rounds routine {rounds}; the main "
+          f"path's K = 7 must take the one-pass routine")
     for i, (a, b) in enumerate(zip(stats["fused"], stats["cuda"])):
         check(np.array_equal(a.hist, b.hist)
               and np.array_equal(a.prio_drained_bytes, b.prio_drained_bytes),
@@ -806,8 +933,8 @@ def phase_sweep():
           "profiler shows no device time for the batched fused kernel")
     w["per_launch_ms"]["fused_slot_batch"] = \
         w["per_launch_ms"].pop("fused_slot")
-    return launches["fused"], w, {b: B * SWEEP_SLOTS / wall[b]
-                                  for b in wall}
+    return (dict(launches["fused"], rounds=rounds["fused"]), w,
+            {b: B * SWEEP_SLOTS / wall[b] for b in wall})
 
 
 # ------------------------------------------------------------- phase 7 -----
@@ -1568,13 +1695,24 @@ def main(argv=None) -> int:
                              sweep_window["per_launch_ms"]
                              ["fused_slot_batch"]),
     }
+    # launches on the rounds top-K routine in the main path's runs (0:
+    # every K = 7 launch took the one-pass routine)
+    rounds = {"srpt_topk": full_launches["rounds"]["srpt_topk"],
+              "fused_slot": full_launches["rounds"]["fused_slot"],
+              "fused_slot_batch":
+                  sweep_launches["rounds"]["fused_slot_batch"]}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err[name], "ms": perf[name]["ms"],
          "plain_ms": perf[name]["plain_ms"],
          "bound_ms": perf[name]["bound_ms"], "bound_by": "bytes",
          "library_ms": perf[name]["library_ms"],
-         "device_ms_per_launch": dev_ms}
+         "device_ms_per_launch": dev_ms,
+         "device_ms_main_shapes": perf[name]["device_ms"],
+         **({"launches_rounds": rounds[name]} if name in rounds else {}),
+         **({"library_device_ms": perf[name]["library_device_ms"],
+             "sort_device_ms": perf[name]["sort_device_ms"]}
+            if name == "srpt_topk" else {})}
         for name, (rep, n, dev_ms) in rows.items()]
     kernels.append(
         {"name": "ssd_scan", "route": "cuda",

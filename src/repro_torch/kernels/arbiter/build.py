@@ -14,11 +14,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.arbiter_priority_launch.argtypes = [ptr, ptr, ptr, ptr, ptr,
                                             i32, i32, ptr]
     lib.arbiter_priority_launch.restype = i32
-    lib.arbiter_topk_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.arbiter_topk_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
+                                        ptr]
     lib.arbiter_topk_launch.restype = i32
     lib.arbiter_fused_launch.argtypes = ([ptr] * 5 + [i32] * 2
                                          + [ptr] * 5 + [i32] * 2
-                                         + [ptr] * 3 + [i32] * 4 + [ptr])
+                                         + [ptr] * 3 + [i32] * 5 + [ptr])
     lib.arbiter_fused_launch.restype = i32
     lib.arbiter_error_string.argtypes = [i32]
     lib.arbiter_error_string.restype = ctypes.c_char_p

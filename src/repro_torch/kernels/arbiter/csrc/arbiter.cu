@@ -8,22 +8,32 @@
 //   fused_slot_kernel        <- kernels/arbiter/fused.py fused_slot and
 //                               fused_slot_batch (_fused_kernel)
 //
-// All are integer row reductions: one thread block per row, each thread
-// scanning a strided set of columns, then a warp-shuffle and shared-memory
-// reduction across the block. The per-row bodies are the __device__
-// routines arb_row and topk_row; the staged kernels run one of them on
-// every row, and the fused kernel runs all of a slot's rows in one launch.
-// None keeps the TPU's (8, 128) tiles or its padding: ragged widths are
-// handled by the loop bound.
+// All are integer row reductions. The per-row bodies are the __device__
+// routines arb_rows (a group of ring rows per block) and topk_row (one
+// top-K row per block); the staged kernels run one of them on every row,
+// and the fused kernel runs all of a slot's rows in one launch. None keeps
+// the TPU's (8, 128) tiles or its padding: ragged widths are handled by
+// the loop bounds.
 //
 // What bounds them on an H100: the bytes each row reads (prio + seq + elig
-// = 9 B per ring slot; 4 B per key and round for the top-K) against the
-// 3.35 TB/s of HBM, and at the simulator's widths (144 rows of 512-8000
-// columns) the launch latency more than either.
+// = 9 B per ring slot, 4 B per key) against the 3.35 TB/s of HBM, and at
+// the simulator's widths (144 rows of 512-8000 columns) the latency of a
+// launch and of one round trip to memory more than either. So every row
+// is read once:
+//   - topk_row reads its keys in 16-byte loads that a thread issues
+//     together before it compares anything, keeps each thread's KC best
+//     entries sorted in registers and merges the lists across the warp and
+//     the block without reading the row again (one pass; the round-based
+//     routine it replaced, kept as topk_row_rounds for a K above 8, makes
+//     K passes);
+//   - the fused kernel gives a block either one top-K row or a group of
+//     ring rows of about the same bytes, so no block of the launch reads
+//     much more than another.
 //
 // Built by build.py with nvcc for sm_90a into a shared library with a
 // plain C interface; kernel.py calls it through ctypes on PyTorch's
-// current stream. Every launcher returns cudaGetLastError().
+// current stream. Every launcher returns cudaGetLastError(); none
+// allocates or synchronizes.
 
 #include <climits>
 #include <cstddef>
@@ -38,15 +48,23 @@ constexpr int kNeg = -(1 << 30);   // missing top-K key
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kKeyLoads = 8;       // int4 loads of keys in flight a thread
+
+typedef unsigned long long u64;
+
+// ------------------------------------------------------------ ring rows --
 
 // Lexicographic (prio, seq, col) order: smaller wins, ties to the lowest
 // column. The three fields are compared one by one: prio and seq each
 // reach 2**30, so they do not pack into one 64-bit key with the column.
+// Carrying the column makes the result independent of the order in which
+// the threads see their columns.
 __device__ __forceinline__ bool arb_better(int p, int s, int c,
                                            int bp, int bs, int bc) {
   return p < bp || (p == bp && (s < bs || (s == bs && c < bc)));
 }
 
+// The warp's smallest (prio, seq, col), in lane 0.
 __device__ __forceinline__ void arb_warp_reduce(int& bp, int& bs, int& bc) {
   for (int off = 16; off > 0; off >>= 1) {
     const int op = __shfl_down_sync(kFull, bp, off);
@@ -60,24 +78,33 @@ __device__ __forceinline__ void arb_warp_reduce(int& bp, int& bs, int& bc) {
   }
 }
 
-// One row, run by a whole block: the eligible entry with the smallest
-// (prio, seq), ties to the lowest column. Ineligible entries count as
-// (BIG, BIG), so a row with no eligible entry yields (BIG, 0) like the
-// reference.
-__device__ __forceinline__ void arb_row(const int* __restrict__ prio,
-                                        const int* __restrict__ seq,
-                                        const bool* __restrict__ elig,
-                                        int cap, int* __restrict__ best_prio,
-                                        int* __restrict__ best_idx) {
+// Rows r0 .. r0 + g - 1 (those below R) of a ring stage, run by a whole
+// block: kThreads / g threads per row (g a power of two up to kWarps, so
+// a row has whole warps). Each row's winner is the eligible entry with the
+// smallest (prio, seq), ties to the lowest column; a row with no eligible
+// entry yields (BIG, 0) like the reference. Every thread of the block
+// calls this (it holds a __syncthreads).
+__device__ __forceinline__ void arb_rows(const int* __restrict__ prio,
+                                         const int* __restrict__ seq,
+                                         const bool* __restrict__ elig,
+                                         int R, int cap, int r0, int g,
+                                         int* __restrict__ best_prio,
+                                         int* __restrict__ best_idx) {
+  const int nt = kThreads / g;
+  const int grp = threadIdx.x / nt, t = threadIdx.x % nt;
+  const int row = r0 + grp;
   int bp = kBig, bs = kBig, bc = INT_MAX;
-  for (int c = threadIdx.x; c < cap; c += kThreads) {
-    const bool e = elig[c];
-    const int p = e ? prio[c] : kBig;
-    const int s = e ? seq[c] : kBig;
-    if (arb_better(p, s, c, bp, bs, bc)) {
-      bp = p;
-      bs = s;
-      bc = c;
+  if (row < R) {   // ineligible entries count as (BIG, BIG)
+    const size_t o = static_cast<size_t>(row) * cap;
+    for (int c = t; c < cap; c += nt) {
+      const bool e = elig[o + c];
+      const int p = e ? prio[o + c] : kBig;
+      const int s = e ? seq[o + c] : kBig;
+      if (arb_better(p, s, c, bp, bs, bc)) {
+        bp = p;
+        bs = s;
+        bc = c;
+      }
     }
   }
   arb_warp_reduce(bp, bs, bc);
@@ -90,20 +117,224 @@ __device__ __forceinline__ void arb_row(const int* __restrict__ prio,
     sc[warp] = bc;
   }
   __syncthreads();
-  if (warp == 0) {
-    bp = lane < kWarps ? sp[lane] : kBig;
-    bs = lane < kWarps ? ss[lane] : kBig;
-    bc = lane < kWarps ? sc[lane] : INT_MAX;
+  if (t < 32) {   // the row's first warp folds in the row's warps
+    const bool in = lane < nt / 32;
+    bp = in ? sp[warp + lane] : INT_MAX;
+    bs = in ? ss[warp + lane] : INT_MAX;
+    bc = in ? sc[warp + lane] : INT_MAX;
     arb_warp_reduce(bp, bs, bc);
-    if (lane == 0) {
-      *best_prio = bp;
-      *best_idx = bc == INT_MAX ? 0 : bc;   // cap == 0: no column
+    if (lane == 0 && row < R) {
+      best_prio[row] = bp;
+      best_idx[row] = bc == INT_MAX ? 0 : bc;   // cap == 0: no column
     }
   }
 }
 
+// ------------------------------------------------------- top-K, one pass --
+
+// One total order over a row's entries: the key (offset so that unsigned
+// order is signed order) above the column's complement, so a larger u64
+// is exactly "key descending, then column ascending", whatever order the
+// threads saw the columns in. Every entry packs above 0 (its low half is
+// at least 2**32 - 1 - INT_MAX), so 0 marks an empty place in a list:
+// below every entry, keys of NEG and INT_MIN included.
+__device__ __forceinline__ u64 topk_pack(int key, int col) {
+  return (static_cast<u64>(static_cast<unsigned>(key) ^ 0x80000000u) << 32)
+         | static_cast<u64>(0xffffffffu - static_cast<unsigned>(col));
+}
+
+// Insert v into the list l, sorted descending, if it beats the last; the
+// last falls off. All indices are static, so l stays in registers.
+template <int KC>
+__device__ __forceinline__ void topk_insert(u64 (&l)[KC], u64 v) {
+  if (v > l[KC - 1]) {
+#pragma unroll
+    for (int i = KC - 1; i > 0; --i) {
+      l[i] = v > l[i - 1] ? l[i - 1] : (v > l[i] ? v : l[i]);
+    }
+    l[0] = v > l[0] ? v : l[0];
+  }
+}
+
+// Sort l descending: a bitonic sorting network, all indices static.
+template <int KC>
+__device__ __forceinline__ void bitonic_sort_desc(u64 (&l)[KC]) {
+#pragma unroll
+  for (int k = 2; k <= KC; k <<= 1) {
+#pragma unroll
+    for (int s = k / 2; s > 0; s >>= 1) {
+#pragma unroll
+      for (int i = 0; i < KC; ++i) {
+        const int p = i ^ s;
+        if (p > i) {
+          const u64 a = l[i], b = l[p];
+          const bool swap = (i & k) == 0 ? a < b : a > b;
+          l[i] = swap ? b : a;
+          l[p] = swap ? a : b;
+        }
+      }
+    }
+  }
+}
+
+// The warp's largest u64, from two 32-bit hardware reductions.
+__device__ __forceinline__ u64 warp_max_u64(u64 v) {
+  const unsigned hi =
+      __reduce_max_sync(kFull, static_cast<unsigned>(v >> 32));
+  const unsigned lo = __reduce_max_sync(
+      kFull, static_cast<unsigned>(v >> 32) == hi ? static_cast<unsigned>(v)
+                                                  : 0u);
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+
+// The K best of the lanes' sorted lists: K rounds, each taking the warp
+// max of the lists' heads and popping it from its lane (entries are
+// unique, so one lane pops). Lane r returns round r's entry.
+template <int KC>
+__device__ __forceinline__ u64 warp_topk(u64 (&l)[KC], int K) {
+  const int lane = threadIdx.x & 31;
+  u64 mine = 0;
+#pragma unroll 1
+  for (int r = 0; r < K; ++r) {
+    const u64 m = warp_max_u64(l[0]);
+    mine = lane == r ? m : mine;
+    if (l[0] == m) {
+#pragma unroll
+      for (int i = 0; i < KC - 1; ++i) l[i] = l[i + 1];
+      l[KC - 1] = 0;
+    }
+  }
+  return mine;
+}
+
+// One row of M keys, run by a whole block: the K <= KC largest keys in
+// descending order with their columns, ties to the lowest column. A row
+// narrower than K (K > M) is first padded, as by the plain version, with
+// K - M entries of key NEG at columns M .. K - 1, which are reported with
+// column -1: they come after the row's keys of NEG and before its keys
+// below NEG. The caller normalizes (keys clamped at 0, columns -1 where
+// the key is not positive).
+//
+// Every key is read once. Between the row's first 16-byte boundary (the
+// row pitch need not be a multiple of 16 B) and its last whole int4, int4
+// v (columns head + 4v .. head + 4v + 3) goes to thread v % kThreads,
+// kKeyLoads loads in flight; the few columns before and after go to one
+// thread each. Each thread keeps its KC best entries sorted in registers:
+// a sorting network takes its first KC keys, then a key enters
+// only if it beats the thread's last. Such keys are rare in the
+// simulator's rows (mostly zeros, whose later columns lose), and an
+// insert in one lane would stall its warp, so a passing key goes to a
+// queue of 32 in shared memory instead, which the warp empties into its
+// lanes' lists, one key a lane, when it fills and at the end. Then
+// warp_topk takes each warp's K best and, from those, warp 0 the block's.
+// The padding's K - M entries go to one thread each, after the tail.
+template <int KC>
+__device__ __forceinline__ void topk_row(const int* __restrict__ rk, int M,
+                                         int K, int* __restrict__ vals,
+                                         int* __restrict__ idx) {
+  static_assert(KC >= 8 && (KC & (KC - 1)) == 0 && KC / 4 <= kKeyLoads,
+                "KC: a power of two from 8 to a warp");
+  __shared__ u64 queue[kWarps][32];
+  __shared__ u64 best[kWarps][KC];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  u64 l[KC];
+#pragma unroll
+  for (int i = 0; i < KC; ++i) l[i] = 0;
+
+  int queued = 0;   // keys in the warp's queue, the same in every lane
+  auto drain = [&]() {
+    __syncwarp();
+    if (lane < queued) topk_insert(l, queue[warp][lane]);
+    queued = 0;
+    __syncwarp();
+  };
+  auto offer = [&](u64 v) {   // every lane of the warp calls it
+    const bool pass = v > l[KC - 1];
+    const unsigned m = __ballot_sync(kFull, pass);
+    if (m) {
+      const int n = __popc(m);
+      if (queued + n > 32) drain();
+      if (pass) queue[warp][queued + __popc(m & ((1u << lane) - 1u))] = v;
+      queued += n;
+    }
+  };
+
+  const int head = min(M, static_cast<int>(
+      ((16u - (reinterpret_cast<uintptr_t>(rk) & 15u)) & 15u) >> 2));
+  const int nv = (M - head) >> 2;
+  const int4* r4 = reinterpret_cast<const int4*>(rk + head);
+  bool first = true;
+  // b0 is the warp's first int4, so every lane runs the same iterations
+  for (int b0 = t & ~31; b0 < nv; b0 += kKeyLoads * kThreads) {
+    int4 x[kKeyLoads];
+#pragma unroll
+    for (int j = 0; j < kKeyLoads; ++j) {
+      const int v = b0 + lane + j * kThreads;
+      if (v < nv) x[j] = __ldg(r4 + v);
+    }
+    // int4 j's four entries, "none" past the row
+    auto packed = [&](int j, u64 (&p)[4]) {
+      const int v = b0 + lane + j * kThreads, c = head + 4 * v;
+      const bool ok = v < nv;
+      p[0] = ok ? topk_pack(x[j].x, c) : 0;
+      p[1] = ok ? topk_pack(x[j].y, c + 1) : 0;
+      p[2] = ok ? topk_pack(x[j].z, c + 2) : 0;
+      p[3] = ok ? topk_pack(x[j].w, c + 3) : 0;
+    };
+    int j0 = 0;
+    if (first) {   // the first KC / 4 int4s fill the list
+#pragma unroll
+      for (int j = 0; j < KC / 4; ++j) {
+        u64 p[4];
+        packed(j, p);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[4 * j + e] = p[e];
+      }
+      bitonic_sort_desc(l);
+      j0 = KC / 4;
+    }
+    first = false;
+#pragma unroll
+    for (int j = 0; j < kKeyLoads; ++j) {
+      if (j >= j0 && b0 + j * kThreads < nv) {   // the same in every lane
+        u64 p[4];
+        packed(j, p);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) offer(p[e]);
+      }
+    }
+  }
+  drain();
+  if (t < head) topk_insert(l, topk_pack(__ldg(rk + t), t));
+  const int tail = head + 4 * nv + t;       // at most 3 columns
+  if (tail < M) topk_insert(l, topk_pack(__ldg(rk + tail), tail));
+  if (M + t < K) topk_insert(l, topk_pack(kNeg, M + t));   // the padding
+
+  u64 mine = warp_topk(l, K);
+  if (lane < K) best[warp][lane] = mine;
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int i = 0; i < KC; ++i) {
+      l[i] = lane < kWarps && i < K ? best[lane][i] : 0;
+    }
+    // the row and its padding hold at least K entries, so none is empty
+    mine = warp_topk(l, K);
+    if (lane < K) {
+      const int c =
+          static_cast<int>(0xffffffffu - static_cast<unsigned>(mine));
+      vals[lane] =
+          static_cast<int>(static_cast<unsigned>(mine >> 32) ^ 0x80000000u);
+      idx[lane] = c < M ? c : -1;
+    }
+  }
+}
+
+// ------------------------------------------------------ top-K, K rounds --
+
 // (key descending, column ascending): larger key wins, ties to the lowest
-// column. "None" is (INT_MIN, INT_MAX), below every real entry.
+// column. A thread that has no entry holds (INT_MIN, INT_MAX), below every
+// entry.
 __device__ __forceinline__ bool topk_better(int k, int c, int bk, int bc) {
   return k > bk || (k == bk && c < bc);
 }
@@ -119,24 +350,23 @@ __device__ __forceinline__ void topk_warp_reduce(int& bk, int& bc) {
   }
 }
 
-// One row of M keys, run by a whole block: the K largest keys in
-// descending order with their columns, ties to the lowest column. Round r
-// takes the block-wide best entry among those strictly after round r-1's
-// pick in that order, so no per-thread top-K buffer is needed and any K
-// works; rounds past the row's width write (NEG, -1). The caller
-// normalizes (keys clamped at 0, columns -1 where the key is not
-// positive).
-__device__ __forceinline__ void topk_row(const int* __restrict__ rk, int M,
-                                         int K, int* __restrict__ vals,
-                                         int* __restrict__ idx) {
+// The same function for any K (a K above the largest KC): round r takes
+// the block-wide best entry among those strictly after round r-1's pick
+// in that order, re-reading the row each round, so no per-thread list is
+// needed. The padding of a row narrower than K is read as keys of NEG at
+// columns M .. K - 1, as in topk_row.
+__device__ __forceinline__ void topk_row_rounds(const int* __restrict__ rk,
+                                                int M, int K,
+                                                int* __restrict__ vals,
+                                                int* __restrict__ idx) {
   __shared__ int sk[kWarps], sc[kWarps];
   __shared__ int pick_k, pick_c;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int pk = INT_MAX, pc = -1;   // round 0: every entry is after the "pick"
   for (int r = 0; r < K; ++r) {
     int bk = INT_MIN, bc = INT_MAX;
-    for (int c = threadIdx.x; c < M; c += kThreads) {
-      const int k = rk[c];
+    for (int c = threadIdx.x; c < max(M, K); c += kThreads) {
+      const int k = c < M ? rk[c] : kNeg;
       const bool after = r == 0 || k < pk || (k == pk && c > pc);
       if (after && topk_better(k, c, bk, bc)) {
         bk = k;
@@ -153,101 +383,139 @@ __device__ __forceinline__ void topk_row(const int* __restrict__ rk, int M,
       bk = lane < kWarps ? sk[lane] : INT_MIN;
       bc = lane < kWarps ? sc[lane] : INT_MAX;
       topk_warp_reduce(bk, bc);
-      if (lane == 0) {
-        const bool none = bc == INT_MAX;
-        vals[r] = none ? kNeg : bk;
-        idx[r] = none ? -1 : bc;
+      if (lane == 0) {   // max(M, K) entries: round r always finds one
+        vals[r] = bk;
+        idx[r] = bc < M ? bc : -1;
         pick_k = bk;
         pick_c = bc;
       }
     }
     __syncthreads();
-    // once the row is exhausted the pick is (INT_MIN, INT_MAX), after
-    // which no entry lies, so every later round writes (NEG, -1)
     pk = pick_k;
     pc = pick_c;
   }
 }
+
+// KC > 0: the one-pass routine for K <= KC; KC == 0: the rounds routine.
+template <int KC>
+__device__ __forceinline__ void topk_any(const int* __restrict__ rk, int M,
+                                         int K, int* __restrict__ vals,
+                                         int* __restrict__ idx) {
+  if constexpr (KC == 0) {
+    topk_row_rounds(rk, M, K, vals, idx);
+  } else {
+    topk_row<KC>(rk, M, K, vals, idx);
+  }
+}
+
+// -------------------------------------------------------------- kernels --
 
 __global__ void __launch_bounds__(kThreads)
 priority_arbiter_kernel(const int* __restrict__ prio,
                         const int* __restrict__ seq,
                         const bool* __restrict__ elig,
                         int* __restrict__ best_prio,
-                        int* __restrict__ best_idx, int cap) {
-  const int row = blockIdx.x;
-  const size_t base = static_cast<size_t>(row) * cap;
-  arb_row(prio + base, seq + base, elig + base, cap, best_prio + row,
-          best_idx + row);
+                        int* __restrict__ best_idx, int H, int cap) {
+  arb_rows(prio, seq, elig, H, cap, blockIdx.x, 1, best_prio, best_idx);
 }
 
+template <int KC>
 __global__ void __launch_bounds__(kThreads)
 srpt_topk_kernel(const int* __restrict__ keys, int* __restrict__ vals,
                  int* __restrict__ idx, int M, int K) {
   const size_t row = blockIdx.x;
-  topk_row(keys + row * M, M, K, vals + row * K, idx + row * K);
+  topk_any<KC>(keys + row * M, M, K, vals + row * K, idx + row * K);
 }
 
 // One slot's stages for B runs. A stage is absent when its row count is 0
 // (its pointers are then null and never read). Every array carries a
 // leading run axis of length B, contiguous: run b's down rings start at
-// b * H * cap, and so on.
+// b * H * cap, and so on. gd / gu ring rows share a block, nd / nu blocks
+// of a run cover the down / up rows (the launcher sets them).
 struct FusedArgs {
   const int* d_prio;
   const int* d_seq;
   const bool* d_elig;
   int* d_best_prio;
   int* d_best_idx;
-  int H, cap;
+  int H, cap, gd, nd;
   const int* u_prio;
   const int* u_seq;
   const bool* u_elig;
   int* u_best_prio;
   int* u_best_idx;
-  int U, ucap;
+  int U, ucap, gu, nu;
   const int* keys;
   int* vals;
   int* idx;
   int H2, M, K;
 };
 
-// Grid (H + U + H2, B): blockIdx.y is the run, blockIdx.x walks the
-// concatenated rows of the present stages — H down rows, then U up rows,
-// then H2 top-K rows — and each block runs the matching row routine. The
-// whole grid is one launch, whatever B is.
+// Grid (H2 + nd + nu, B): blockIdx.y is the run; blockIdx.x walks one
+// block per top-K row, then nd blocks of gd down rows each, then nu blocks
+// of gu up rows. The launcher picks gd and gu so that a group of ring
+// rows reads about as many bytes as the launch's widest row (a top-K row
+// of 4 M bytes on the main path), so the blocks of the launch read alike.
+// The top-K blocks, which also compute the most, come first, so that the
+// scheduler spreads them over the SMs before it doubles any up. The whole
+// grid is one launch, whatever B is.
 //
 // The TPU version keeps every operand in VMEM at once and so needs a size
 // ceiling (FUSED_VMEM_LIMIT_BYTES in the JAX package's dispatch.py) past
 // which it hands the stages to the staged kernels. Here each block reads
-// its row straight from global memory, so there is no such ceiling and no
-// fallback.
+// its rows straight from global memory, so there is no such ceiling and
+// no fallback.
 //
-// Load balance is left as it is: a top-K row of 8000 keys and K rounds
-// takes several times as long as a ring row of 512-1024 slots, and at
-// B = 1 the grid (432 blocks) is one wave on 132 SMs.
-__global__ void __launch_bounds__(kThreads)
+// At most 80 registers a thread, so that 3 blocks fit on an SM: at B = 12
+// the grid is several waves, and the third block hides more latency than
+// the registers it costs (ptxas would take 88; at 64 it spills).
+template <int KC>
+__global__ void __launch_bounds__(kThreads, 3)
 fused_slot_kernel(const FusedArgs a) {
   const size_t run = blockIdx.y;
-  int row = blockIdx.x;
-  if (row < a.H) {
-    const size_t r = run * a.H + row;
-    const size_t o = r * a.cap;
-    arb_row(a.d_prio + o, a.d_seq + o, a.d_elig + o, a.cap,
-            a.d_best_prio + r, a.d_best_idx + r);
+  int b = blockIdx.x;
+  if (b < a.H2) {
+    const size_t r = run * a.H2 + b;
+    topk_any<KC>(a.keys + r * a.M, a.M, a.K, a.vals + r * a.K,
+                 a.idx + r * a.K);
     return;
   }
-  row -= a.H;
-  if (row < a.U) {
-    const size_t r = run * a.U + row;
-    const size_t o = r * a.ucap;
-    arb_row(a.u_prio + o, a.u_seq + o, a.u_elig + o, a.ucap,
-            a.u_best_prio + r, a.u_best_idx + r);
+  b -= a.H2;
+  if (b < a.nd) {
+    const size_t o = run * a.H * a.cap;
+    arb_rows(a.d_prio + o, a.d_seq + o, a.d_elig + o, a.H, a.cap,
+             b * a.gd, a.gd, a.d_best_prio + run * a.H,
+             a.d_best_idx + run * a.H);
     return;
   }
-  row -= a.U;
-  const size_t r = run * a.H2 + row;
-  topk_row(a.keys + r * a.M, a.M, a.K, a.vals + r * a.K, a.idx + r * a.K);
+  b -= a.nd;
+  const size_t o = run * a.U * a.ucap;
+  arb_rows(a.u_prio + o, a.u_seq + o, a.u_elig + o, a.U, a.ucap, b * a.gu,
+           a.gu, a.u_best_prio + run * a.U, a.u_best_idx + run * a.U);
 }
+
+// Ring rows per block: the largest power of two up to kWarps whose rows
+// read at most 1.5x the bytes of the launch's widest row (`target`).
+int ring_rows_per_block(long long row_bytes, long long target) {
+  int g = 1;
+  while (g < kWarps && 4LL * g * row_bytes <= 3LL * target) g <<= 1;
+  return g;
+}
+
+template <int KC>
+void launch_topk(int H, const int* keys, int* vals, int* idx, int M, int K,
+                 cudaStream_t stream) {
+  srpt_topk_kernel<KC><<<H, kThreads, 0, stream>>>(keys, vals, idx, M, K);
+}
+
+template <int KC>
+void launch_fused(dim3 grid, const FusedArgs& a, cudaStream_t stream) {
+  fused_slot_kernel<KC><<<grid, kThreads, 0, stream>>>(a);
+}
+
+// The top-K instance for a K cap: 8 runs the one-pass routine (K <= 8),
+// 0 the rounds routine (any K). kernel.py picks it.
+bool topk_cap_ok(int kc, int K) { return kc == 0 || (kc == 8 && K <= kc); }
 
 }  // namespace
 
@@ -261,23 +529,31 @@ int arbiter_priority_launch(const void* prio, const void* seq,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(prio), static_cast<const int*>(seq),
         static_cast<const bool*>(elig), static_cast<int*>(best_prio),
-        static_cast<int*>(best_idx), cap);
+        static_cast<int*>(best_idx), H, cap);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int arbiter_topk_launch(const void* keys, void* vals, void* idx, int H,
-                        int M, int K, void* stream) {
+                        int M, int K, int kc, void* stream) {
+  if (!topk_cap_ok(kc, K)) return static_cast<int>(cudaErrorInvalidValue);
   if (H > 0 && K > 0) {
-    srpt_topk_kernel<<<H, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(keys), static_cast<int*>(vals),
-        static_cast<int*>(idx), M, K);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto k = static_cast<const int*>(keys);
+    const auto v = static_cast<int*>(vals);
+    const auto i = static_cast<int*>(idx);
+    if (kc == 8) {
+      launch_topk<8>(H, k, v, i, M, K, s);
+    } else {
+      launch_topk<0>(H, k, v, i, M, K, s);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Stage pointers may be null where the stage's row count is 0. A top-K
-// stage needs K >= 1 (the wrapper checks).
+// stage needs K >= 1 (the wrapper checks) and an instance kc that takes
+// it.
 int arbiter_fused_launch(const void* d_prio, const void* d_seq,
                          const void* d_elig, void* d_best_prio,
                          void* d_best_idx, int H, int cap,
@@ -285,7 +561,10 @@ int arbiter_fused_launch(const void* d_prio, const void* d_seq,
                          const void* u_elig, void* u_best_prio,
                          void* u_best_idx, int U, int ucap,
                          const void* keys, void* vals, void* idx, int H2,
-                         int M, int K, int B, void* stream) {
+                         int M, int K, int kc, int B, void* stream) {
+  if (H2 > 0 && !topk_cap_ok(kc, K)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   FusedArgs a;
   a.d_prio = static_cast<const int*>(d_prio);
   a.d_seq = static_cast<const int*>(d_seq);
@@ -307,10 +586,23 @@ int arbiter_fused_launch(const void* d_prio, const void* d_seq,
   a.H2 = H2;
   a.M = M;
   a.K = K;
-  const int rows = H + U + H2;
-  if (rows > 0 && B > 0) {
-    fused_slot_kernel<<<dim3(rows, B), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+  long long target = 0;   // the widest row's bytes
+  if (H > 0) target = 9LL * cap;
+  if (U > 0 && 9LL * ucap > target) target = 9LL * ucap;
+  if (H2 > 0 && 4LL * M > target) target = 4LL * M;
+  a.gd = ring_rows_per_block(9LL * cap, target);
+  a.gu = ring_rows_per_block(9LL * ucap, target);
+  a.nd = H > 0 ? (H + a.gd - 1) / a.gd : 0;
+  a.nu = U > 0 ? (U + a.gu - 1) / a.gu : 0;
+  const int blocks = a.nd + a.nu + H2;
+  if (blocks > 0 && B > 0) {
+    const dim3 grid(blocks, B);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (H2 == 0 || kc == 8) {
+      launch_fused<8>(grid, a, s);
+    } else {
+      launch_fused<0>(grid, a, s);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

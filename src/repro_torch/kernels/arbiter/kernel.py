@@ -7,9 +7,17 @@ A tensor on the CPU goes to the plain version in :mod:`.ref` instead; a
 CUDA tensor launches the kernel or raises — a failed build or launch
 never falls back.
 
+Which top-K routine a launch runs (:func:`topk_cap`): for K up to 8 the
+one-pass routine, instantiated for that cap; for a larger K the rounds
+routine, which re-reads the row once per rank. Both compute the same
+function.
+
 Each wrapper counts its kernel launches in a plain integer attribute
 (``priority_arbiter.launches`` and so on), raised only where the kernel
-is launched, so a run can show that it went through the kernels.
+is launched, so a run can show that it went through the kernels. The
+wrappers with a top-K stage also count the launches that took the rounds
+routine, in ``srpt_topk.launches_rounds``, ``fused_slot.launches_rounds``
+and ``fused_slot_batch.launches_rounds``.
 """
 from __future__ import annotations
 
@@ -19,6 +27,16 @@ from repro_torch.kernels.arbiter.build import load_library
 from repro_torch.kernels.arbiter.ref import (BIG, NEG, fused_slot_ref,
                                              priority_arbiter_ref,
                                              srpt_topk_ref, topk_normalize)
+
+
+TOPK_CAPS = (8,)    # K caps of the one-pass top-K instances (csrc)
+
+
+def topk_cap(K: int) -> int:
+    """The wrappers' rule: the one-pass instance for K (the smallest cap
+    in ``TOPK_CAPS`` that is at least K), or 0, the rounds routine, for a
+    K above the largest cap."""
+    return next((c for c in TOPK_CAPS if K <= c), 0)
 
 
 def _check(name, tensors, dtypes, ndim=2, device=None):
@@ -81,12 +99,14 @@ def srpt_topk(keys, K: int):
     H, M = keys.shape
     vals = torch.empty((H, K), dtype=torch.int32, device=keys.device)
     idx = torch.empty((H, K), dtype=torch.int32, device=keys.device)
+    cap = topk_cap(K)
     lib = load_library()
     rc = lib.arbiter_topk_launch(
-        keys.data_ptr(), vals.data_ptr(), idx.data_ptr(), H, M, K,
+        keys.data_ptr(), vals.data_ptr(), idx.data_ptr(), H, M, K, cap,
         torch.cuda.current_stream(keys.device).cuda_stream)
     _raise_on(rc, "srpt_topk", lib)
     srpt_topk.launches += 1
+    srpt_topk.launches_rounds += cap == 0
     return topk_normalize(vals, idx)
 
 
@@ -135,12 +155,14 @@ def _fused(wrapper, down, up, keys, K, batched):
         args += [keys.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, M,
                  K]
         out += [vals, idx]
+    cap = topk_cap(K)
     lib = load_library()
     rc = lib.arbiter_fused_launch(
-        *args, lead[0] if batched else 1,
+        *args, cap, lead[0] if batched else 1,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, name, lib)
     wrapper.launches += 1
+    wrapper.launches_rounds += keys is not None and cap == 0
     return tuple(out)
 
 
@@ -161,22 +183,24 @@ def fused_slot_batch(down=None, up=None, keys=None, K: int = 0):
     return _fused(fused_slot_batch, down, up, keys, K, batched=True)
 
 
-priority_arbiter.launches = 0
-srpt_topk.launches = 0
-fused_slot.launches = 0
-fused_slot_batch.launches = 0
-
 WRAPPERS = (priority_arbiter, srpt_topk, fused_slot, fused_slot_batch)
+TOPK_WRAPPERS = (srpt_topk, fused_slot, fused_slot_batch)
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in TOPK_WRAPPERS:
+        fn.launches_rounds = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-__all__ = ["BIG", "NEG", "priority_arbiter", "srpt_topk", "fused_slot",
-           "fused_slot_batch", "reset_launch_counts", "launch_counts"]
+__all__ = ["BIG", "NEG", "TOPK_CAPS", "topk_cap", "priority_arbiter",
+           "srpt_topk", "fused_slot", "fused_slot_batch",
+           "reset_launch_counts", "launch_counts"]

@@ -25,6 +25,9 @@ and counts it in the plain integer ``flash_attention.launches``; a launch
 of the tensor-core kernel also counts in ``flash_attention.launches_tc``.
 Both are raised only where a kernel is launched, so a run can show which
 design it went through.
+
+The kernels have no backward: with grad enabled, a CUDA input that
+requires grad raises instead of silently cutting the gradient path.
 """
 from __future__ import annotations
 
@@ -110,6 +113,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale, kv_len=kv_len)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: an input requires grad and the "
+                           "kernel has no backward; take the plain path "
+                           "(use_kernel=False) to differentiate")
     _check(q, k, v)
     B, Sq, H, d = q.shape
     _, Skv, KV, dv = v.shape

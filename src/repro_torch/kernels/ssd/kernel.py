@@ -11,7 +11,9 @@ never falls back.
 One call runs four CUDA kernels in order (per-chunk states, C·Bᵀ per
 chunk, the pass over chunks, the outputs) and counts one launch in the
 plain integer ``ssd_scan.launches``, raised only where the kernels are
-launched, so a run can show that it went through them.
+launched, so a run can show that it went through them. The kernels have
+no backward: with grad enabled, a CUDA input that requires grad raises
+instead of silently cutting the gradient path.
 """
 from __future__ import annotations
 
@@ -83,6 +85,11 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
                          f"{chunk}")
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A, Bm, Cm)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, Bm, Cm)):
+        raise RuntimeError("ssd_scan: an input requires grad and the kernel "
+                           "has no backward; take the plain path "
+                           "(use_kernel=False) to differentiate")
     _check(x, dt, A, Bm, Cm, chunk)
     B, S, H, P = x.shape
     N = Bm.shape[-1]

@@ -77,6 +77,8 @@ def test_cpu_wrappers_take_the_plain_version():
     assert all(torch.equal(g[0], w) for g, w in zip(got, want))
     assert kernel.launch_counts() == {"priority_arbiter": 0, "srpt_topk": 0,
                                       "fused_slot": 0, "fused_slot_batch": 0}
+    assert kernel.srpt_topk(keys, 40)[0].shape == (8, 40)    # rounds' K
+    assert all(fn.launches_rounds == 0 for fn in kernel.TOPK_WRAPPERS)
     with pytest.raises(ValueError, match="K must be >= 1"):
         kernel.srpt_topk(keys, 0)
 

@@ -152,6 +152,21 @@ def test_wrapper_rejects_other_devices():
         flash_attention(x, x, x)
 
 
+def test_cpu_inputs_that_require_grad_take_the_plain_path():
+    """A CPU call keeps its gradients (the plain version), launches
+    nothing, and its gradients are attention_ref's; on a card the same
+    call raises (``test_torch_cuda.py``)."""
+    qkv = [torch.tensor(a, requires_grad=True)
+           for a in _attn_inputs(1, 16, 16, 2, 1, 8, 4)]
+    n = attn_kernel.flash_attention.launches
+    flash_attention(*qkv, causal=True).square().sum().backward()
+    got = [t.grad for t in qkv]
+    ref = [t.detach().clone().requires_grad_() for t in qkv]
+    attention_ref(*ref, causal=True).square().sum().backward()
+    assert attn_kernel.flash_attention.launches == n
+    assert all(torch.equal(g, r.grad) for g, r in zip(got, ref))
+
+
 # ------------------- the tensor-core kernel's arithmetic, modelled ----
 
 def _tc_model(q, k, v, *, causal=True, window=None, kv_len=None,

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions
-(the staged arbiter and top-K, the fused per-slot kernel at every stage
-subset and B in {1, 4, 12}, the SSD chunk scan and flash attention).
+(the staged arbiter and top-K — its one-pass and rounds routines, by
+their counter — the fused per-slot kernel at every stage subset and B in
+{1, 4, 12}, the SSD chunk scan and flash attention, whose wrappers refuse
+inputs that require grad).
 
 These tests need a CUDA card and skip without one (marker ``gpu``); run
 them there with ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py``.
@@ -16,7 +18,9 @@ import torch
 from repro_torch.kernels.arbiter import kernel
 from repro_torch.kernels.arbiter.ref import (NEG, fused_slot_ref,
                                              priority_arbiter_ref,
-                                             srpt_topk_ref)
+                                             srpt_topk_raw, srpt_topk_ref)
+
+INT_MIN = -(1 << 31)
 
 
 def _arb_inputs(H, cap, seed, *, n_prios=8, seq_hi=10_000, p_elig=0.3):
@@ -43,11 +47,16 @@ ARB_CASES = [
 
 
 def _keys(H, M, seed, *, hi=1 << 28, p_pos=0.5, neg=False):
+    """Random keys; ``neg`` puts NEG (``True``), or one of the given
+    values (a tuple), in about 30% of the entries."""
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, hi, (H, M)).astype(np.int32)
     keys = np.where(rng.random((H, M)) < p_pos, keys, 0).astype(np.int32)
     if neg:
-        keys = np.where(rng.random((H, M)) < 0.3, NEG, keys).astype(np.int32)
+        low = NEG
+        if neg is not True:
+            low = np.asarray(neg, np.int32)[rng.integers(0, len(neg), (H, M))]
+        keys = np.where(rng.random((H, M)) < 0.3, low, keys).astype(np.int32)
     return keys
 
 
@@ -58,6 +67,8 @@ TOPK_CASES = [
     (4, 128, 1, 1 << 28, 0.5, False),
     (8, 300, 6, 3, 0.9, False),         # many tied keys
     (6, 3, 7, 100, 0.5, True),          # M < K with zeros and NEG keys
+    # M < K with keys of NEG and below: the padding comes between them
+    (6, 5, 7, 100, 0.5, (NEG, NEG - 1, INT_MIN + 1, INT_MIN)),
     (3, 1, 4, 100, 0.5, False),         # one column
     (5, 40, 4, 100, 0.0, False),        # all zero
     (4, 50, 3, (1 << 31) - 1, 1.0, False),  # full positive int32 range
@@ -74,7 +85,9 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ARB_CASES + [(144, 1024, 8, 20_000, 0.5),
-                                              (144, 512, 8, 20_000, 0.5)])
+                                              (144, 512, 8, 20_000, 0.5),
+                                              # rows off 16-byte boundaries
+                                              (5, 1027, 8, 20_000, 0.5)])
 def test_priority_arbiter_kernel_matches_plain(cuda, case):
     H, cap, n_prios, seq_hi, p_elig = case
     args = [torch.from_numpy(a).to(cuda) for a in
@@ -100,6 +113,63 @@ def test_srpt_topk_kernel_matches_plain(cuda, case):
     want = srpt_topk_ref(keys, K)
     torch.cuda.synchronize()
     assert kernel.srpt_topk.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_fused_slot_kernel_raw_topk_matches_plain(cuda, case):
+    """The raw top-K, as the fused kernel returns it: ranks past a row's
+    width and keys of NEG and below in the plain version's order."""
+    H, M, K, hi, p_pos, neg = case
+    keys = torch.from_numpy(_keys(H, M, 5, hi=hi, p_pos=p_pos,
+                                  neg=neg)).to(cuda)
+    got = kernel.fused_slot(keys=keys, K=K)
+    want = srpt_topk_raw(keys, K)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [7, 8, 9, 32, 33, 64])
+def test_srpt_topk_kernel_routes(cuda, K):
+    """K up to 8 runs the one-pass routine, a larger K the rounds
+    routine; the counter shows which, and both are exact on rows full of
+    ties."""
+    keys = torch.from_numpy(_keys(16, 1000, K, hi=6, p_pos=0.5)).to(cuda)
+    n, rounds = kernel.srpt_topk.launches, kernel.srpt_topk.launches_rounds
+    got = kernel.srpt_topk(keys, K)
+    want = srpt_topk_ref(keys, K)
+    torch.cuda.synchronize()
+    assert (kernel.srpt_topk.launches - n,
+            kernel.srpt_topk.launches_rounds - rounds) == (1, int(K > 8))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _boundary_ties(H, M, seed):
+    """Grant-like keys whose 8 largest entries per row are equal and lie
+    at columns read by different threads, warps and load batches of the
+    one-pass top-K; only the tie rule orders them."""
+    keys = _keys(H, M, seed, hi=1 << 20, p_pos=0.05)
+    keys[:, [4 * 31 + 3, 4 * 32, 4 * 255 + 3, 4 * 256, 4 * 257 + 1, 4000,
+             M - 5, M - 1]] = 1 << 21
+    return keys
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_srpt_topk_kernel_ties_across_threads(cuda, offset):
+    """At the main path's 144 x 8000, K = 7, with the ties above, and with
+    the matrix starting ``offset`` ints past a 16-byte boundary (each row
+    then has a scalar head and tail)."""
+    H, M = 144, 8000
+    buf = torch.zeros(H * M + 4, dtype=torch.int32, device=cuda)
+    keys = buf[offset:offset + H * M].view(H, M)
+    keys.copy_(torch.from_numpy(_boundary_ties(H, M, 9)))
+    assert keys.data_ptr() % 16 == 4 * offset
+    got = kernel.srpt_topk(keys, 7)
+    want = srpt_topk_ref(keys, 7)
+    torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -178,6 +248,37 @@ def test_fused_slot_batch_kernel_matches_plain(cuda, stages, B):
     want = fused_slot_ref(down, up, keys, 7)
     torch.cuda.synchronize()
     assert kernel.fused_slot_batch.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_fused_slot_batch_kernel_empty_rings_main_shapes(cuda):
+    """B = 12 at the main shapes with every ring row empty: only the
+    top-K rows carry work, and the rings give (BIG, 0)."""
+    down, up, keys = _fused_inputs("down,up,topk", 12, 144, 1024, 144, 512,
+                                   8000, 7, 21, cuda)
+    down, up = ((p, s, torch.zeros_like(e)) for p, s, e in (down, up))
+    got = kernel.fused_slot_batch(down=down, up=up, keys=keys, K=7)
+    want = fused_slot_ref(down, up, keys, 7)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert bool((got[1] == 0).all()) and bool((got[3] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [None, 4])
+@pytest.mark.parametrize("K", [8, 9])
+def test_fused_slot_kernel_routes(cuda, B, K):
+    """The fused kernel takes the same route rule as ``srpt_topk``: a K
+    past 8 runs its top-K rows on the rounds routine, counted."""
+    fn = kernel.fused_slot if B is None else kernel.fused_slot_batch
+    down, up, keys = _fused_inputs("down,up,topk", B, 16, 256, 16, 128, 1000,
+                                   K, 17, cuda)
+    n, rounds = fn.launches, fn.launches_rounds
+    got = fn(down=down, up=up, keys=keys, K=K)
+    want = fused_slot_ref(down, up, keys, K)
+    torch.cuda.synchronize()
+    assert (fn.launches - n, fn.launches_rounds - rounds) == (1, int(K > 8))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -304,6 +405,22 @@ def test_ssd_kernel_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.gpu
+def test_ssd_kernel_refuses_inputs_that_require_grad(cuda):
+    """The kernel has no backward: with grad enabled an input that
+    requires grad raises, naming the plain path; without grad it runs."""
+    from repro_torch.kernels.ssd.kernel import ssd_scan
+    args = list(_ssd_tensors(_ssd_inputs(1, 32, 2, 8, 8, 0), cuda))
+    for i in range(len(args)):
+        grad = [a.detach().requires_grad_(j == i) for j, a in
+                enumerate(args)]
+        with pytest.raises(RuntimeError, match="use_kernel=False"):
+            ssd_scan(*grad, chunk=8)
+        with torch.no_grad():
+            y, _ = ssd_scan(*grad, chunk=8)
+        assert not y.requires_grad
+
+
+@pytest.mark.gpu
 def test_mamba_block_runs_the_kernel_on_a_card(cuda):
     """On a CUDA tensor ``mamba_block`` launches the SSD kernel once by
     default and never with ``use_kernel=False``; the two agree."""
@@ -420,6 +537,21 @@ def test_attention_kernel_rows_without_valid_key(cuda, causal):
     out = flash_attention(q, k, v, causal=causal, window=2, kv_len=8)
     ref = attention_ref(q, k, v, causal=causal, window=2, kv_len=8)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_attention_kernel_refuses_inputs_that_require_grad(cuda, dtype):
+    """Neither kernel has a backward: with grad enabled an input that
+    requires grad raises, naming the plain path; without grad it runs."""
+    from repro_torch.kernels.attention.kernel import flash_attention
+    qkv = _attn_tensors(_attn_inputs(1, 64, 64, 2, 2, 64, 3), dtype, cuda)
+    for i in range(3):
+        grad = [t.detach().requires_grad_(j == i) for j, t in enumerate(qkv)]
+        with pytest.raises(RuntimeError, match="use_kernel=False"):
+            flash_attention(*grad, causal=True)
+        with torch.no_grad():
+            assert not flash_attention(*grad, causal=True).requires_grad
 
 
 @pytest.mark.gpu

@@ -150,6 +150,24 @@ def test_kernel_wrapper_checks_the_chunk_on_the_cpu():
         ssd_kernel.ssd_scan(*t, chunk=8)
 
 
+def test_cpu_inputs_that_require_grad_take_the_plain_path():
+    """A CPU call keeps its gradients (the plain version), launches
+    nothing, and its gradients are ssd_ref's; on a card the same call
+    raises (``test_torch_cuda.py``)."""
+    args = [torch.tensor(a, requires_grad=True)
+            for a in _ssd_inputs(1, 16, 2, 4, 4, 2)]
+    n = ssd_kernel.ssd_scan.launches
+    y, fs = ssd_kernel.ssd_scan(*args, chunk=8)
+    (y.square().sum() + fs.sum()).backward()
+    got = [a.grad for a in args]
+    ref = [a.detach().clone().requires_grad_() for a in args]
+    yr, fr = ssd_ref(*ref)
+    (yr.square().sum() + fr.sum()).backward()
+    assert ssd_kernel.ssd_scan.launches == n
+    assert all(g is not None and torch.equal(g, r.grad)
+               for g, r in zip(got, ref))
+
+
 @settings(max_examples=10, deadline=None)
 @given(st.integers(0, 10_000))
 def test_ssd_decay_property(seed):
