@@ -52,12 +52,18 @@ result line:
            that batch from slot 1000 beside phase 5's single run
 7. model   Mamba2-130m inference at full width (24 layers, d_model 768,
            H 24, P 64, N 128, chunk 256; random weights from a seed):
-           (a) the SSD chunk-scan kernel (``csrc/ssd.cu``) against its
+           (a) the SSD chunk-scan kernels (``csrc/ssd.cu``) against their
            plain version ``ssd_ref`` on the inputs of layer 0 of a real
            4 x 4096 prefill, on synthetic inputs at that shape, and on
-           edge cases (pad path, S < chunk, B = 1, one head), with its
-           time; (b) ``forward_prefill`` of 4 x 4096 tokens on the kernel
-           (24 launches, counted and seen by the profiler) against the
+           edge cases (pad path, S < chunk on the CUDA-core route, B = 1,
+           one head, strong decay), each case's route checked by the
+           counters, with the tensor-core route's time beside the
+           CUDA-core route's (the earlier design, launched directly at
+           the same shape) and both bounds (fp32 CUDA cores; bf16 tensor
+           cores with the split products counted twice); (b)
+           ``forward_prefill`` of 4 x 4096 tokens on the kernels (24
+           launches, all on the tensor-core route, counted and seen by
+           the profiler, each kernel's device time) against the
            plain ``ssd_chunked`` path (no SSD launch), layer by layer on
            the same inputs and end to end; (c) prefill of 4095 tokens
            plus one ``forward_decode`` against the 4096-token prefill;
@@ -939,8 +945,9 @@ def phase_sweep():
 
 # ------------------------------------------------------------- phase 7 -----
 
-SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_cb_kernel",
-               "ssd_state_pass_kernel", "ssd_output_kernel")
+# the tensor-core route's kernels, which the main path runs
+SSD_KERNELS = ("ssd_chunk_state_tc_kernel", "ssd_state_pass_tc_kernel",
+               "ssd_output_tc_kernel")
 
 
 def _rel(got, want) -> float:
@@ -954,29 +961,40 @@ def _ssd_work(B, S, H, P, N, L):
     and the multiply-adds it needs at these shapes: per (b, chunk, h) the
     causal att.x (L(L+1)/2 x P), x^T.B (L x P x N) and, past the first
     chunk, C.state (L x N x P); per (b, chunk) the causal C.B^T
-    (L(L+1)/2 x N)."""
+    (L(L+1)/2 x N). Returns (bytes, multiply-adds, multiply-adds on the
+    bf16 tensor cores): there, each of the three products with an fp32
+    factor runs twice (its hi and lo halves), as p.V does in row 6."""
     nc = S // L
     nbytes = (B * S * H * P * 2 + B * S * H * 4 + H * 4 + 2 * B * S * N * 2
               + B * S * H * P * 4 + B * H * P * N * 4)
     tri = L * (L + 1) // 2
-    macs = (B * nc * H * (tri * P + L * P * N) + B * (nc - 1) * H * L * N * P
-            + B * nc * tri * N)
-    return nbytes, macs
+    split = (B * nc * H * (tri * P + L * P * N)
+             + B * (nc - 1) * H * L * N * P)
+    cb = B * nc * tri * N
+    return nbytes, split + cb, 2 * split + cb
 
 
-def _ssd_check(name, args, chunk):
-    """The kernel (through ``ops.ssd``, padding included) against
+def _ssd_check(name, args, chunk, tc=True):
+    """The kernels (through ``ops.ssd``, padding included) against
     ``ssd_ref`` on the same inputs: y and the final state elementwise
-    within SSD_TOL. Returns the max abs error of y."""
+    within SSD_TOL; one launch, on the tensor-core route iff ``tc`` (the
+    counters say which). Returns the max abs error of y."""
     import torch
-    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd import kernel as ssd_kernel, ops
     from repro_torch.kernels.ssd.ref import ssd_ref
+    scan = ssd_kernel.ssd_scan
+    n, n_tc = scan.launches, scan.launches_tc
     y, fs = ops.ssd(*args, chunk=chunk)
     yr, fr = ssd_ref(*args)
     torch.cuda.synchronize()
+    check((scan.launches - n, scan.launches_tc - n_tc) == (1, int(tc)),
+          f"ssd {name}: {scan.launches - n} launches, "
+          f"{scan.launches_tc - n_tc} on the tensor cores; expected 1, "
+          f"{int(tc)}")
     atol, rtol = SSD_TOL["atol"], SSD_TOL["rtol"]
     shape = tuple(args[0].shape)
-    msg = [f"[model] ssd kernel == ssd_ref: {name} {shape}, chunk {chunk}:"]
+    msg = [f"[model] ssd kernel == ssd_ref: {name} {shape}, chunk {chunk}, "
+           f"{'tensor' if tc else 'CUDA'} cores:"]
     for what, g, w in (("y", y, yr), ("state", fs, fr)):
         check(g.shape == w.shape and g.dtype == torch.float32,
               f"ssd {name}: {what} shape {tuple(g.shape)} / dtype {g.dtype}")
@@ -1008,6 +1026,31 @@ def _ssd_synthetic(gen, B, S, H, P, N):
     Bm = (0.5 * torch.randn((B, S, N), **kw)).bfloat16()
     Cm = (0.5 * torch.randn((B, S, N), **kw)).bfloat16()
     return x, dt, A, Bm, Cm
+
+
+def _ssd_cuda_core_ms(args, chunk):
+    """Time of the CUDA-core route (the earlier design) on the main
+    path's inputs, launched through the library directly so that the
+    wrapper's rule, which sends such a call to the tensor cores, is
+    bypassed and nothing is counted: the earlier design's time, taken in
+    the same run as the new one's."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    lib = ssd_kernel.LIBRARY.load()
+    x, dt, A, Bm, Cm = args
+    B, S, H, P = x.shape
+    N, nc = Bm.shape[-1], S // chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
+    bufs = [torch.empty(shape, **f32) for shape in
+            ((B, S, H, P), (B, H, P, N), (B, nc, H, P, N), (B, nc, H),
+             (B, nc, chunk, chunk))]
+    ptrs = [t.data_ptr() for t in (x, dt, A, Bm, Cm, *bufs)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = lib.ssd_launch(*ptrs, B, S, H, P, N, chunk, stream)
+        check(rc == 0, f"CUDA-core SSD launch failed ({rc})")
+    return time_ms(call, batch=5, reps=3, warmup=1)
 
 
 def _profiled(fn):
@@ -1062,49 +1105,78 @@ def phase_model():
         _, xin, dt, A, Bv, Cv, _ = S.ssd_inputs(
             cfg, lp0["mixer"], apply_norm(cfg, lp0["norm1"], x))
         main_args = (xin, dt, A, Bv, Cv)
+        check(ssd_kernel.takes_tensor_cores(xin, Bv, Cv, L),
+              "the prefill's SSD inputs do not take the tensor-core route")
         out["max_abs_err"] = _ssd_check("layer 0 of the prefill", main_args,
                                         L)
         sgen = torch.Generator(dev).manual_seed(7)
         _ssd_check("synthetic", _ssd_synthetic(sgen, Bsz, Slen, H, P, N), L)
-        for name, (b, s_, h, c) in {
-                "pad path (S % chunk != 0)": (Bsz, 1000, H, L),
-                "S < chunk": (Bsz, 100, H, L),
-                "B = 1": (1, 2048, H, L),
-                "one head": (Bsz, 1024, 1, L)}.items():
-            _ssd_check(name, _ssd_synthetic(sgen, b, s_, h, P, N), c)
-        nbytes, macs = _ssd_work(Bsz, Slen, H, P, N, L)
-        out["bytes"], out["macs"] = nbytes, macs
-        out["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
-                              2 * macs / FP32_FLOP_PER_S) * 1e3
-        out["bound_by"] = ("operations" if 2 * macs / FP32_FLOP_PER_S
-                           > nbytes / HBM_BYTES_PER_S else "bytes")
+        for name, (b, s_, h, c, tc) in {
+                "pad path (S % chunk != 0)": (Bsz, 1000, H, L, True),
+                "S < chunk": (Bsz, 100, H, L, False),
+                "B = 1": (1, 2048, H, L, True),
+                "one head": (Bsz, 1024, 1, L, True)}.items():
+            _ssd_check(name, _ssd_synthetic(sgen, b, s_, h, P, N), c, tc)
+        x_, dt_, A_, B_, C_ = _ssd_synthetic(sgen, 2, 2048, H, P, N)
+        _ssd_check("strong decay (dt x 20, A x e^2)",
+                   (x_, dt_ * 20.0, A_ * 7.389056, B_, C_), L)
+        del x_, dt_, A_, B_, C_
+        nbytes, macs, macs_tc = _ssd_work(Bsz, Slen, H, P, N, L)
+        out["bytes"], out["macs"], out["macs_tc"] = nbytes, macs, macs_tc
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        fp32_ops = 2 * macs / FP32_FLOP_PER_S * 1e3
+        tc_ops = 2 * macs_tc / TC_BF16_FLOP_PER_S * 1e3
+        # the bound of the route the path runs: bf16 tensor cores
+        out["bound_ms"] = max(by_bytes, tc_ops)
+        out["bound_by"] = "operations" if tc_ops > by_bytes else "bytes"
+        out["bound_fp32_ms"] = max(by_bytes, fp32_ops)
         out["ms"] = time_ms(lambda: ssd_kernel.ssd_scan(*main_args, chunk=L),
                             batch=10, reps=5)
+        out["cuda_core_ms"] = _ssd_cuda_core_ms(main_args, L)
+        out["ms_again"] = time_ms(
+            lambda: ssd_kernel.ssd_scan(*main_args, chunk=L), batch=10,
+            reps=5)
         out["plain_ms"] = time_ms(lambda: ssd_ref(*main_args), batch=1,
                                   reps=3, warmup=1)
         out["chunked_ms"] = time_ms(lambda: S.ssd_chunked(*main_args, L),
                                     batch=2, reps=3, warmup=1)
-        say(f"[model] ssd kernel at ({Bsz}, {Slen}, {H}, {P}), N {N}, chunk "
-            f"{L}: {out['ms']:.4f} ms a call; plain ssd_ref "
+        say(f"[model] ssd kernels at ({Bsz}, {Slen}, {H}, {P}), N {N}, "
+            f"chunk {L}: tensor-core route {out['ms']:.4f} / "
+            f"{out['ms_again']:.4f} ms a call; CUDA-core route (the earlier "
+            f"design) {out['cuda_core_ms']:.4f} ms; plain ssd_ref "
             f"{out['plain_ms']:.2f} ms; plain ssd_chunked "
-            f"{out['chunked_ms']:.3f} ms; bound {out['bound_ms']:.4f} ms "
-            f"({out['bound_by']}: {nbytes / 1e6:.1f} MB, "
-            f"{2 * macs / 1e9:.2f} GFLOP fp32)")
+            f"{out['chunked_ms']:.3f} ms")
+        notes = [ln for ln in ssd_kernel.LIBRARY.build_log().splitlines()
+                 if "Performance Loss" in ln]
+        out["ptxas_serialization_notes"] = len(notes)
+        say(f"[model] ssd library: {len(notes)} ptxas notes of serialized "
+            f"wgmma (C7512/C7514; listed in phase 1)")
+        say(f"[model] ssd bound: {out['bound_ms']:.4f} ms on the bf16 tensor "
+            f"cores ({out['bound_by']}: {nbytes / 1e6:.1f} MB -> "
+            f"{by_bytes:.4f} ms, {2 * macs_tc / 1e9:.2f} GFLOP with the "
+            f"split products counted twice -> {tc_ops:.4f} ms); "
+            f"{out['bound_fp32_ms']:.4f} ms on the fp32 CUDA cores "
+            f"({2 * macs / 1e9:.2f} GFLOP -> {fp32_ops:.4f} ms)")
         del x, xin, dt, A, Bv, Cv, main_args
 
         # (b) the main path: one prefill of Bsz x Slen tokens on the kernel
         M.forward_prefill(cfg, params, tokens)        # warm-up, not counted
         torch.cuda.synchronize()
         ssd_kernel.ssd_scan.launches = 0
+        ssd_kernel.ssd_scan.launches_tc = 0
         arb_kernel.reset_launch_counts()
         t0 = time.perf_counter()
         logits, _ = M.forward_prefill(cfg, params, tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         out["launches"] = ssd_kernel.ssd_scan.launches
+        out["launches_tc"] = ssd_kernel.ssd_scan.launches_tc
         check(out["launches"] == cfg.num_layers,
               f"prefill launched the SSD kernel {out['launches']} times, "
               f"expected one per layer ({cfg.num_layers})")
+        check(out["launches_tc"] == out["launches"],
+              f"only {out['launches_tc']} of the prefill's {out['launches']} "
+              f"SSD launches took the tensor-core route")
         check(not any(arb_kernel.launch_counts().values()),
               "the prefill launched an arbitration kernel")
         check(logits.shape == (Bsz, cfg.padded_vocab())
@@ -1114,11 +1186,13 @@ def phase_model():
         out["tokens_per_s"] = Bsz * Slen / wall
         say(f"[model] prefill {Bsz} x {Slen} tokens on the kernel: "
             f"{wall * 1e3:.1f} ms, {out['tokens_per_s']:.0f} tokens/s; "
-            f"ssd_scan launches {out['launches']}")
+            f"ssd_scan launches {out['launches']}, {out['launches_tc']} on the "
+            f"tensor cores")
         _, pwall, ev = _profiled(lambda: M.forward_prefill(cfg, params,
                                                            tokens))
         busy = sum(e[2] for e in ev)
         dev_us = 0.0
+        out["device_us_per_kernel"] = {}
         for name in SSD_KERNELS:
             hits = [e for e in ev if name in e[0]]
             check(len(hits) == 1 and hits[0][1] == cfg.num_layers,
@@ -1126,14 +1200,20 @@ def phase_model():
                   f"{[h[1] for h in hits]} times, expected "
                   f"{cfg.num_layers}")
             dev_us += hits[0][2]
+            out["device_us_per_kernel"][name] = hits[0][2] / hits[0][1]
             say(f"[model]   {name}: {hits[0][1]} launches, "
                 f"{hits[0][2] / hits[0][1]:.1f} us each")
+        check(not any(("ssd_" in e[0] and "_kernel" in e[0]
+                       and not any(k in e[0] for k in SSD_KERNELS))
+                      for e in ev),
+              "the prefill launched a CUDA-core SSD kernel")
         out["device_ms_per_launch"] = dev_us / cfg.num_layers / 1e3
         say(f"[model] profiled prefill: {pwall * 1e3:.1f} ms wall, device "
             f"busy {busy / 1e6 / pwall:.4f}, SSD {dev_us / 1e3:.2f} ms of "
             f"{busy / 1e3:.2f} ms device time; "
             f"{out['device_ms_per_launch']:.4f} ms device time per "
-            f"ssd_scan launch")
+            f"ssd_scan launch ({out['device_ms_per_launch'] / out['bound_ms']:.2f}"
+            f"x the tensor-core bound)")
         for us, cnt, key in sorted(((e[2], e[1], e[0]) for e in ev),
                                    reverse=True)[:6]:
             say(f"[model]   {us / 1e3:8.2f} ms {cnt:5d}x {key[:80]}")
@@ -1722,7 +1802,11 @@ def main(argv=None) -> int:
          "ms": model["ms"], "plain_ms": model["plain_ms"],
          "bound_ms": model["bound_ms"], "bound_by": model["bound_by"],
          "library_ms": None,
-         "device_ms_per_launch": model["device_ms_per_launch"]})
+         "device_ms_per_launch": model["device_ms_per_launch"],
+         "launches_tc": model["launches_tc"],
+         "cuda_core_ms": model["cuda_core_ms"],
+         "bound_fp32_ms": model["bound_fp32_ms"],
+         "device_us_per_kernel": model["device_us_per_kernel"]})
     kernels.append(
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/attention/csrc/attention.cu",

@@ -619,33 +619,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver, found through the runtime
-// (the library is not linked against libcuda); null if it is missing
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A contiguous bf16 tensor (batch, seq, heads, inner) as a 4-D map whose
 // box is one head's 128 rows x 64 columns, 128-byte swizzled.
 bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
@@ -656,11 +629,7 @@ bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
                                  (cuuint64_t)heads * inner * 2,
                                  (cuuint64_t)seq * heads * inner * 2};
   const cuuint32_t box[4] = {PANEL, 1, 128, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16_sw128(fn, map, ptr, 4, dims, strides, box);
 }
 
 template <int DP, int DVP>
@@ -684,8 +653,8 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
 
 }  // namespace tc
 
-constexpr int kNoEncoder = -1;   // the driver has no cuTensorMapEncodeTiled
-constexpr int kMapRefused = -2;  // it refused a tensor map
+using hopper::kMapRefused;
+using hopper::kNoEncoder;
 
 }  // namespace
 

@@ -38,7 +38,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.attention.ref import attention_ref
-from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.build import COMMON, CudaLibrary
 
 MAX_HEAD_DIM = 128    # the kernel's register tiles hold 128 columns of v
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,7 +57,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("attention", Path(__file__).resolve().parent / "csrc",
-                      _declare)
+                      _declare, include_dirs=(COMMON,))
 
 
 def _check(q, k, v):

@@ -4,13 +4,17 @@ with ctypes.
 Each library (``arbiter``, ``ssd``, ``attention``) is a
 :class:`CudaLibrary`: a source
 directory whose ``*.cu`` files compile into one shared library with a
-plain C interface (no PyTorch headers), so a build takes seconds. It goes
+plain C interface (no PyTorch headers), so a build takes seconds, with
+headers shared between libraries taken from its include directories
+(``-I``; ``COMMON`` holds ``hopper.cuh``, the Hopper PTX helpers of the
+tensor-core kernels). It goes
 to ``src/repro_torch/kernels/_build/<key>/lib<name>.so``, which
 ``.gitignore`` lists, where ``<key>`` hashes the library's name, every
-file under its ``csrc/`` (the compiled sources and anything they include)
-and the flags: an edited source builds anew, an unchanged one loads the
-existing library. A build that fails raises with nvcc's output; nothing
-falls back to a plain PyTorch version. Two libraries build independently
+file under its ``csrc/`` and under its include directories (the compiled
+sources and anything they include) and the flags: an edited source or
+shared header builds anew, an unchanged one loads the existing library.
+A build that fails raises with nvcc's output; nothing falls back to a
+plain PyTorch version. Two libraries build independently
 (each under its own key), so they can build at the same time.
 """
 from __future__ import annotations
@@ -26,6 +30,7 @@ from pathlib import Path
 from typing import Callable
 
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+COMMON = Path(__file__).resolve().parent / "common"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,12 +48,15 @@ def nvcc() -> str:
 
 
 class CudaLibrary:
-    """The ``*.cu`` files of ``csrc`` as ``lib<name>.so``; ``declare`` sets
-    the C launchers' ``argtypes``/``restype`` on the loaded library."""
+    """The ``*.cu`` files of ``csrc`` as ``lib<name>.so``, with the
+    headers of ``include_dirs`` on the include path; ``declare`` sets the
+    C launchers' ``argtypes``/``restype`` on the loaded library."""
 
     def __init__(self, name: str, csrc: Path,
-                 declare: Callable[[ctypes.CDLL], None]):
+                 declare: Callable[[ctypes.CDLL], None],
+                 include_dirs: tuple[Path, ...] = ()):
         self.name, self.csrc, self.declare = name, Path(csrc), declare
+        self.include_dirs = tuple(Path(d) for d in include_dirs)
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()
 
@@ -58,8 +66,11 @@ class CudaLibrary:
 
     def library_path(self) -> Path:
         h = hashlib.sha256("\0".join((self.name,) + NVCC_FLAGS).encode())
-        for f in sorted(self.csrc.iterdir()):
-            h.update(b"\0" + f.name.encode() + b"\0" + f.read_bytes())
+        # by file name and content, not by path: a checkout elsewhere
+        # keys the same sources alike
+        for i, d in enumerate((self.csrc,) + self.include_dirs):
+            for f in sorted(d.iterdir()):
+                h.update(f"\0{i}\0{f.name}\0".encode() + f.read_bytes())
         return BUILD_ROOT / h.hexdigest()[:16] / f"lib{self.name}.so"
 
     def build_log(self) -> str:
@@ -79,7 +90,8 @@ class CudaLibrary:
         # name
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, self.sources)]
+        cmd = [nvcc(), *NVCC_FLAGS, *(f"-I{d}" for d in self.include_dirs),
+               "-o", tmp, *map(str, self.sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         (lib.parent / "build.log").write_text(
             " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
@@ -101,4 +113,4 @@ class CudaLibrary:
             return self._lib
 
 
-__all__ = ["BUILD_ROOT", "NVCC_FLAGS", "nvcc", "CudaLibrary"]
+__all__ = ["BUILD_ROOT", "COMMON", "NVCC_FLAGS", "nvcc", "CudaLibrary"]

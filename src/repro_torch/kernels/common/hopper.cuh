@@ -1,6 +1,10 @@
-// Hopper (sm_90a) building blocks of the tensor-core attention kernel in
-// attention.cu, in raw PTX: mbarriers, TMA tile loads, and warpgroup
-// matrix multiplies (wgmma) on bf16 operands with fp32 accumulators.
+// Hopper (sm_90a) building blocks of the port's tensor-core kernels
+// (attention/csrc/attention.cu, ssd/csrc/ssd.cu), in raw PTX: mbarriers,
+// TMA tile loads, and warpgroup matrix multiplies (wgmma) on bf16
+// operands with fp32 accumulators; and, on the host, the encoding of
+// TMA's tensor maps. Each library that includes it finds it on the
+// include path that kernels/build.py passes to nvcc, and its build is
+// keyed on this file too.
 //
 // Shared-memory tiles are rows of 64 bf16 (128 bytes) under the 128-byte
 // swizzle that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B): 16-byte chunk c
@@ -11,6 +15,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -86,6 +91,37 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// the same for a 3-D map at (c0, c1, c2)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global memory at `src` into shared memory
+// at `dst` (both 16-byte aligned, bytes a multiple of 16); completes
+// `bytes` of `bar`'s transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// make this thread's ordinary writes to shared memory visible to the
+// async proxy (wgmma operands and TMA), before a barrier that hands them on
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // -------------------------------------------------------------- wgmma ----
 
 // Descriptor of a 128B-swizzled operand at shared address `addr`
@@ -110,6 +146,12 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N committed groups are pending (groups complete in
+// the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // keep the compiler from moving reads or writes of registers that an
 // in-flight wgmma owns across the wait
@@ -120,10 +162,14 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
 }
 
 // The m64nNk16 shapes used (operand lists written out: wgmma names every
-// accumulator register).
+// accumulator register). TA / TB set the transpose bits of operands read
+// from shared memory: 0 for K-major, 1 for MN-major (rows along K with M
+// or N contiguous).
 
-// d[0:64] = (scale_d ? d : 0) + A B^T: A 64 x 16 and B 128 x 16, both
-// K-major in shared memory (descriptors da, db).
+// d[0:64] = (scale_d ? d : 0) + A B: A 64 x 16 and B 16 x 128 in shared
+// memory (descriptors da, db); with TA = TB = 0 both K-major, so B's rows
+// are its 128 columns and the product is A B^T of the stored tiles.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -135,7 +181,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
@@ -150,6 +196,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[0:32] = (scale_d ? d : 0) + A B^T: A 64 x 16 and B 64 x 16, both
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -206,6 +274,55 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------ tensor maps (host) ----
+
+constexpr int kNoEncoder = -1;   // the driver has no cuTensorMapEncodeTiled
+constexpr int kMapRefused = -2;  // it refused a tensor map
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver, found through the runtime
+// (the libraries are not linked against libcuda); null if it is missing
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous bf16 tensor of `rank` dimensions (dims innermost first,
+// byte strides of dimensions 1.. in `strides`) as a map whose box `box`
+// lands 128-byte swizzled (box[0] is 64: one 128-byte row); elements
+// outside the tensor arrive as zeros.
+inline bool encode_bf16_sw128(EncodeTiled fn, CUtensorMap* map,
+                              const void* ptr, int rank,
+                              const cuuint64_t* dims,
+                              const cuuint64_t* strides,
+                              const cuuint32_t* box) {
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

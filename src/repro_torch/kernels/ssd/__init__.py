@@ -1,4 +1,5 @@
 """Mamba2 SSD (state-space duality) chunk scan: the hand-written CUDA
-kernel (``csrc/ssd.cu``, wrapper ``kernel.ssd_scan``), its plain PyTorch
-version (``ref.ssd_ref``) and the padding entry point the model calls
+kernels (``csrc/ssd.cu``: a tensor-core route and a CUDA-core one,
+wrapper ``kernel.ssd_scan``), their plain PyTorch version
+(``ref.ssd_ref``) and the padding entry point the model calls
 (``ops.ssd``)."""

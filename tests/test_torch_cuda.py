@@ -339,7 +339,15 @@ SSD_KERNEL_CASES = SSD_CASES + [
     (2, 350, 2, 80, 160, 100),    # P > 64, N > 128, chunk not /64; pad
     (1, 70, 1, 8, 16, 256),       # S < chunk: one chunk of 70
     (2, 40, 16, 8, 16, 8),        # the reduced model's SSD shape
+    (4, 4096, 24, 64, 128, 256),  # the model's full-width prefill
+    (2, 500, 3, 40, 128, 128),    # P < one panel; pad
 ]
+
+# the cases the tensor-core route takes (kernel.takes_tensor_cores: chunk
+# a multiple of 64 up to 256, P a multiple of 8 up to 64, N 128); every
+# other case runs the CUDA-core kernels
+SSD_TC_CASES = {(1, 1024, 3, 64, 128, 256), (4, 4096, 24, 64, 128, 256),
+                (2, 500, 3, 40, 128, 128)}
 
 # fp32 throughout; the chunked and the sequential forms differ only in
 # summation order (~1e-4 absolute at |y| ~ 90, S = 1024-2048, measured
@@ -373,19 +381,87 @@ def _ssd_tensors(arrays, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", SSD_KERNEL_CASES)
 def test_ssd_kernel_matches_plain(cuda, case):
+    """``ops.ssd`` (pad path included) launches the kernels once, on the
+    route ``SSD_TC_CASES`` names (the counters say which), and matches
+    ``ssd_ref``."""
     from repro_torch.kernels.ssd import kernel as ssd_kernel, ops
     from repro_torch.kernels.ssd.ref import ssd_ref
     B, S, H, P, N, chunk = case
     args = _ssd_tensors(_ssd_inputs(B, S, H, P, N, 7, bf16=True), cuda)
-    before = ssd_kernel.ssd_scan.launches
+    scan = ssd_kernel.ssd_scan
+    before, before_tc = scan.launches, scan.launches_tc
     y, fs = ops.ssd(*args, chunk=chunk)
     yr, fr = ssd_ref(*args)
     torch.cuda.synchronize()
-    assert ssd_kernel.ssd_scan.launches == before + 1
+    assert (scan.launches - before, scan.launches_tc - before_tc) \
+        == (1, int(case in SSD_TC_CASES))
     assert y.shape == yr.shape and fs.shape == fr.shape
     assert y.dtype == fs.dtype == torch.float32
     torch.testing.assert_close(y, yr, atol=SSD_ATOL, rtol=SSD_RTOL)
     torch.testing.assert_close(fs, fr, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 512, 2, 64, 128, 256),
+                                  (2, 96, 2, 8, 16, 32)])
+@pytest.mark.parametrize("dt_scale,a_mu", [(20.0, 2.0), (200.0, 4.0)])
+def test_ssd_kernel_strong_decay(cuda, case, dt_scale, a_mu):
+    """Large dt and strongly negative A (cums far below -1e3 within a
+    chunk): exp(cums_i) and exp(cums_L - cums_l) underflow to 0 on both
+    routes (the first case takes the tensor cores, the second the CUDA
+    cores), nothing overflows, and the kernels match ``ssd_ref``."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    B, S, H, P, N, chunk = case
+    x, dt, A, Bm, Cm = _ssd_tensors(_ssd_inputs(B, S, H, P, N, 3, bf16=True),
+                                    cuda)
+    dt, A = dt * dt_scale, A * float(np.exp(a_mu))
+    assert float(torch.cumsum(dt[0, :chunk, 0] * A[0], 0)[-1]) < -1e3
+    n_tc = ssd_kernel.ssd_scan.launches_tc
+    y, fs = ssd_kernel.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    yr, fr = ssd_ref(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_scan.launches_tc - n_tc == int(P == 64)
+    assert torch.isfinite(y).all() and torch.isfinite(fs).all()
+    torch.testing.assert_close(y, yr, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(fs, fr, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+@pytest.mark.gpu
+def test_ssd_route_is_stable(cuda):
+    """A tensor-core input takes the tensor cores on every call, with new
+    data too, and gives the same bits for the same data; the same data
+    with Bm starting 2 bytes past a 16-byte boundary takes the CUDA-core
+    kernels by the rule, and every call matches ``ssd_ref``."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    scan = ssd_kernel.ssd_scan
+    first = None
+    for seed in (1, 1, 2):
+        args = _ssd_tensors(_ssd_inputs(1, 512, 3, 64, 128, seed, bf16=True),
+                            cuda)
+        assert ssd_kernel.takes_tensor_cores(args[0], args[3], args[4], 256)
+        n, n_tc = scan.launches, scan.launches_tc
+        y, fs = scan(*args, chunk=256)
+        torch.cuda.synchronize()
+        assert (scan.launches - n, scan.launches_tc - n_tc) == (1, 1)
+        yr, fr = ssd_ref(*args)
+        torch.testing.assert_close(y, yr, atol=SSD_ATOL, rtol=SSD_RTOL)
+        torch.testing.assert_close(fs, fr, atol=SSD_ATOL, rtol=SSD_RTOL)
+        if first is None:
+            first = (y, fs)
+        elif seed == 1:
+            assert torch.equal(y, first[0]) and torch.equal(fs, first[1])
+    x, dt, A, Bm, Cm = args
+    Bm = _misaligned(Bm)
+    assert Bm.data_ptr() % 16 == 2
+    assert not ssd_kernel.takes_tensor_cores(x, Bm, Cm, 256)
+    n, n_tc = scan.launches, scan.launches_tc
+    y2, fs2 = scan(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    assert (scan.launches - n, scan.launches_tc - n_tc) == (1, 0)
+    torch.testing.assert_close(y2, yr, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(fs2, fr, atol=SSD_ATOL, rtol=SSD_RTOL)
 
 
 @pytest.mark.gpu
@@ -509,6 +585,30 @@ def test_attention_kernel_matches_plain(cuda, case):
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(out.cpu().float(), ref.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.gpu
+def test_attention_kernel_repeats_exactly(cuda):
+    """The CUDA-core kernel on ``ATTN_CASES[0]`` (1 x 64 x 64, 4 heads, d
+    32, causal, fp32, through ``ops.attention`` with 32-row blocks) 200
+    times: every output within 2e-5 of ``attention_ref`` in float64 and
+    bit-identical to the first (a race between its barriers would show
+    as an occasional mismatch)."""
+    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    B, Sq, Skv, H, KV, d, causal, window, dtype = ATTN_CASES[0]
+    q, k, v = _attn_tensors(_attn_inputs(B, Sq, Skv, H, KV, d, 42), dtype,
+                            cuda)
+    ref = attention_ref(q.double(), k.double(), v.double(), causal=causal,
+                        window=window)
+    first = None
+    for _ in range(200):
+        out = ops.attention(q, k, v, causal=causal, window=window,
+                            block_q=32, block_kv=32)
+        torch.testing.assert_close(out.double(), ref, atol=2e-5, rtol=2e-5)
+        if first is None:
+            first = out
+        assert torch.equal(out, first)
 
 
 @pytest.mark.gpu

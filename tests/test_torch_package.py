@@ -172,6 +172,38 @@ def test_one_builder_two_libraries():
         assert path.name == f"lib{name}.so"
     assert len({p.parent for p in paths}) == 3
     assert build.library_path() == paths[0]
+    # the tensor-core libraries include the shared Hopper header
+    assert ssd_kernel.LIBRARY.include_dirs == (builder.COMMON,)
+    assert attn_kernel.LIBRARY.include_dirs == (builder.COMMON,)
+    assert (builder.COMMON / "hopper.cuh").is_file()
+    assert not list(builder.COMMON.glob("*.cu"))
+
+
+@pytest.mark.parametrize("edit", ["hopper.cuh", "ssd.cu", "attention.cu"])
+def test_shared_header_keys_both_libraries(tmp_path, edit):
+    """An edit of the shared header changes both tensor-core libraries'
+    keys (each rebuilds); an edit of one library's source changes its own
+    key only. Keys depend on file names and contents, not on where the
+    checkout lies."""
+    import shutil
+    from repro_torch.kernels import build as builder
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    common = shutil.copytree(builder.COMMON, tmp_path / "common")
+    libs = {}
+    for name, mod in (("ssd", ssd_kernel), ("attention", attn_kernel)):
+        csrc = shutil.copytree(mod.LIBRARY.csrc, tmp_path / name / "csrc")
+        libs[name] = builder.CudaLibrary(name, csrc, mod._declare,
+                                         include_dirs=(common,))
+        assert libs[name].library_path() == mod.LIBRARY.library_path()
+    before = {n: lib.library_path() for n, lib in libs.items()}
+    target = {"hopper.cuh": common, "ssd.cu": libs["ssd"].csrc,
+              "attention.cu": libs["attention"].csrc}[edit] / edit
+    target.write_text(target.read_text() + "\n// edited\n")
+    after = {n: lib.library_path() for n, lib in libs.items()}
+    changed = {n for n in libs if after[n] != before[n]}
+    assert changed == ({"ssd", "attention"} if edit == "hopper.cuh"
+                       else {edit.removesuffix(".cu")})
 
 
 def test_ssd_wrapper_rejects_other_devices():
