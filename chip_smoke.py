@@ -12,18 +12,29 @@ result line:
            ``kernels/attention/csrc/attention.cu`` for sm_90a, started
            together, and their times
 2. kernels each hand-written kernel against its plain PyTorch version on
-           the card — full-width shapes of the main path, ragged shapes,
-           empty rows, ties (across the one-pass top-K's threads and
-           warps too), M < K (with keys of NEG and below too), K at and
-           past the one-pass cap (the rounds routine past 8, checked by
-           its counter); the fused
+           the card — full-width shapes of the main path (and the
+           arbiter's at the B = 12 staged sweep's 1728 rows), ragged
+           shapes, empty rows, ties (across the one-pass top-K's threads
+           and warps too), the arbiter's edge rows (negative values,
+           eligible (BIG, BIG) entries, winners with seq BIG and above,
+           rings starting off 16-byte boundaries) at every layout of the
+           staged arbiter, M < K (with keys of NEG and below too), K at
+           and past the one-pass cap (the rounds routine past 8, checked
+           by its counter); the fused
            kernel at all 7 stage subsets, single and batched (B = 1, 4,
            12), and at B = 12 with every ring row empty — requiring exact
            equality; then each kernel's time beside the plain version's
            and the library call's (CUDA events, median of repeated
            batches), and its device time per launch from the profiler
            (for the top-K also ``torch.topk``'s and the stable
-           ``torch.sort``'s device time per call)
+           ``torch.sort``'s device time per call); for the arbiter, at
+           (144, 1024), (144, 512), (1728, 1024) and (1728, 512), every
+           layout and the earlier scalar kernel in turns in one profiler
+           window, with the launch floor (a ``zero_()`` of 144 int32)
+           and ``torch.argmin`` of (prio, seq) packed into one int64 (the
+           yardstick; the packing not counted); for the fused kernel its
+           ring rows on the new routine and on the earlier scalar one, in
+           turns
 3. goldens ``tests/golden/fabric_disabled.json`` and ``fabric_enabled.json``
            replayed for all six protocols on the staged (``cuda``) and the
            fused kernel backend, bit-exact
@@ -48,8 +59,10 @@ result line:
            (loads 0.5/0.7/0.8 x seeds 0-3) as one batch through
            ``run_sweep`` on the fused and the staged backend: every integer
            of the streaming statistics identical, one
-           ``fused_slot_batch`` launch per slot; (c) a profiled window of
-           that batch from slot 1000 beside phase 5's single run
+           ``fused_slot_batch`` launch per slot; (c) profiled windows of
+           that batch from slot 1000 on both backends (the staged one
+           runs the arbiter on (1728, 1024) and (1728, 512)) beside phase
+           5's single run
 7. model   Mamba2-130m inference at full width (24 layers, d_model 768,
            H 24, P 64, N 128, chunk 256; random weights from a seed):
            (a) the SSD chunk-scan kernels (``csrc/ssd.cu``) against their
@@ -271,9 +284,15 @@ def _arb_cases(rng):
     cases = {}
     for name, (H, cap) in {"down 144x1024": (144, 1024),
                            "up 144x512": (144, 512),
+                           "B=12 down 1728x1024": (1728, 1024),
+                           "B=12 up 1728x512": (1728, 512),
                            "ragged 13x1000": (13, 1000),
                            "ragged 5x33": (5, 33)}.items():
         cases[name] = _arb_inputs(rng, H, cap)
+    for H, cap in ((8, 1027), (144, 1024), (6, 1)):
+        for offset in (0, 1, 3):
+            cases[f"edge rows {H}x{cap} at +{offset} columns"] = \
+                _arb_edge_inputs(rng, H, cap, offset)
     # the ring state as the simulator holds it: empty slots carry BIG
     p, s, e = _arb_inputs(rng, 144, 1024, p_elig=0.02)
     cases["sparse with BIG slots"] = (torch.where(e, p, BIG),
@@ -287,6 +306,87 @@ def _arb_cases(rng):
     cases["all equal, all eligible"] = (p, p.clone(),
                                         torch.ones_like(p, dtype=torch.bool))
     return cases
+
+
+def _arb_edge_inputs(rng, H, cap, offset=0):
+    """Rings that reach every branch of the row routine (H >= 6 rows):
+    negative values and eligible (BIG, BIG) entries; row 0 empty; row 1 a
+    tie at columns of different threads and warps; row 2 a winner with
+    seq BIG (the plain version answers column 0); row 3 a winner with seq
+    above BIG after an entry of its prio with a larger seq; row 4 every
+    entry (INT_MAX, INT_MAX). Row 1's lowest tied column lies in a later
+    warp than a higher one. Each operand starts ``offset`` columns past
+    its 16-byte boundary (a scalar head and tail in every row)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.arbiter.ref import BIG
+    prio = rng.integers(-3, 8, (H, cap)).astype(np.int64)
+    seq = rng.integers(-50, 20000, (H, cap)).astype(np.int64)
+    elig = rng.random((H, cap)) < 0.5
+    prio[:, ::5], seq[:, ::5], elig[:, ::5] = BIG, BIG, True
+    elig[0] = False
+    cols = [c for c in (130, 200, 600, 1025, cap - 1) if c < cap]
+    prio[1, cols], seq[1, cols], elig[1, cols] = -4, -60, True
+    w = cap // 2
+    prio[2] = np.maximum(prio[2], 0)
+    prio[2, w], seq[2, w], elig[2, w] = -5, BIG, True
+    prio[3, w], seq[3, w], elig[3, w] = -5, BIG + 7, True
+    prio[3, 0], seq[3, 0], elig[3, 0] = -5, BIG + 9, True
+    prio[4], seq[4], elig[4] = 2 ** 31 - 1, 2 ** 31 - 1, True
+    out = []
+    for a in (prio.astype(np.int32), seq.astype(np.int32), elig):
+        t = torch.from_numpy(a).to(DEVICE)
+        buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=DEVICE)
+        v = buf[offset:offset + t.numel()].view(t.shape)
+        v.copy_(t)
+        out.append(v)
+    return tuple(out)
+
+
+def _arb_launch(lib, args, out, nt, g):
+    """The staged arbiter's library entry at a layout (nt threads a row,
+    g rows a block; nt 0: the earlier scalar kernel), uncounted."""
+    import torch
+    H, cap = args[0].shape
+    rc = lib.arbiter_priority_launch(
+        *(t.data_ptr() for t in (*args, *out)), H, cap, nt, g,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"arbiter layout {nt} x {g} launch failed ({rc})")
+
+
+def _arb_name(nt, g) -> str:
+    """The profiler's name of the staged arbiter at a layout, spaces
+    removed."""
+    return ("priority_arbiter_scalar_kernel" if nt == 0
+            else f"priority_arbiter_kernel<{nt},{g}>")
+
+
+def _fused_launch(lib, d, u, keys, K, B, scalar_rows):
+    """One fused launch through the library (uncounted), on the arbiter's
+    new row routine or (``scalar_rows``) the earlier scalar one: for
+    timing the two."""
+    import torch
+    lead = (B,)
+    bufs, args = [], []
+    for st in (d, u):
+        R = st[0].shape[-2]
+        bp = torch.empty(lead + (R,), dtype=torch.int32, device=DEVICE)
+        bi = torch.empty_like(bp)
+        bufs += [bp, bi]
+        args += [t.data_ptr() for t in (*st, bp, bi)] + list(st[0].shape[-2:])
+    H2, M = keys.shape[-2:]
+    vals = torch.empty(lead + (H2, K), dtype=torch.int32, device=DEVICE)
+    idx = torch.empty_like(vals)
+    args += [keys.data_ptr(), vals.data_ptr(), idx.data_ptr(), H2, M, K]
+
+    outs = (*bufs, vals, idx)     # alive as long as the call
+
+    def call():
+        rc = lib.arbiter_fused_launch(
+            *args, 8, B, int(scalar_rows),
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0 and len(outs) == 6, f"fused launch failed ({rc})")
+    return call
 
 
 def _topk_cases(rng):
@@ -472,11 +572,80 @@ def _device_ms(fn, name=None, n=50) -> float:
     return us / 1e3
 
 
+def _device_ms_each(calls: dict, n=50) -> dict:
+    """Device time per call, in ms, of several calls timed in turns in
+    one profiler window: ``calls`` maps a label to (fn, the name of the
+    one kernel fn launches, spaces removed); each must be recorded n
+    times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for fn, _ in calls.values():
+        for _ in range(5):
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(n):
+            for fn, _ in calls.values():
+                fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for label, (_, name) in calls.items():
+        hits = [e for e in kern if name in e.key.replace(" ", "")]
+        check(len(hits) == 1 and hits[0].count == n,
+              f"profiler: {[(e.key[:80], e.count) for e in kern]}: "
+              f"expected {name} launched {n} times")
+        out[label] = hits[0].device_time_total / n / 1e3
+    return out
+
+
+ARB_SHAPES = ((144, 1024), (144, 512), (1728, 1024), (1728, 512))
+
+
+def _arb_times(lib, rng) -> dict:
+    """At each of ARB_SHAPES (B = 1's down and up rings, the B = 12
+    staged sweep's), the staged arbiter's device time per launch at every
+    layout and the earlier scalar kernel, in turns in one profiler window,
+    with the
+    launch floor (a ``zero_()`` of 144 int32) in the first; then
+    ``torch.argmin`` of the packed key (the yardstick) and the byte
+    bound."""
+    import torch
+    from repro_torch.kernels.arbiter import kernel
+    from repro_torch.kernels.arbiter.ref import BIG
+    zero = torch.zeros(144, dtype=torch.int32, device=DEVICE)
+    out = {}
+    for H, cap in ARB_SHAPES:
+        args = _arb_inputs(rng, H, cap)
+        res = tuple(torch.empty(H, dtype=torch.int32, device=DEVICE)
+                    for _ in range(2))
+        calls = {(f"{nt}x{g}" if nt else "scalar"):
+                 (lambda nt=nt, g=g: _arb_launch(lib, args, res, nt, g),
+                  _arb_name(nt, g))
+                 for nt, g in ((0, 1),) + kernel.ARB_LAYOUTS}
+        if not out:
+            calls["floor"] = (zero.zero_, "FillFunctor")
+        t = _device_ms_each(calls)
+        p, s, e = args
+        key = torch.where(e, (p.long() << 32) | s.long(), (BIG << 32) | BIG)
+        t["argmin"] = _device_ms(lambda: torch.argmin(key, dim=1))
+        t["bound_ms"] = (H * cap * 9 + 2 * H * 4) / HBM_BYTES_PER_S * 1e3
+        t["rule"] = "{}x{}".format(*kernel.ARB_LAYOUT)
+        out[f"{H}x{cap}"] = t
+        say(f"[kernels] priority_arbiter {H}x{cap} device ms/launch: "
+            + ", ".join(f"{k} {v!r}" for k, v in t.items()))
+    return out
+
+
 def phase_kernels():
     import numpy as np
     import torch
-    from repro_torch.kernels.arbiter import kernel
-    from repro_torch.kernels.arbiter.ref import (fused_slot_ref,
+    from repro_torch.kernels.arbiter import build, kernel
+    from repro_torch.kernels.arbiter.ref import (BIG, fused_slot_ref,
                                                  priority_arbiter_ref,
                                                  srpt_topk_ref)
     rng = np.random.default_rng(0)
@@ -490,6 +659,28 @@ def phase_kernels():
             err["priority_arbiter"] = max(err["priority_arbiter"],
                                           _max_err(g, w))
         say(f"[kernels] priority_arbiter == plain: {name}")
+    # every layout of the staged kernel, and the earlier scalar kernel on the
+    # Pallas kernel's contract: the designs phase 2 times below
+    lib = build.load_library()
+    for H, cap in ARB_SHAPES + ((8, 1027),):
+        ins = {"random": _arb_inputs(rng, H, cap)}
+        if H >= 6:
+            ins["edge rows"] = _arb_edge_inputs(rng, H, cap, 1)
+        for what, args in ins.items():
+            want = priority_arbiter_ref(*args)
+            for nt, g in ((0, 1),) + kernel.ARB_LAYOUTS:
+                if nt == 0 and what == "edge rows":
+                    continue
+                out = tuple(torch.empty(H, dtype=torch.int32, device=DEVICE)
+                            for _ in range(2))
+                _arb_launch(lib, args, out, nt, g)
+                torch.cuda.synchronize()
+                check(all(torch.equal(o, w) for o, w in zip(out, want)),
+                      f"priority_arbiter layout {nt} x {g} differs: {what} "
+                      f"{H}x{cap}")
+        say(f"[kernels] priority_arbiter layouts {kernel.ARB_LAYOUTS} and "
+            f"the earlier scalar kernel == plain: {H}x{cap}, random and edge "
+            f"rows")
     for name, (keys, K) in _topk_cases(rng).items():
         rounds = kernel.srpt_topk.launches_rounds
         got = kernel.srpt_topk(keys, K)
@@ -522,15 +713,24 @@ def phase_kernels():
     p, s, e = _arb_inputs(rng, 144, 1024)
     up = _arb_inputs(rng, 144, 512)
     H, cap = p.shape
+    # the library yardstick: argmin of (prio, seq) packed beforehand into
+    # one int64 (the packing not counted); argmin's first minimum is the
+    # tie rule, and it gives the same winner on these inputs
+    key = torch.where(e, (p.long() << 32) | s.long(), (BIG << 32) | BIG)
     perf["priority_arbiter"] = dict(
         shape=f"({H}, {cap}) int32 x2 + bool",
         ms=time_ms(lambda: kernel.priority_arbiter(p, s, e)),
         plain_ms=time_ms(lambda: priority_arbiter_ref(p, s, e)),
-        library_ms=None,
+        library_ms=time_ms(lambda: torch.argmin(key, dim=1)),
         bound_ms=(H * cap * 9 + 2 * H * 4) / HBM_BYTES_PER_S * 1e3,
         up_ms=time_ms(lambda: kernel.priority_arbiter(*up)),
         up_plain_ms=time_ms(lambda: priority_arbiter_ref(*up)),
-        up_bound_ms=(144 * 512 * 9 + 2 * 144 * 4) / HBM_BYTES_PER_S * 1e3)
+        up_bound_ms=(144 * 512 * 9 + 2 * 144 * 4) / HBM_BYTES_PER_S * 1e3,
+        by_shape=_arb_times(lib, rng))
+    main = perf["priority_arbiter"]["by_shape"]["{}x{}".format(
+        *ARB_SHAPES[0])]
+    perf["priority_arbiter"].update(floor_ms=main["floor"],
+                                    library_device_ms=main["argmin"])
     keys = _topk_keys(rng, 144, 8000, p_pos=0.01)
     K = 7
     H, M = keys.shape
@@ -550,6 +750,8 @@ def phase_kernels():
                                                      stable=True)))
     perf["priority_arbiter"]["device_ms"] = _device_ms(
         lambda: kernel.priority_arbiter(p, s, e), "priority_arbiter_kernel")
+    perf["priority_arbiter"]["up_device_ms"] = _device_ms(
+        lambda: kernel.priority_arbiter(*up), "priority_arbiter_kernel")
     f = MAIN_FUSED
     for fn, B in (("fused_slot", None), ("fused_slot_batch", 12)):
         d, u, keys = _fused_inputs(rng, "down,up,topk", B, f["H"], f["cap"],
@@ -566,6 +768,15 @@ def phase_kernels():
             bound_ms=nb * _fused_bytes(**f) / HBM_BYTES_PER_S * 1e3,
             device_ms=_device_ms(lambda: run(d, u, keys, K=f["K"]),
                                  "fused_slot_kernel"))
+        # the ring rows on the new routine and on the earlier scalar one,
+        # in turns
+        rows = _device_ms_each({
+            "new": (_fused_launch(lib, d, u, keys, f["K"], nb, False),
+                    "fused_slot_kernel<8,false>"),
+            "scalar": (_fused_launch(lib, d, u, keys, f["K"], nb, True),
+                     "fused_slot_kernel<8,true>")})
+        perf[fn].update(device_ms_rows_new=rows["new"],
+                        device_ms_rows_scalar=rows["scalar"])
     for name, d in perf.items():
         say(f"[kernels] {name} {d['shape']}: "
             + ", ".join(f"{k}={v!r}" for k, v in d.items() if k != "shape"))
@@ -932,13 +1143,19 @@ def phase_sweep():
     st = run_slots(cfg, proto, S, _init_state(cfg, proto, S["size"].shape[1],
                                               B),
                    n_sched, 0, SWEEP_WINDOW_START)
-    w = _windows({"fused": cfg}, S, st, n_sched, SWEEP_WINDOW_START,
-                 WINDOW_SLOTS, f"sweep B={B}")["fused"]
+    ws = _windows({"fused": cfg, "cuda": _sweep_config("cuda")}, S, st,
+                  n_sched, SWEEP_WINDOW_START, WINDOW_SLOTS, f"sweep B={B}")
+    w = ws["fused"]
     # fused_slot_batch launches the same fused_slot_kernel
     check("fused_slot" in w["per_launch_ms"],
           "profiler shows no device time for the batched fused kernel")
     w["per_launch_ms"]["fused_slot_batch"] = \
         w["per_launch_ms"].pop("fused_slot")
+    # the staged kernels on the whole batch: the arbiter at (1728, 1024)
+    # and (1728, 512), two launches a slot
+    check("priority_arbiter" in ws["cuda"]["per_launch_ms"],
+          "profiler shows no device time for the staged arbiter at B = 12")
+    w["cuda"] = ws["cuda"]
     return (dict(launches["fused"], rounds=rounds["fused"]), w,
             {b: B * SWEEP_SLOTS / wall[b] for b in wall})
 
@@ -1061,10 +1278,12 @@ def _profiled(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        r = fn()
+        time.sleep(0.05)     # idle trace around the launches, as in
+        t0 = time.perf_counter()    # _device_ms: windows lost launches
+        r = fn()                    # without it (phase 8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(0.05)
     ev = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA]
     return r, wall, ev
@@ -1746,11 +1965,19 @@ def main(argv=None) -> int:
                                res["llama"])
     say(f"[summary] runs*slots/s: B=1 cuda {full_rate:.1f}; B=12 "
         + ", ".join(f"{b} {r:.1f}" for b, r in sweep_rate.items()))
+    sweep_cuda = sweep_window["cuda"]
     say(f"[summary] ms/slot (device busy): B=1 cuda "
         f"{window['cuda']['ms_per_slot']:.3f} ({window['cuda']['busy']:.4f}),"
         f" B=1 fused {window['fused']['ms_per_slot']:.3f} "
         f"({window['fused']['busy']:.4f}), B=12 fused "
-        f"{sweep_window['ms_per_slot']:.3f} ({sweep_window['busy']:.4f})")
+        f"{sweep_window['ms_per_slot']:.3f} ({sweep_window['busy']:.4f}), "
+        f"B=12 cuda {sweep_cuda['ms_per_slot']:.3f} "
+        f"({sweep_cuda['busy']:.4f})")
+    say(f"[summary] device us/slot: B=1 cuda "
+        f"{window['cuda']['device_us_per_slot']:.1f}, B=1 fused "
+        f"{window['fused']['device_us_per_slot']:.1f}, B=12 fused "
+        f"{sweep_window['device_us_per_slot']:.1f}, B=12 cuda "
+        f"{sweep_cuda['device_us_per_slot']:.1f}")
     say(f"[summary] mamba2-130m: prefill {model['tokens_per_s']:.0f} "
         f"tokens/s (4 x 4096), serve {model['decode_steps_per_s']:.1f} "
         f"decode steps/s (batch 4)")
@@ -1792,7 +2019,17 @@ def main(argv=None) -> int:
          **({"launches_rounds": rounds[name]} if name in rounds else {}),
          **({"library_device_ms": perf[name]["library_device_ms"],
              "sort_device_ms": perf[name]["sort_device_ms"]}
-            if name == "srpt_topk" else {})}
+            if name == "srpt_topk" else {}),
+         **({"device_ms_b12": sweep_cuda["per_launch_ms"]
+             ["priority_arbiter"],
+             "floor_ms": perf[name]["floor_ms"],
+             "library_device_ms": perf[name]["library_device_ms"],
+             "up_device_ms": perf[name]["up_device_ms"],
+             "device_ms_by_shape": perf[name]["by_shape"]}
+            if name == "priority_arbiter" else {}),
+         **({"device_ms_rows_new": perf[name]["device_ms_rows_new"],
+             "device_ms_rows_scalar": perf[name]["device_ms_rows_scalar"]}
+            if name.startswith("fused") else {})}
         for name, (rep, n, dev_ms) in rows.items()]
     kernels.append(
         {"name": "ssd_scan", "route": "cuda",

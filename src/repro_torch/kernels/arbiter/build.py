@@ -12,14 +12,14 @@ from repro_torch.kernels.build import (BUILD_ROOT, NVCC_FLAGS,  # noqa: F401
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.arbiter_priority_launch.argtypes = [ptr, ptr, ptr, ptr, ptr,
-                                            i32, i32, ptr]
+                                            i32, i32, i32, i32, ptr]
     lib.arbiter_priority_launch.restype = i32
     lib.arbiter_topk_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
                                         ptr]
     lib.arbiter_topk_launch.restype = i32
     lib.arbiter_fused_launch.argtypes = ([ptr] * 5 + [i32] * 2
                                          + [ptr] * 5 + [i32] * 2
-                                         + [ptr] * 3 + [i32] * 5 + [ptr])
+                                         + [ptr] * 3 + [i32] * 6 + [ptr])
     lib.arbiter_fused_launch.restype = i32
     lib.arbiter_error_string.argtypes = [i32]
     lib.arbiter_error_string.restype = ctypes.c_char_p

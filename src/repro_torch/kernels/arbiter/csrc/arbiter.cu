@@ -9,11 +9,11 @@
 //                               fused_slot_batch (_fused_kernel)
 //
 // All are integer row reductions. The per-row bodies are the __device__
-// routines arb_rows (a group of ring rows per block) and topk_row (one
-// top-K row per block); the staged kernels run one of them on every row,
-// and the fused kernel runs all of a slot's rows in one launch. None keeps
-// the TPU's (8, 128) tiles or its padding: ragged widths are handled by
-// the loop bounds.
+// routines arb_rows (one or a group of ring rows per block) and topk_row
+// (one top-K row per block); the staged kernels run one of them on every
+// row, and the fused kernel runs all of a slot's rows in one launch. None
+// keeps the TPU's (8, 128) tiles or its padding: ragged widths are
+// handled by the loop bounds.
 //
 // What bounds them on an H100: the bytes each row reads (prio + seq + elig
 // = 9 B per ring slot, 4 B per key) against the 3.35 TB/s of HBM, and at
@@ -26,6 +26,15 @@
 //     the block without reading the row again (one pass; the round-based
 //     routine it replaced, kept as topk_row_rounds for a K above 8, makes
 //     K passes);
+//   - arb_rows reads prio, seq and elig in 16-, 16- and 4-byte units
+//     that a thread issues together, keeps its best entry in one packed
+//     u64 order (prio above seq) and reduces across the warp with three
+//     hardware reductions (__reduce_min_sync) instead of shuffles and
+//     compare chains; the earlier scalar routine, kept as
+//     arb_rows_scalar for timing only, made two dependent scalar loads
+//     a column and 15 shuffles a warp. At 144 rows a launch is
+//     latency, not bytes: the launch of the blocks, one round trip of
+//     loads, then the reductions (PERF.md);
 //   - the fused kernel gives a block either one top-K row or a group of
 //     ring rows of about the same bytes, so no block of the launch reads
 //     much more than another.
@@ -54,17 +63,228 @@ typedef unsigned long long u64;
 
 // ------------------------------------------------------------ ring rows --
 
-// Lexicographic (prio, seq, col) order: smaller wins, ties to the lowest
-// column. The three fields are compared one by one: prio and seq each
-// reach 2**30, so they do not pack into one 64-bit key with the column.
-// Carrying the column makes the result independent of the order in which
-// the threads see their columns.
+// The function (kernels/arbiter/ref.py priority_arbiter_ref): with an
+// ineligible entry read as (BIG, BIG), a row's best_prio is its smallest
+// prio p*, and best_idx the first column of the smallest seq among the
+// entries whose prio is p*, every other entry counting as seq BIG there.
+// So best_idx is the lexicographic argmin over (prio, seq), ties to the
+// lowest column, unless that winner's seq s* is BIG or more: then the
+// entries of other prios, and those of prio p* with seq BIG, tie with it
+// at BIG, and best_idx is the first column that is not (p*, seq above
+// BIG) -- column 0 when no seq of the row exceeds BIG, always so in an
+// empty row, which gives (BIG, 0) -- or the winner's own column when
+// every column is.
+//
+// One packed order for (prio, seq): each half sign-flipped, so that
+// unsigned order is signed order, prio above seq; smaller wins. An
+// ineligible entry packs to exactly (BIG, BIG), no larger sentinel, so
+// that it ties with an eligible (BIG, BIG) as above.
+__device__ __forceinline__ u64 arb_pack(int p, int s) {
+  return (static_cast<u64>(static_cast<unsigned>(p) ^ 0x80000000u) << 32)
+         | (static_cast<unsigned>(s) ^ 0x80000000u);
+}
+
+// A thread's best entry so far: the packed key, its column and the
+// largest seq seen (is any above BIG?). A thread that holds no entry
+// has the largest key and column, which win no round.
+struct ArbBest {
+  u64 key = ~0ull;
+  unsigned col = ~0u;
+  int smax = INT_MIN;
+};
+
+// Take column c. A thread's columns come in ascending order (its units,
+// then its tail), so a strict < keeps the lowest of tied entries;
+// `lower` marks a column below all those taken before it (the row's
+// head, taken last), which wins a tie.
+__device__ __forceinline__ void arb_take(ArbBest& b, int p, int s, bool e,
+                                         int c, bool lower = false) {
+  p = e ? p : kBig;
+  s = e ? s : kBig;
+  b.smax = max(b.smax, s);
+  const u64 k = arb_pack(p, s);
+  if (k < b.key || (lower && k == b.key)) {
+    b.key = k;
+    b.col = c;
+  }
+}
+
+// The warp's best in every lane, by three hardware reductions: the key's
+// high word, its low word among the lanes holding the winning high word,
+// the column among the lanes holding both; and the largest seq.
+__device__ __forceinline__ void arb_warp_min(ArbBest& b) {
+  const unsigned hi = static_cast<unsigned>(b.key >> 32);
+  const unsigned whi = __reduce_min_sync(kFull, hi);
+  const unsigned wlo = __reduce_min_sync(
+      kFull, hi == whi ? static_cast<unsigned>(b.key) : ~0u);
+  const u64 w = (static_cast<u64>(whi) << 32) | wlo;
+  b.col = __reduce_min_sync(kFull, b.key == w ? b.col : ~0u);
+  b.key = w;
+  b.smax = __reduce_max_sync(kFull, b.smax);
+}
+
+// The first column of a row whose entry is not (p, seq above BIG), or
+// `none` if every column is: the rare branch of the function above
+// (a seq above BIG), one warp, plain loads.
+__device__ __noinline__ unsigned arb_first_not_above(
+    const int* __restrict__ pr, const int* __restrict__ sr,
+    const bool* __restrict__ er, int cap, int p, unsigned none) {
+  unsigned first = ~0u;
+  for (int c = threadIdx.x & 31; c < cap; c += 32) {
+    const bool e = er[c];
+    if (!(e && pr[c] == p && sr[c] > kBig)) {
+      first = c;
+      break;
+    }
+  }
+  first = __reduce_min_sync(kFull, first);
+  return first < static_cast<unsigned>(cap) ? first : none;
+}
+
+// Rows r0 .. r0 + g - 1 (those below R) of a ring stage, nt threads a
+// row (a multiple of 32 with nt * g the block's threads, so a row has
+// whole warps). Every thread of the block calls this (it may hold a
+// __syncthreads). `vec`: prio, seq and elig start at the same offset
+// from 16-, 16- and 4-byte boundaries (the launcher checks), so the
+// columns of a row from its first 16-byte boundary of prio on are read
+// as units of 4: an int4 of prio, an int4 of seq and a 4-byte word of
+// elig. Unit v goes to thread v % nt, UNITS units in flight, and the
+// 0-3 columns before the first unit (the head) and after the last (the
+// tail) to one thread each; every load of a batch is issued before any
+// compare, so the row costs one round trip to memory. Without `vec`
+// every column is read as a scalar. Each warp reduces by arb_warp_min;
+// then, with nt > 32, the row's first warp folds in the other warps'
+// results: one after another from shared memory where nt is known at
+// compile time (NT = nt, the staged kernel), by arb_warp_min again where
+// it is not (NT = 0, the fused kernel's groups). Each measured faster
+// where it is used (PERF.md).
+template <int UNITS, int NT>
+__device__ __forceinline__ void arb_rows(const int* __restrict__ prio,
+                                         const int* __restrict__ seq,
+                                         const bool* __restrict__ elig,
+                                         int R, int cap, int r0, int g,
+                                         int nt, bool vec,
+                                         int* __restrict__ best_prio,
+                                         int* __restrict__ best_idx) {
+  __shared__ u64 sk[kWarps];
+  __shared__ unsigned sc[kWarps];
+  __shared__ int sm[kWarps];
+  const int grp = threadIdx.x / nt, t = threadIdx.x % nt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = r0 + grp;
+  const size_t o = static_cast<size_t>(row) * cap;
+  const int* pr = prio + o;
+  const int* sr = seq + o;
+  const bool* er = elig + o;
+  ArbBest b;
+  if (row < R && !vec) {
+    for (int c = t; c < cap; c += nt) {
+      arb_take(b, __ldg(pr + c), __ldg(sr + c), er[c], c);
+    }
+  } else if (row < R) {
+    const int head = min(cap, static_cast<int>(
+        ((16u - (reinterpret_cast<uintptr_t>(pr) & 15u)) & 15u) >> 2));
+    const int nu = (cap - head) >> 2;
+    const int tail = head + 4 * nu + t;
+    int hp = 0, hs = 0, tp = 0, ts = 0;
+    bool he = false, te = false;
+    if (t < head) {
+      hp = __ldg(pr + t);
+      hs = __ldg(sr + t);
+      he = er[t];
+    }
+    if (tail < cap) {
+      tp = __ldg(pr + tail);
+      ts = __ldg(sr + tail);
+      te = er[tail];
+    }
+    const int4* p4 = reinterpret_cast<const int4*>(pr + head);
+    const int4* s4 = reinterpret_cast<const int4*>(sr + head);
+    const unsigned* e4 = reinterpret_cast<const unsigned*>(er + head);
+    for (int v0 = t; v0 < nu; v0 += UNITS * nt) {
+      int4 P[UNITS], S[UNITS];
+      unsigned E[UNITS];
+#pragma unroll
+      for (int j = 0; j < UNITS; ++j) {
+        const int v = v0 + j * nt;
+        if (v < nu) {
+          P[j] = __ldg(p4 + v);
+          S[j] = __ldg(s4 + v);
+          E[j] = __ldg(e4 + v);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < UNITS; ++j) {
+        const int v = v0 + j * nt, c = head + 4 * v;
+        if (v < nu) {
+          arb_take(b, P[j].x, S[j].x, E[j] & 0xffu, c);
+          arb_take(b, P[j].y, S[j].y, (E[j] >> 8) & 0xffu, c + 1);
+          arb_take(b, P[j].z, S[j].z, (E[j] >> 16) & 0xffu, c + 2);
+          arb_take(b, P[j].w, S[j].w, E[j] >> 24, c + 3);
+        }
+      }
+    }
+    if (tail < cap) arb_take(b, tp, ts, te, tail);
+    if (t < head) arb_take(b, hp, hs, he, t, true);
+  }
+  arb_warp_min(b);
+
+  if (nt > 32) {   // the row's first warp folds in the row's other warps
+    if (lane == 0) {
+      sk[warp] = b.key;
+      sc[warp] = b.col;
+      sm[warp] = b.smax;
+    }
+    __syncthreads();
+    if (t < 32) {   // every lane of the warp alike
+      if (NT == 0) {
+        const bool in = lane < nt / 32;
+        b.key = in ? sk[warp + lane] : ~0ull;
+        b.col = in ? sc[warp + lane] : ~0u;
+        b.smax = in ? sm[warp + lane] : INT_MIN;
+        arb_warp_min(b);
+      } else {   // the warps' columns interleave: a tie to the lower
+        for (int i = 1; i < nt / 32; ++i) {
+          const u64 k = sk[warp + i];
+          const unsigned c = sc[warp + i];
+          if (k < b.key || (k == b.key && c < b.col)) {
+            b.key = k;
+            b.col = c;
+          }
+          b.smax = max(b.smax, sm[warp + i]);
+        }
+      }
+    }
+  }
+  if (t < 32 && row < R) {   // the whole warp: the branch below reduces
+    const int p = static_cast<int>(static_cast<unsigned>(b.key >> 32)
+                                   ^ 0x80000000u);
+    const int s = static_cast<int>(static_cast<unsigned>(b.key)
+                                   ^ 0x80000000u);
+    // a column past cap: cap 0, or every entry (INT_MAX, INT_MAX)
+    unsigned idx = b.col < static_cast<unsigned>(cap) ? b.col : 0u;
+    if (s >= kBig) {
+      idx = b.smax > kBig ? arb_first_not_above(pr, sr, er, cap, p, idx)
+                          : 0u;
+    }
+    if (lane == 0) {
+      best_prio[row] = cap > 0 ? p : kBig;
+      best_idx[row] = static_cast<int>(idx);
+    }
+  }
+}
+
+// The earlier row routine, one scalar column a step with (prio, seq, col)
+// compared field by field: the earlier design, kept only so that
+// chip_smoke.py times it beside arb_rows in one run
+// (arbiter_priority_launch with nt 0, arbiter_fused_launch with
+// scalar_rows). It differs from the function above when a winner's
+// seq is BIG or more (it answers the winner's column).
 __device__ __forceinline__ bool arb_better(int p, int s, int c,
                                            int bp, int bs, int bc) {
   return p < bp || (p == bp && (s < bs || (s == bs && c < bc)));
 }
 
-// The warp's smallest (prio, seq, col), in lane 0.
 __device__ __forceinline__ void arb_warp_reduce(int& bp, int& bs, int& bc) {
   for (int off = 16; off > 0; off >>= 1) {
     const int op = __shfl_down_sync(kFull, bp, off);
@@ -78,18 +298,12 @@ __device__ __forceinline__ void arb_warp_reduce(int& bp, int& bs, int& bc) {
   }
 }
 
-// Rows r0 .. r0 + g - 1 (those below R) of a ring stage, run by a whole
-// block: kThreads / g threads per row (g a power of two up to kWarps, so
-// a row has whole warps). Each row's winner is the eligible entry with the
-// smallest (prio, seq), ties to the lowest column; a row with no eligible
-// entry yields (BIG, 0) like the reference. Every thread of the block
-// calls this (it holds a __syncthreads).
-__device__ __forceinline__ void arb_rows(const int* __restrict__ prio,
-                                         const int* __restrict__ seq,
-                                         const bool* __restrict__ elig,
-                                         int R, int cap, int r0, int g,
-                                         int* __restrict__ best_prio,
-                                         int* __restrict__ best_idx) {
+__device__ __forceinline__ void arb_rows_scalar(const int* __restrict__ prio,
+                                                const int* __restrict__ seq,
+                                                const bool* __restrict__ elig,
+                                                int R, int cap, int r0, int g,
+                                                int* __restrict__ best_prio,
+                                                int* __restrict__ best_idx) {
   const int nt = kThreads / g;
   const int grp = threadIdx.x / nt, t = threadIdx.x % nt;
   const int row = r0 + grp;
@@ -117,7 +331,7 @@ __device__ __forceinline__ void arb_rows(const int* __restrict__ prio,
     sc[warp] = bc;
   }
   __syncthreads();
-  if (t < 32) {   // the row's first warp folds in the row's warps
+  if (t < 32) {
     const bool in = lane < nt / 32;
     bp = in ? sp[warp + lane] : INT_MAX;
     bs = in ? ss[warp + lane] : INT_MAX;
@@ -410,13 +624,30 @@ __device__ __forceinline__ void topk_any(const int* __restrict__ rk, int M,
 
 // -------------------------------------------------------------- kernels --
 
-__global__ void __launch_bounds__(kThreads)
+// NT threads a row, G rows a block; UNITS = 256 / NT units of 4 columns
+// in flight a thread, so that a row of up to 1024 columns is one batch.
+// The wrapper launches it at 64 x 2 (kernel.py ARB_LAYOUT).
+template <int NT, int G>
+__global__ void __launch_bounds__(NT * G)
 priority_arbiter_kernel(const int* __restrict__ prio,
                         const int* __restrict__ seq,
                         const bool* __restrict__ elig,
                         int* __restrict__ best_prio,
-                        int* __restrict__ best_idx, int H, int cap) {
-  arb_rows(prio, seq, elig, H, cap, blockIdx.x, 1, best_prio, best_idx);
+                        int* __restrict__ best_idx, int H, int cap,
+                        bool vec) {
+  arb_rows<256 / NT, NT>(prio, seq, elig, H, cap, blockIdx.x * G, G, NT,
+                         vec, best_prio, best_idx);
+}
+
+// The earlier kernel (one block of 256 threads a row), timed only.
+__global__ void __launch_bounds__(kThreads)
+priority_arbiter_scalar_kernel(const int* __restrict__ prio,
+                               const int* __restrict__ seq,
+                               const bool* __restrict__ elig,
+                               int* __restrict__ best_prio,
+                               int* __restrict__ best_idx, int H, int cap) {
+  arb_rows_scalar(prio, seq, elig, H, cap, blockIdx.x, 1, best_prio,
+                  best_idx);
 }
 
 template <int KC>
@@ -439,12 +670,14 @@ struct FusedArgs {
   int* d_best_prio;
   int* d_best_idx;
   int H, cap, gd, nd;
+  bool dvec;
   const int* u_prio;
   const int* u_seq;
   const bool* u_elig;
   int* u_best_prio;
   int* u_best_idx;
   int U, ucap, gu, nu;
+  bool uvec;
   const int* keys;
   int* vals;
   int* idx;
@@ -469,7 +702,13 @@ struct FusedArgs {
 // At most 80 registers a thread, so that 3 blocks fit on an SM: at B = 12
 // the grid is several waves, and the third block hides more latency than
 // the registers it costs (ptxas would take 88; at 64 it spills).
-template <int KC>
+//
+// Its ring rows run arb_rows (a group of rows gets 32 to 256 threads a
+// row, known at run time) with 2 units in flight a thread: under the 80
+// registers, more units made the whole launch slower (PERF.md).
+// SCALAR_ROWS instead runs the earlier scalar routine, only so that
+// chip_smoke.py can time the two in one run.
+template <int KC, bool SCALAR_ROWS>
 __global__ void __launch_bounds__(kThreads, 3)
 fused_slot_kernel(const FusedArgs a) {
   const size_t run = blockIdx.y;
@@ -483,15 +722,28 @@ fused_slot_kernel(const FusedArgs a) {
   b -= a.H2;
   if (b < a.nd) {
     const size_t o = run * a.H * a.cap;
-    arb_rows(a.d_prio + o, a.d_seq + o, a.d_elig + o, a.H, a.cap,
-             b * a.gd, a.gd, a.d_best_prio + run * a.H,
-             a.d_best_idx + run * a.H);
+    if constexpr (SCALAR_ROWS) {
+      arb_rows_scalar(a.d_prio + o, a.d_seq + o, a.d_elig + o, a.H, a.cap,
+                      b * a.gd, a.gd, a.d_best_prio + run * a.H,
+                      a.d_best_idx + run * a.H);
+    } else {
+      arb_rows<2, 0>(a.d_prio + o, a.d_seq + o, a.d_elig + o, a.H, a.cap,
+                     b * a.gd, a.gd, kThreads / a.gd, a.dvec,
+                     a.d_best_prio + run * a.H, a.d_best_idx + run * a.H);
+    }
     return;
   }
   b -= a.nd;
   const size_t o = run * a.U * a.ucap;
-  arb_rows(a.u_prio + o, a.u_seq + o, a.u_elig + o, a.U, a.ucap, b * a.gu,
-           a.gu, a.u_best_prio + run * a.U, a.u_best_idx + run * a.U);
+  if constexpr (SCALAR_ROWS) {
+    arb_rows_scalar(a.u_prio + o, a.u_seq + o, a.u_elig + o, a.U, a.ucap,
+                    b * a.gu, a.gu, a.u_best_prio + run * a.U,
+                    a.u_best_idx + run * a.U);
+  } else {
+    arb_rows<2, 0>(a.u_prio + o, a.u_seq + o, a.u_elig + o, a.U, a.ucap,
+                   b * a.gu, a.gu, kThreads / a.gu, a.uvec,
+                   a.u_best_prio + run * a.U, a.u_best_idx + run * a.U);
+  }
 }
 
 // Ring rows per block: the largest power of two up to kWarps whose rows
@@ -508,9 +760,53 @@ void launch_topk(int H, const int* keys, int* vals, int* idx, int M, int K,
   srpt_topk_kernel<KC><<<H, kThreads, 0, stream>>>(keys, vals, idx, M, K);
 }
 
-template <int KC>
+template <int KC, bool SCALAR_ROWS>
 void launch_fused(dim3 grid, const FusedArgs& a, cudaStream_t stream) {
-  fused_slot_kernel<KC><<<grid, kThreads, 0, stream>>>(a);
+  fused_slot_kernel<KC, SCALAR_ROWS><<<grid, kThreads, 0, stream>>>(a);
+}
+
+// Whether arb_rows may read a ring stage in units of 4 columns: prio,
+// seq and elig at the same offset from 16-, 16- and 4-byte boundaries
+// (then so is every row, and every run of a batch).
+bool ring_vec_ok(const void* prio, const void* seq, const void* elig) {
+  const auto p = reinterpret_cast<uintptr_t>(prio);
+  const auto s = reinterpret_cast<uintptr_t>(seq);
+  const auto e = reinterpret_cast<uintptr_t>(elig);
+  return p % 4 == 0 && (s - p) % 16 == 0 && (e - p / 4) % 4 == 0;
+}
+
+// Launch the staged kernel at a layout; nt 0 launches the earlier scalar
+// kernel.
+int launch_priority(const void* prio, const void* seq, const void* elig,
+                    void* best_prio, void* best_idx, int H, int cap,
+                    int nt, int g, cudaStream_t stream) {
+  if (H <= 0) return static_cast<int>(cudaGetLastError());
+  const auto p = static_cast<const int*>(prio);
+  const auto s = static_cast<const int*>(seq);
+  const auto e = static_cast<const bool*>(elig);
+  const auto bp = static_cast<int*>(best_prio);
+  const auto bi = static_cast<int*>(best_idx);
+  const bool vec = ring_vec_ok(prio, seq, elig);
+  const int blocks = g > 0 ? (H + g - 1) / g : 0;
+  if (nt == 0) {
+    priority_arbiter_scalar_kernel<<<H, kThreads, 0, stream>>>(p, s, e, bp,
+                                                               bi, H, cap);
+  } else if (nt == 256 && g == 1) {
+    priority_arbiter_kernel<256, 1><<<blocks, 256, 0, stream>>>(
+        p, s, e, bp, bi, H, cap, vec);
+  } else if (nt == 128 && g == 1) {
+    priority_arbiter_kernel<128, 1><<<blocks, 128, 0, stream>>>(
+        p, s, e, bp, bi, H, cap, vec);
+  } else if (nt == 64 && g == 2) {
+    priority_arbiter_kernel<64, 2><<<blocks, 128, 0, stream>>>(
+        p, s, e, bp, bi, H, cap, vec);
+  } else if (nt == 32 && g == 8) {
+    priority_arbiter_kernel<32, 8><<<blocks, 256, 0, stream>>>(
+        p, s, e, bp, bi, H, cap, vec);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The top-K instance for a K cap: 8 runs the one-pass routine (K <= 8),
@@ -521,17 +817,16 @@ bool topk_cap_ok(int kc, int K) { return kc == 0 || (kc == 8 && K <= kc); }
 
 extern "C" {
 
+// The staged kernel at a layout: nt threads a row and g rows a block,
+// one of 256 x 1, 128 x 1, 64 x 2 and 32 x 8 (the wrapper launches
+// kernel.py's ARB_LAYOUT; chip_smoke.py times them all), or PR 11's
+// kernel for nt 0, which only chip_smoke.py launches, to time it.
 int arbiter_priority_launch(const void* prio, const void* seq,
                             const void* elig, void* best_prio,
-                            void* best_idx, int H, int cap, void* stream) {
-  if (H > 0) {
-    priority_arbiter_kernel<<<H, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(prio), static_cast<const int*>(seq),
-        static_cast<const bool*>(elig), static_cast<int*>(best_prio),
-        static_cast<int*>(best_idx), H, cap);
-  }
-  return static_cast<int>(cudaGetLastError());
+                            void* best_idx, int H, int cap, int nt, int g,
+                            void* stream) {
+  return launch_priority(prio, seq, elig, best_prio, best_idx, H, cap, nt,
+                         g, static_cast<cudaStream_t>(stream));
 }
 
 int arbiter_topk_launch(const void* keys, void* vals, void* idx, int H,
@@ -553,7 +848,8 @@ int arbiter_topk_launch(const void* keys, void* vals, void* idx, int H,
 
 // Stage pointers may be null where the stage's row count is 0. A top-K
 // stage needs K >= 1 (the wrapper checks) and an instance kc that takes
-// it.
+// it. scalar_rows runs the ring rows on the earlier scalar routine, for
+// chip_smoke.py's timing only (the wrapper passes 0).
 int arbiter_fused_launch(const void* d_prio, const void* d_seq,
                          const void* d_elig, void* d_best_prio,
                          void* d_best_idx, int H, int cap,
@@ -561,7 +857,8 @@ int arbiter_fused_launch(const void* d_prio, const void* d_seq,
                          const void* u_elig, void* u_best_prio,
                          void* u_best_idx, int U, int ucap,
                          const void* keys, void* vals, void* idx, int H2,
-                         int M, int K, int kc, int B, void* stream) {
+                         int M, int K, int kc, int B, int scalar_rows,
+                         void* stream) {
   if (H2 > 0 && !topk_cap_ok(kc, K)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -573,6 +870,7 @@ int arbiter_fused_launch(const void* d_prio, const void* d_seq,
   a.d_best_idx = static_cast<int*>(d_best_idx);
   a.H = H;
   a.cap = cap;
+  a.dvec = H > 0 && ring_vec_ok(d_prio, d_seq, d_elig);
   a.u_prio = static_cast<const int*>(u_prio);
   a.u_seq = static_cast<const int*>(u_seq);
   a.u_elig = static_cast<const bool*>(u_elig);
@@ -580,6 +878,7 @@ int arbiter_fused_launch(const void* d_prio, const void* d_seq,
   a.u_best_idx = static_cast<int*>(u_best_idx);
   a.U = U;
   a.ucap = ucap;
+  a.uvec = U > 0 && ring_vec_ok(u_prio, u_seq, u_elig);
   a.keys = static_cast<const int*>(keys);
   a.vals = static_cast<int*>(vals);
   a.idx = static_cast<int*>(idx);
@@ -598,10 +897,17 @@ int arbiter_fused_launch(const void* d_prio, const void* d_seq,
   if (blocks > 0 && B > 0) {
     const dim3 grid(blocks, B);
     const auto s = static_cast<cudaStream_t>(stream);
-    if (H2 == 0 || kc == 8) {
-      launch_fused<8>(grid, a, s);
+    const bool one_pass = H2 == 0 || kc == 8;
+    if (scalar_rows) {
+      if (one_pass) {
+        launch_fused<8, true>(grid, a, s);
+      } else {
+        launch_fused<0, true>(grid, a, s);
+      }
+    } else if (one_pass) {
+      launch_fused<8, false>(grid, a, s);
     } else {
-      launch_fused<0>(grid, a, s);
+      launch_fused<0, false>(grid, a, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

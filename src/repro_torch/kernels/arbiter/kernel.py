@@ -10,7 +10,8 @@ never falls back.
 Which top-K routine a launch runs (:func:`topk_cap`): for K up to 8 the
 one-pass routine, instantiated for that cap; for a larger K the rounds
 routine, which re-reads the row once per rank. Both compute the same
-function.
+function. The staged arbiter runs at one layout, ``ARB_LAYOUT`` threads
+a row and rows a block.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``priority_arbiter.launches`` and so on), raised only where the kernel
@@ -30,6 +31,13 @@ from repro_torch.kernels.arbiter.ref import (BIG, NEG, fused_slot_ref,
 
 
 TOPK_CAPS = (8,)    # K caps of the one-pass top-K instances (csrc)
+# (threads a row, rows a block) of the staged arbiter's instances (csrc)
+ARB_LAYOUTS = ((256, 1), (128, 1), (64, 2), (32, 8))
+# the one the wrapper launches, at any row count: of ARB_LAYOUTS the
+# fastest or within 2% of it at all four shapes chip_smoke.py times --
+# B = 1's 144 rows of 1024 and 512 columns (latency) and the B = 12
+# staged sweep's 1728 rows (bytes); PERF.md
+ARB_LAYOUT = (64, 2)
 
 
 def topk_cap(K: int) -> int:
@@ -79,7 +87,7 @@ def priority_arbiter(prio, seq, elig):
     lib = load_library()
     rc = lib.arbiter_priority_launch(
         prio.data_ptr(), seq.data_ptr(), elig.data_ptr(),
-        best_prio.data_ptr(), best_idx.data_ptr(), H, cap,
+        best_prio.data_ptr(), best_idx.data_ptr(), H, cap, *ARB_LAYOUT,
         torch.cuda.current_stream(prio.device).cuda_stream)
     _raise_on(rc, "priority_arbiter", lib)
     priority_arbiter.launches += 1
@@ -158,7 +166,7 @@ def _fused(wrapper, down, up, keys, K, batched):
     cap = topk_cap(K)
     lib = load_library()
     rc = lib.arbiter_fused_launch(
-        *args, cap, lead[0] if batched else 1,
+        *args, cap, lead[0] if batched else 1, 0,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, name, lib)
     wrapper.launches += 1
@@ -201,6 +209,7 @@ def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-__all__ = ["BIG", "NEG", "TOPK_CAPS", "topk_cap", "priority_arbiter",
+__all__ = ["BIG", "NEG", "TOPK_CAPS", "topk_cap", "ARB_LAYOUTS",
+           "ARB_LAYOUT", "priority_arbiter",
            "srpt_topk", "fused_slot", "fused_slot_batch",
            "reset_launch_counts", "launch_counts"]

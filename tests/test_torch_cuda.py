@@ -16,11 +16,11 @@ import pytest
 import torch
 
 from repro_torch.kernels.arbiter import kernel
-from repro_torch.kernels.arbiter.ref import (NEG, fused_slot_ref,
+from repro_torch.kernels.arbiter.ref import (BIG, NEG, fused_slot_ref,
                                              priority_arbiter_ref,
                                              srpt_topk_raw, srpt_topk_ref)
 
-INT_MIN = -(1 << 31)
+INT_MIN, INT_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def _arb_inputs(H, cap, seed, *, n_prios=8, seq_hi=10_000, p_elig=0.3):
@@ -87,7 +87,10 @@ def cuda():
 @pytest.mark.parametrize("case", ARB_CASES + [(144, 1024, 8, 20_000, 0.5),
                                               (144, 512, 8, 20_000, 0.5),
                                               # rows off 16-byte boundaries
-                                              (5, 1027, 8, 20_000, 0.5)])
+                                              (5, 1027, 8, 20_000, 0.5),
+                                              # the B = 12 staged sweep's
+                                              (1728, 1024, 8, 20_000, 0.5),
+                                              (1728, 512, 8, 20_000, 0.5)])
 def test_priority_arbiter_kernel_matches_plain(cuda, case):
     H, cap, n_prios, seq_hi, p_elig = case
     args = [torch.from_numpy(a).to(cuda) for a in
@@ -99,6 +102,95 @@ def test_priority_arbiter_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert kernel.priority_arbiter.launches == before + 1
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _arb_edge_inputs(H, cap, seed, lead=()):
+    """Rings (H >= 6 rows) that reach every branch of the row routine:
+    negative values and eligible (BIG, BIG) entries everywhere; row 0
+    empty; row 1 one winning (prio, seq) at columns of different threads,
+    warps and units, its lowest column in a later warp; row 2 a winner
+    whose seq is BIG (the plain version answers column 0); row 3 a winner
+    with seq above BIG after a column of the same prio and seq above
+    BIG; row 4 every entry (INT_MAX, INT_MAX); row 5 every entry of one
+    prio with seq above BIG."""
+    rng = np.random.default_rng(seed)
+    shape = lead + (H, cap)
+    prio = rng.integers(-3, 8, shape).astype(np.int64)
+    seq = rng.integers(-50, 20_000, shape).astype(np.int64)
+    elig = rng.random(shape) < 0.5
+    prio[..., ::5], seq[..., ::5], elig[..., ::5] = BIG, BIG, True
+    elig[..., 0, :] = False
+    # the lowest (130) in a later warp than a higher one (600; 1025 for a
+    # block of 256 threads) at 64 to 256 threads a row
+    cols = [c for c in (130, 200, 600, 1025) if c < cap] + [cap - 1]
+    prio[..., 1, cols], seq[..., 1, cols], elig[..., 1, cols] = -4, -60, True
+    w = cap // 2
+    prio[..., 2, :] = np.maximum(prio[..., 2, :], 0)
+    prio[..., 2, w], seq[..., 2, w], elig[..., 2, w] = -5, BIG, True
+    prio[..., 3, w], seq[..., 3, w], elig[..., 3, w] = -5, BIG + 7, True
+    prio[..., 3, 0], seq[..., 3, 0], elig[..., 3, 0] = -5, BIG + 9, True
+    prio[..., 4, :], seq[..., 4, :], elig[..., 4, :] = INT_MAX, INT_MAX, True
+    prio[..., 5, :], elig[..., 5, :] = -5, True
+    seq[..., 5, :] = BIG + 1 + rng.integers(0, 3, lead + (cap,))
+    return prio.astype(np.int32), seq.astype(np.int32), elig
+
+
+def _offset(a, ints, device):
+    """a on the card, its data starting ``ints`` int32 past a 16-byte
+    boundary (``ints`` bytes for a bool array, so that prio, seq and elig
+    keep one offset in columns)."""
+    t = torch.from_numpy(a).to(device)
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=device)
+    out = buf[ints:ints + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == ints * t.element_size()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(6, 1), (6, 33), (8, 1024), (7, 1027),
+                                   (144, 512)])
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 3, 3),
+                                     (1, 0, 2)])
+def test_priority_arbiter_kernel_edge_cases(cuda, shape, offsets):
+    """``_arb_edge_inputs`` with prio, seq and elig starting 0-3 columns
+    past their 16-byte boundaries, at one offset (the units path: each
+    row then has a scalar head and tail) or at different ones (the scalar
+    path), against the plain version."""
+    H, cap = shape
+    args = [_offset(a, o, cuda) for a, o in
+            zip(_arb_edge_inputs(H, cap, cap), offsets)]
+    got = kernel.priority_arbiter(*args)
+    want = priority_arbiter_ref(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(144, 1024), (1728, 512), (7, 1027)])
+@pytest.mark.parametrize("layout", kernel.ARB_LAYOUTS + ((0, 1),))
+def test_priority_arbiter_layouts_match_plain(cuda, shape, layout):
+    """Every layout the staged kernel can be launched at (the ones
+    chip_smoke.py times), on the main path's inputs and, but for PR 11's
+    kernel (nt 0, timed only), on ``_arb_edge_inputs``."""
+    from repro_torch.kernels.arbiter.build import load_library
+    H, cap = shape
+    nt, g = layout
+    lib = load_library()
+    cases = [_arb_inputs(H, cap, 4, n_prios=8, seq_hi=20_000, p_elig=0.5)]
+    if nt:
+        cases.append(_arb_edge_inputs(H, cap, 5))
+    for case in cases:
+        args = [torch.from_numpy(a).to(cuda) for a in case]
+        bp = torch.empty(H, dtype=torch.int32, device=cuda)
+        bi = torch.empty_like(bp)
+        rc = lib.arbiter_priority_launch(
+            *(t.data_ptr() for t in (*args, bp, bi)), H, cap, nt, g,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        want = priority_arbiter_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(bp, want[0]) and torch.equal(bi, want[1])
 
 
 @pytest.mark.gpu
@@ -279,6 +371,28 @@ def test_fused_slot_kernel_routes(cuda, B, K):
     want = fused_slot_ref(down, up, keys, K)
     torch.cuda.synchronize()
     assert (fn.launches - n, fn.launches_rounds - rounds) == (1, int(K > 8))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [None, 4, 12])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_fused_slot_kernel_ring_edge_cases(cuda, B, offset):
+    """The fused kernels' ring rows run the staged kernel's row routine:
+    ``_arb_edge_inputs`` in both ring stages (starting ``offset`` columns
+    past their 16-byte boundaries) beside a top-K stage, at the main
+    path's widths, single and batched."""
+    lead = () if B is None else (B,)
+    fn = kernel.fused_slot if B is None else kernel.fused_slot_batch
+    down = [_offset(a, offset, cuda) for a in
+            _arb_edge_inputs(144, 1024, 1, lead)]
+    up = [_offset(a, offset, cuda) for a in
+          _arb_edge_inputs(144, 512, 2, lead)]
+    keys = torch.from_numpy(_keys(144 * (B or 1), 8000, 3, p_pos=0.05)
+                            .reshape(lead + (144, 8000))).to(cuda)
+    got = fn(down=tuple(down), up=tuple(up), keys=keys, K=7)
+    want = fused_slot_ref(tuple(down), tuple(up), keys, 7)
+    torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -583,17 +697,51 @@ def test_attention_kernel_matches_plain(cuda, case):
                         window=window, block_q=32, block_kv=32)
     assert out.dtype == q.dtype and out.shape == ref.shape
     tol = ATTN_TOL[dtype]
+
+    def which_side(msg):
+        return msg + "\n" + _attention_mismatch_report(
+            out, ref, (q, k, v), dict(causal=causal, window=window), tol)
     torch.testing.assert_close(out.cpu().float(), ref.float(), atol=tol,
-                               rtol=tol)
+                               rtol=tol, msg=which_side)
+
+
+def _attention_mismatch_report(out, ref, qkv, mask, tol):
+    """Which side moved when the kernel's output ``out`` and the CPU fp32
+    reference ``ref`` disagree (ROADMAP C4): each against one float64
+    ``attention_ref`` of the same inputs, where each side's bad elements
+    are (batch, row, head), whether a second kernel call and a second CPU
+    reference give the same bits, and the CPU's matmul settings."""
+    from repro_torch.kernels.attention import ops
+    q, k, v = qkv
+    f64 = ops.attention(*(t.cpu().double() for t in qkv), **mask,
+                        block_q=32, block_kv=32)
+    again = ops.attention(q, k, v, **mask, block_q=32, block_kv=32).cpu()
+    ref_again = ops.attention(*(t.cpu() for t in qkv), **mask, block_q=32,
+                              block_kv=32)
+    lines = [f"float64 oracle {tuple(f64.shape)}; tolerance {tol} + {tol} "
+             f"|want|; torch {torch.__version__}, fp32 matmul precision "
+             f"{torch.get_float32_matmul_precision()}, CPU threads "
+             f"{torch.get_num_threads()}, q/k/v 16-byte offsets "
+             f"{[t.data_ptr() % 16 for t in qkv]}"]
+    for side, got in (("kernel", out.cpu()), ("CPU fp32 reference", ref)):
+        d = (got.double() - f64).abs()
+        bad = (d > tol + tol * f64.abs()).nonzero().tolist()
+        lines.append(f"{side} vs float64: max abs {float(d.max()):.3e}, "
+                     f"{len(bad)} elements outside the tolerance at (batch, "
+                     f"row, head) {sorted({tuple(b[:3]) for b in bad})[:20]}")
+    lines.append(f"a second kernel call bit-identical: "
+                 f"{torch.equal(again, out.cpu())}; a second CPU reference "
+                 f"bit-identical: {torch.equal(ref_again, ref)}")
+    return "\n".join(lines)
 
 
 @pytest.mark.gpu
 def test_attention_kernel_repeats_exactly(cuda):
     """The CUDA-core kernel on ``ATTN_CASES[0]`` (1 x 64 x 64, 4 heads, d
     32, causal, fp32, through ``ops.attention`` with 32-row blocks) 200
-    times: every output within 2e-5 of ``attention_ref`` in float64 and
-    bit-identical to the first (a race between its barriers would show
-    as an occasional mismatch)."""
+    times: every output within 2e-5 of ``attention_ref`` in float64 (on
+    the card) and bit-identical to the first (a race between its
+    barriers would show as an occasional mismatch)."""
     from repro_torch.kernels.attention import ops
     from repro_torch.kernels.attention.ref import attention_ref
     B, Sq, Skv, H, KV, d, causal, window, dtype = ATTN_CASES[0]
