@@ -37,7 +37,8 @@ result line:
            turns
 3. goldens ``tests/golden/fabric_disabled.json`` and ``fabric_enabled.json``
            replayed for all six protocols on the staged (``cuda``) and the
-           fused kernel backend, bit-exact
+           fused kernel backend, bit-exact; the 24 replays run six at a
+           time in worker processes
 4. full    the paper's 144-host, 9-rack full-bisection leaf-spine network,
            W3 at load 0.8 with 8000 messages, homa, 12000 slots (every
            message has arrived by slot 9186), on the
@@ -103,10 +104,27 @@ result line:
            ``forward_decode`` against the 4096-token prefill; (d) the
            full-width serve, whose statistics must equal
            ``SERVE_EXPECTED``
+9. faults  the lossy fabric (DESIGN.md §7): (a) four runs of
+           ``tests/golden/faults_enabled.json``'s ``"small"`` part (8
+           hosts; Bernoulli and Gilbert-Elliott loss under homa and
+           pias, a failed uplink and TOR under adaptive and flowlet
+           routing), two on ``cuda`` and two on ``fused``, bit-exact; (b) its ``"full"`` point — 144
+           hosts, 9 racks, W3 at load 0.8, homa, flowlet routing, every
+           kind of fault — 4000 slots on ``cuda``, ``fused`` and
+           ``reference``: the state identical key by key at slot 4000
+           and equal to the JAX package's (the golden's digests,
+           completions and counters), chunks conserved, then a window
+           from slot 1500 (a failed uplink and a failed TOR) with no
+           host sync and a profiled stretch on both kernel backends;
+           (c) four full-width runs (seeds 0-3) with those faults under
+           adaptive routing, one ``run_sweep`` batch of 2000 slots on
+           ``fused`` (one ``fused_slot_batch`` a slot) and ``cuda``:
+           every integer of the statistics identical, ``f_lost`` and
+           ``retx`` included
 
 ``--phases card,llama`` (any comma-separated subset of card, kernels,
-goldens, full, window, sweep, model, llama) runs only those phases and
-prints no result lines; with no arguments every phase runs.
+goldens, full, window, sweep, model, llama, faults) runs only those
+phases and prints no result lines; with no arguments every phase runs.
 
 Then one JSON line with each kernel's numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -796,35 +814,56 @@ def _golden_run(meta, proto, fabric, backend):
     return simulate(cfg, tbl)
 
 
-def phase_goldens():
+GOLDEN_WORKERS = 6   # replays at once, one process each (8 host cores)
+
+
+def _in_workers(fn, jobs):
+    """``[fn(*job) for job in jobs]``, run in up to GOLDEN_WORKERS spawned
+    processes at once: a replay is host-bound (one core each, device busy
+    under 10%), so replays in parallel share the card well. A worker's
+    exception re-raises here; the pool's processes end with it."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(min(GOLDEN_WORKERS, len(jobs)),
+                             mp_context=mp.get_context("spawn")) as pool:
+        return list(pool.map(fn, *zip(*jobs)))
+
+
+def _golden_job(name, proto, backend):
+    """One replay of a committed golden (in a worker process): the keys
+    that differ, and the seconds it took."""
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import FabricConfig
-    for name, backend in ((n, b) for b in ("cuda", "fused")
-                          for n in ("fabric_disabled", "fabric_enabled")):
-        g = json.loads((ROOT / "tests" / "golden" / f"{name}.json")
-                       .read_text())
-        meta = g["meta"]
-        fab = (FabricConfig(racks=meta["racks"], oversub=meta["oversub"],
-                            up_cap=meta["up_cap"])
-               if name == "fabric_enabled" else None)
-        for proto in PROTOCOLS:
-            t0 = time.perf_counter()
-            r = _golden_run(meta, proto, fab, backend)
-            want = g["protocols"][proto]
-            got = {"completion": [int(x) for x in r.completion],
-                   "lost_chunks": int(r.lost_chunks),
-                   "q_max_bytes": [int(x) for x in r.q_max_bytes],
-                   "prio_drained_bytes": [int(x)
-                                          for x in r.prio_drained_bytes],
-                   "busy": [round(float(x), 8) for x in r.busy_frac]}
-            if fab is not None:
-                got["tor_up_q_max_bytes"] = [int(x)
-                                             for x in r.tor_up_q_max_bytes]
-                got["tor_up_lost_chunks"] = int(r.tor_up_lost_chunks)
-            bad = [k for k in want if got[k] != want[k]]
-            check(not bad, f"{name} {proto} {backend}: differs from the "
-                           f"golden in {bad}")
-            say(f"[goldens] {name} {proto} {backend}: bit-exact "
-                f"({time.perf_counter() - t0:.1f} s)")
+    g = json.loads((ROOT / "tests" / "golden" / f"{name}.json").read_text())
+    meta = g["meta"]
+    fab = (FabricConfig(racks=meta["racks"], oversub=meta["oversub"],
+                        up_cap=meta["up_cap"])
+           if name == "fabric_enabled" else None)
+    t0 = time.perf_counter()
+    r = _golden_run(meta, proto, fab, backend)
+    want = g["protocols"][proto]
+    got = {"completion": [int(x) for x in r.completion],
+           "lost_chunks": int(r.lost_chunks),
+           "q_max_bytes": [int(x) for x in r.q_max_bytes],
+           "prio_drained_bytes": [int(x) for x in r.prio_drained_bytes],
+           "busy": [round(float(x), 8) for x in r.busy_frac]}
+    if fab is not None:
+        got["tor_up_q_max_bytes"] = [int(x) for x in r.tor_up_q_max_bytes]
+        got["tor_up_lost_chunks"] = int(r.tor_up_lost_chunks)
+    return [k for k in want if got[k] != want[k]], \
+        time.perf_counter() - t0
+
+
+def phase_goldens():
+    jobs = [(name, proto, backend) for backend in ("cuda", "fused")
+            for name in ("fabric_disabled", "fabric_enabled")
+            for proto in PROTOCOLS]
+    for (name, proto, backend), (bad, secs) in zip(
+            jobs, _in_workers(_golden_job, jobs)):
+        check(not bad, f"{name} {proto} {backend}: differs from the "
+                       f"golden in {bad}")
+        say(f"[goldens] {name} {proto} {backend}: bit-exact ({secs:.1f} s "
+            f"in a worker)")
 
 
 # ------------------------------------------------------------- phase 4 -----
@@ -1890,10 +1929,246 @@ def phase_llama():
     return out
 
 
+# ------------------------------------------------------------- phase 9 -----
+
+FAULT_GOLDEN = ROOT / "tests" / "golden" / "faults_enabled.json"
+# the "small" golden runs phase 9a replays on each kernel backend, at
+# once in worker processes (all of them replay on the CPU,
+# tests/test_torch_golden_faults.py, and the windows runs on every
+# backend in the card tests)
+FAULT_REPLAYS = {"cuda": ("homa-lossy-ecmp", "homa-windows-adaptive"),
+                 "fused": ("pias-lossy-ecmp", "homa-windows-flowlet")}
+FAULT_HANDOFF = 1500             # 9b's window starts here: both failure
+                                 # windows of the golden's "full" are open
+FAULT_SWEEP_SEEDS = (0, 1, 2, 3)
+FAULT_SWEEP_SLOTS = 2000         # phase 9c's depth
+
+
+def _fault_golden():
+    return json.loads(FAULT_GOLDEN.read_text())
+
+
+def _fault_replay_job(name, backend):
+    """One run of the fault golden's "small" part (in a worker process):
+    the keys that differ, the launches, f_lost, retx and the seconds."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import (FabricConfig, SimConfig, make_messages,
+                                  simulate)
+    from repro_torch.kernels.arbiter import kernel
+    small = _fault_golden()["small"]
+    meta, run = small["meta"], {r["name"]: r for r in small["runs"]}[name]
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    tbl = make_messages(meta["workload"], n_hosts=meta["n_hosts"],
+                        load=meta["load"], n_messages=meta["n_messages"],
+                        slot_bytes=meta["slot_bytes"], seed=meta["seed"])
+    fab = FabricConfig(racks=meta["racks"], oversub=meta["oversub"],
+                       up_cap=meta["up_cap"], routing=run["routing"],
+                       faults=run["faults"])
+    r = simulate(SimConfig(protocol=run["protocol"], n_hosts=meta["n_hosts"],
+                           max_slots=meta["max_slots"],
+                           ring_cap=meta["ring_cap"], fabric=fab,
+                           backend=backend, device=DEVICE), tbl)
+    got = {"completion": [int(x) for x in r.completion],
+           "retx_chunks": [int(x) for x in r.retx_chunks],
+           "msg_lost_chunks": [int(x) for x in r.msg_lost_chunks],
+           "fault_lost_chunks": int(r.fault_lost_chunks),
+           "lost_chunks": int(r.lost_chunks),
+           "tor_up_lost_chunks": int(r.tor_up_lost_chunks),
+           "busy": [round(float(x), 8) for x in r.busy_frac]}
+    return ([k for k in got if got[k] != run[k]], kernel.launch_counts(),
+            got["fault_lost_chunks"], sum(got["retx_chunks"]),
+            time.perf_counter() - t0)
+
+
+def _fault_full_config(backend, routing=None, max_slots=None, seed=None):
+    """The golden's "full" point: 144 hosts, 9 racks, W3 at load 0.8,
+    homa, every kind of fault at once; ``routing`` / ``max_slots`` /
+    ``seed`` (the table's) override it for phase 9c."""
+    from repro_torch.core import (FabricConfig, SimConfig, make_messages)
+    g = _fault_golden()["full"]
+    m = g["meta"]
+    tbl = make_messages(m["workload"], n_hosts=m["n_hosts"], load=m["load"],
+                        n_messages=m["n_messages"],
+                        slot_bytes=m["slot_bytes"],
+                        seed=m["seed"] if seed is None else seed)
+    cfg = SimConfig(protocol=m["protocol"], n_hosts=m["n_hosts"],
+                    ring_cap=m["ring_cap"],
+                    max_slots=max_slots or m["slots"],
+                    fabric=FabricConfig(racks=m["racks"],
+                                        oversub=m["oversub"],
+                                        up_cap=m["up_cap"],
+                                        routing=routing or m["routing"],
+                                        faults=g["faults"]),
+                    backend=backend, device=DEVICE)
+    return cfg, tbl
+
+
+def _conserved(st: dict) -> bool:
+    """Chunk conservation of run 0 (``tests/test_faults.py``): sent +
+    retx == recv + buffered (both tiers) + lost (both rings) + f_lost."""
+    def tot(k):
+        return int(st[k][0].sum())
+    return (tot("sent") + tot("retx") == tot("recv") + tot("r_valid")
+            + tot("u_valid") + tot("lost") + tot("u_lost") + tot("f_lost"))
+
+
+def phase_faults():
+    """9a: golden replays on both kernel backends; 9b: the full-width
+    lossy run on every backend, state identical key by key at the
+    golden's depth and equal to the JAX package's there; its profiled
+    window under failure, with no host sync; 9c: a fault sweep of four
+    full-width runs on both kernel backends."""
+    import numpy as np
+    import torch
+    from repro_torch.core import SweepSpec, run_sweep
+    from repro_torch.core.protocols import get_protocol
+    from repro_torch.core.results import state_digests
+    from repro_torch.core.sim import (_init_state, host_state, prepare,
+                                      run_slots, stack_static)
+    from repro_torch.kernels.arbiter import kernel
+    golden = _fault_golden()
+    out = {"launches": {}, "rate": {}}
+
+    # ---- 9a
+    slots = golden["small"]["meta"]["max_slots"]
+    jobs = [(name, backend) for backend, names in FAULT_REPLAYS.items()
+            for name in names]
+    for (name, backend), (bad, n, f_lost, retx, secs) in zip(
+            jobs, _in_workers(_fault_replay_job, jobs)):
+        check(not bad, f"fault golden {name} {backend}: differs in {bad}")
+        want = ({"priority_arbiter": 2 * slots, "srpt_topk": slots}
+                if backend == "cuda" else {"fused_slot": slots})
+        check(all(n[k] == want.get(k, 0) for k in n),
+              f"fault golden {name} {backend}: launches {n}")
+        say(f"[faults] golden {name} {backend}: bit-exact, f_lost {f_lost}, "
+            f"retx {retx}, launches {n} ({secs:.1f} s in a worker)")
+
+    # ---- 9b
+    full = golden["full"]
+    slots = full["meta"]["slots"]
+    out["label"] = f"{full['meta']['n_hosts']} hosts, {slots} slots"
+    states, handoff = {}, None
+    for backend in ("cuda", "fused", "reference"):
+        cfg, tbl = _fault_full_config(backend)
+        proto = get_protocol(cfg.protocol)
+        S1, alloc = prepare(cfg, tbl)
+        S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
+        st = _init_state(cfg, proto, len(tbl.size))
+        torch.cuda.synchronize()
+        kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = run_slots(cfg, proto, S, st, n_sched, 0, FAULT_HANDOFF)
+        if backend == "cuda":
+            handoff = (S, n_sched, st)
+        st = run_slots(cfg, proto, S, st, n_sched, FAULT_HANDOFF, slots)
+        states[backend] = host_state(st)     # synchronizes
+        wall = time.perf_counter() - t0
+        out["launches"][backend] = kernel.launch_counts()
+        out["rate"][backend] = slots / wall
+        say(f"[faults] full width, {slots} slots, {backend}: {wall:.2f} s "
+            f"wall, {slots / wall:.1f} slots/s; launches "
+            f"{out['launches'][backend]}")
+    check(out["launches"]["cuda"] == {"priority_arbiter": 2 * slots,
+                                      "srpt_topk": slots, "fused_slot": 0,
+                                      "fused_slot_batch": 0},
+          f"fault run launches {out['launches']['cuda']} on cuda")
+    check(out["launches"]["fused"] == {"priority_arbiter": 0,
+                                       "srpt_topk": 0, "fused_slot": slots,
+                                       "fused_slot_batch": 0},
+          f"fault run launches {out['launches']['fused']} on fused")
+    check(set(out["launches"]["reference"].values()) == {0},
+          "the reference backend launched a kernel")
+    ref = states["reference"]
+    for backend in ("cuda", "fused"):
+        st = states[backend]
+        check(set(st) == set(ref), f"{backend}: state keys differ")
+        for k in ref:
+            check(st[k].dtype == ref[k].dtype
+                  and np.array_equal(st[k], ref[k]),
+                  f"slot {slots}: {backend} and reference differ in {k}")
+    digests = state_digests({k: v[0] for k, v in ref.items()})
+    check(digests == full["digests"],
+          f"slot {slots}: state differs from the JAX package's in "
+          f"{sorted(k for k in digests if digests[k] != full['digests'].get(k))}")
+    check([int(x) for x in ref["completion"][0]] == full["completion"],
+          "completions differ from the JAX package's")
+    counters = {k: int(ref[k][0].sum()) for k in full["counters"]}
+    check(counters == full["counters"],
+          f"counters {counters} != the JAX package's {full['counters']}")
+    check(_conserved(ref), f"chunk conservation fails: {counters}")
+    check(counters["f_lost"] > 0 and counters["retx"] >= counters["f_lost"],
+          f"no fault loss or too few retransmissions: {counters}")
+    done = int((ref["completion"][0] >= 0).sum())
+    say(f"[faults] every state key identical on cuda, fused and reference "
+        f"at slot {slots}, and equal to the JAX package's (digests, "
+        f"completions, counters); {counters}; {done} of "
+        f"{len(full['completion'])} messages complete")
+    out["counters"] = counters
+
+    # the window: from the staged run's state at FAULT_HANDOFF, inside
+    # both failure windows; 20 slots each under sync debug mode "error"
+    S, n_sched, st = handoff
+    cfgs = {b: _fault_full_config(b)[0] for b in ("cuda", "fused")}
+    out["window"] = _windows(cfgs, S, st, n_sched, FAULT_HANDOFF,
+                             WINDOW_SLOTS, "faults")
+
+    # ---- 9c
+    tables = [_fault_full_config("fused", seed=sd)[1]
+              for sd in FAULT_SWEEP_SEEDS]
+    spec = SweepSpec(tables=tables, shared_alloc=True, chunk_slots=1000,
+                     streaming=True)
+    stats = {}
+    for backend in ("fused", "cuda"):
+        cfg = _fault_full_config(backend, routing="adaptive",
+                                 max_slots=FAULT_SWEEP_SLOTS)[0]
+        kernel.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats[backend] = run_sweep(cfg, spec)
+        wall = time.perf_counter() - t0
+        n = kernel.launch_counts()
+        out["launches"][f"sweep_{backend}"] = n
+        out["rate"][f"sweep_{backend}"] = \
+            len(tables) * FAULT_SWEEP_SLOTS / wall
+        say(f"[faults] sweep: {len(tables)} full-width runs (seeds "
+            f"{FAULT_SWEEP_SEEDS}), adaptive routing, {FAULT_SWEEP_SLOTS} "
+            f"slots, {backend}: {wall:.2f} s wall, "
+            f"{len(tables) * FAULT_SWEEP_SLOTS / wall:.1f} runs*slots/s; "
+            f"launches {n}")
+    check(out["launches"]["sweep_fused"]["fused_slot_batch"]
+          == FAULT_SWEEP_SLOTS
+          and out["launches"]["sweep_fused"]["fused_slot"] == 0,
+          "fault sweep: expected one fused_slot_batch launch a slot")
+    check(out["launches"]["sweep_cuda"]["priority_arbiter"]
+          == 2 * FAULT_SWEEP_SLOTS
+          and out["launches"]["sweep_cuda"]["srpt_topk"]
+          == FAULT_SWEEP_SLOTS, "fault sweep: staged launches")
+    for i, (a, b) in enumerate(zip(stats["fused"], stats["cuda"])):
+        check(np.array_equal(a.hist, b.hist)
+              and np.array_equal(a.prio_drained_bytes, b.prio_drained_bytes),
+              f"fault sweep run {i}: histograms differ")
+        for f in ("n_complete", "busy_frac", "wasted_frac",
+                  "uplink_busy_frac", "q_mean_bytes", "q_max_bytes",
+                  "lost_chunks", "tor_up_busy_frac", "fault_lost_chunks",
+                  "retx_chunks"):
+            check(getattr(a, f) == getattr(b, f),
+                  f"fault sweep run {i}: fused and cuda differ in {f}")
+    check(all(s.fault_lost_chunks > 0 and s.n_counted > 0
+              for s in stats["fused"]),
+          "fault sweep: a run lost nothing or completed nothing")
+    say(f"[faults] sweep statistics identical on fused and cuda, f_lost "
+        f"and retx included: f_lost "
+        f"{[s.fault_lost_chunks for s in stats['fused']]}, retx "
+        f"{[s.retx_chunks for s in stats['fused']]}, completed "
+        f"{[s.n_complete for s in stats['fused']]}")
+    return out
+
+
 # ---------------------------------------------------------------- main -----
 
 PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model",
-          "llama")
+          "llama", "faults")
 
 
 def main(argv=None) -> int:
@@ -1949,6 +2224,8 @@ def main(argv=None) -> int:
             res["model"] = run("model", phase_model)
         if "llama" in phases:
             res["llama"] = run("llama", phase_llama)
+        if "faults" in phases:
+            res["faults"] = run("faults", phase_faults)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1961,8 +2238,8 @@ def main(argv=None) -> int:
     sweep_rate, sweep_window = res["sweep_rate"], res["sweep_window"]
     full_launches, sweep_launches = res["full_launches"], \
         res["sweep_launches"]
-    err, perf, model, llama = (res["err"], res["perf"], res["model"],
-                               res["llama"])
+    err, perf, model, llama, fz = (res["err"], res["perf"], res["model"],
+                                   res["llama"], res["faults"])
     say(f"[summary] runs*slots/s: B=1 cuda {full_rate:.1f}; B=12 "
         + ", ".join(f"{b} {r:.1f}" for b, r in sweep_rate.items()))
     sweep_cuda = sweep_window["cuda"]
@@ -1978,6 +2255,17 @@ def main(argv=None) -> int:
         f"{window['fused']['device_us_per_slot']:.1f}, B=12 fused "
         f"{sweep_window['device_us_per_slot']:.1f}, B=12 cuda "
         f"{sweep_cuda['device_us_per_slot']:.1f}")
+    fw = fz["window"]
+    say(f"[summary] faults ({fz['label']}): slots/s cuda "
+        f"{fz['rate']['cuda']:.1f}, fused {fz['rate']['fused']:.1f}, "
+        f"reference {fz['rate']['reference']:.1f}; window ms/slot (device "
+        f"busy; device us/slot) cuda {fw['cuda']['ms_per_slot']:.3f} "
+        f"({fw['cuda']['busy']:.4f}; {fw['cuda']['device_us_per_slot']:.1f})"
+        f", fused {fw['fused']['ms_per_slot']:.3f} "
+        f"({fw['fused']['busy']:.4f}; "
+        f"{fw['fused']['device_us_per_slot']:.1f}); B=4 sweep runs*slots/s "
+        f"fused {fz['rate']['sweep_fused']:.1f}, cuda "
+        f"{fz['rate']['sweep_cuda']:.1f}")
     say(f"[summary] mamba2-130m: prefill {model['tokens_per_s']:.0f} "
         f"tokens/s (4 x 4096), serve {model['decode_steps_per_s']:.1f} "
         f"decode steps/s (batch 4)")
@@ -2008,9 +2296,18 @@ def main(argv=None) -> int:
               "fused_slot": full_launches["rounds"]["fused_slot"],
               "fused_slot_batch":
                   sweep_launches["rounds"]["fused_slot_batch"]}
+    # launches on this slice's path, the fault runs of phase 9b (B = 1)
+    # and 9c (the B = 4 sweep)
+    fl = fz["launches"]
+    fault_launches = {
+        "priority_arbiter": fl["cuda"]["priority_arbiter"],
+        "srpt_topk": fl["cuda"]["srpt_topk"],
+        "fused_slot": fl["fused"]["fused_slot"],
+        "fused_slot_batch": fl["sweep_fused"]["fused_slot_batch"]}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": n, "max_abs_err": err[name], "ms": perf[name]["ms"],
+         "launches": n, "launches_faults": fault_launches[name],
+         "max_abs_err": err[name], "ms": perf[name]["ms"],
          "plain_ms": perf[name]["plain_ms"],
          "bound_ms": perf[name]["bound_ms"], "bound_by": "bytes",
          "library_ms": perf[name]["library_ms"],

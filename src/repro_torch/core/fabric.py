@@ -12,8 +12,10 @@ once per message at prepare time (ECMP at message granularity).
 Cross-rack chunks wait ``leaf_delay_slots`` before uplink service, then
 ``spine_delay_slots`` more before downlink service.
 
-The port models ECMP routing without faults; flowlet/adaptive routing and
-fault injection raise ``NotImplementedError`` (ROADMAP A5).
+``routing="flowlet"`` / ``"adaptive"`` and a fault layer (``faults=``, a
+:class:`~repro_torch.core.faults.FaultConfig`) come from
+:mod:`repro_torch.core.faults` (DESIGN.md §7); ``faults=None`` keeps the
+loop loss-free and bit-identical to the fault-free simulator.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.faults import (FaultConfig, forward_losses,
+                                     inject_losses, select_uplink)
 from repro_torch.core.protocols import BIG, I32
 from repro_torch.core.scatter import set_drop
 from repro_torch.kernels.arbiter import dispatch
@@ -43,23 +47,23 @@ class FabricConfig:
     spine_delay_slots: int = 6      # uplink service -> dst downlink service
     up_cap: int = 512               # per-uplink buffered chunks
     seed: int = 0                   # spine-hash seed (ECMP placement)
+    # spine selection policy (DESIGN.md §7): "ecmp" is the static
+    # per-message hash; "flowlet" re-hashes every flowlet_slots;
+    # "adaptive" picks the least-loaded live uplink
     routing: str = "ecmp"
-    flowlet_slots: int = 64
-    faults: object | None = None
+    flowlet_slots: int = 64         # flowlet epoch length (~1.7 RTT)
+    # fault injection + loss recovery (repro_torch.core.faults); None
+    # keeps the loop loss-free
+    faults: FaultConfig | None = None
 
     def __post_init__(self):
-        if self.faults is not None:
-            raise NotImplementedError(
-                "FabricConfig.faults: fault injection and loss recovery are "
-                "not ported to repro_torch yet (ROADMAP A5)")
+        # JSON round-trip convenience: accept a plain dict for faults
+        if isinstance(self.faults, dict):
+            object.__setattr__(self, "faults", FaultConfig(**self.faults))
         if self.routing not in ROUTING_POLICIES:
             raise ValueError(
                 f"unknown routing policy {self.routing!r}; available: "
                 f"{list(ROUTING_POLICIES)}")
-        if self.routing != "ecmp":
-            raise NotImplementedError(
-                f"FabricConfig.routing={self.routing!r}: flowlet/adaptive "
-                f"routing is not ported to repro_torch yet (ROADMAP A5)")
 
     @property
     def enabled(self) -> bool:
@@ -86,6 +90,10 @@ class FabricConfig:
                 "cannot traverse uplink and downlink in the same slot)")
         if self.up_cap < 1:
             raise ValueError("FabricConfig.up_cap must be >= 1")
+        if self.flowlet_slots < 1:
+            raise ValueError("FabricConfig.flowlet_slots must be >= 1")
+        if self.faults is not None:
+            self.faults.validate(self, n_hosts)
 
     # ---- derived topology (python ints: shape parameters for the loop)
 
@@ -98,6 +106,47 @@ class FabricConfig:
 
     def n_uplinks_total(self, n_hosts: int) -> int:
         return self.racks * self.n_uplinks(n_hosts)
+
+    # ---- failure-scenario constructors (DESIGN.md §7). Each returns a
+    # new frozen config with the fault layered onto any existing
+    # FaultConfig; scenarios.lossy_fabric / uplink_failure / tor_failure
+    # wrap them.
+
+    def with_faults(self, **fault_kw) -> "FabricConfig":
+        """New config with ``fault_kw`` merged into the fault layer."""
+        if not self.enabled:
+            raise ValueError("failure scenarios need an enabled fabric "
+                             "(FabricConfig with racks set): faults model "
+                             "loss on leaf-spine links")
+        base = dataclasses.asdict(self.faults) \
+            if self.faults is not None else {}
+        return dataclasses.replace(
+            self, faults=FaultConfig(**{**base, **fault_kw}))
+
+    def with_lossy(self, *, up_loss: float = 0.0, down_loss: float = 0.0,
+                   ge_p_gb: float = 0.0, ge_p_bg: float = 0.05,
+                   ge_loss: float = 0.5, seed: int = 0) -> "FabricConfig":
+        """Steady-state lossy links: Bernoulli uplink/downlink chunk
+        loss, optionally with a Gilbert-Elliott burst component."""
+        return self.with_faults(up_loss=up_loss, down_loss=down_loss,
+                                ge_p_gb=ge_p_gb, ge_p_bg=ge_p_bg,
+                                ge_loss=ge_loss, seed=seed)
+
+    def with_uplink_failure(self, *, uplink: int, start: int,
+                            end: int) -> "FabricConfig":
+        """One TOR uplink black-holes all traffic for ``[start, end)``
+        slots: static ECMP keeps hashing flows into the dead spine until
+        the window lifts."""
+        prior = self.faults.link_fail if self.faults is not None else ()
+        return self.with_faults(link_fail=prior + ((uplink, start, end),))
+
+    def with_tor_failure(self, *, rack: int, start: int,
+                         end: int) -> "FabricConfig":
+        """A whole TOR fails for ``[start, end)`` slots: the rack's
+        uplinks and host downlinks all go dark; recovery timeouts must
+        carry every in-flight message across the window."""
+        prior = self.faults.tor_fail if self.faults is not None else ()
+        return self.with_faults(tor_fail=prior + ((rack, start, end),))
 
 
 def spine_hash(src: np.ndarray, dst: np.ndarray, msg_id: np.ndarray,
@@ -211,11 +260,13 @@ def init_fabric_state(cfg, B: int) -> dict:
     }
 
 
-def route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now):
+def route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now, fx=None):
     """Route this slot's transmitted chunks into the first queueing tier:
     same-rack chunks switch at the leaf straight into the destination
-    downlink ring; cross-rack chunks enter their TOR's hashed uplink
-    queue. ``cm`` is each host's chosen message, ``(B, H)`` int32.
+    downlink ring; cross-rack chunks enter their TOR's uplink queue (the
+    ECMP hash, or ``faults.select_uplink``), after the fault layer's
+    transmit-side losses. ``cm`` is each host's chosen message, ``(B,
+    H)`` int32; ``fx`` the slot's fault plan row (``faults.plan_row``).
     Returns updated state."""
     fab = cfg.fabric
     B, H = dsts.shape
@@ -225,7 +276,13 @@ def route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now):
     dst_rack = dsts.clamp_max(H - 1) // rs
     local = has & (src_rack == dst_rack)
     remote = has & (src_rack != dst_rack)
-    urow = src_rack * n_up + S["spine"].gather(1, cm.long())
+    if fab.routing == "ecmp":
+        urow = src_rack * n_up + S["spine"].gather(1, cm.long())
+    else:
+        urow = select_uplink(cfg, st, cm, src_rack, fx)
+    if fab.faults is not None:
+        local, remote, st = inject_losses(cfg, st, cm, local, remote,
+                                          dsts, urow, now, fx)
     seq = now.expand(B, H)
 
     r_msg, r_prio, r_seq, r_valid, d_drop = ring_insert(
@@ -244,7 +301,7 @@ def route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now):
             "u_lost": st["u_lost"] + u_drop}
 
 
-def uplink_drain(cfg, st, S, now, pre=None):
+def uplink_drain(cfg, st, S, now, pre=None, fx=None):
     """Drain at most one chunk per TOR uplink (strict priority, FIFO
     within level) and forward it across its spine into the destination
     downlink ring, where it becomes eligible after ``spine_delay_slots``.
@@ -256,13 +313,19 @@ def uplink_drain(cfg, st, S, now, pre=None):
     bit-identical because this slot's ``route_chunks`` insertions carry
     ``u_seq == now`` and ``leaf_delay_slots >= 1`` (enforced by
     ``sim._fused_precompute``) keeps them ineligible until the next slot
-    — and ``ring_insert`` never overwrites a valid (winning) slot."""
+    — and ``ring_insert`` never overwrites a valid (winning) slot. ``fx``
+    is the slot's fault plan row."""
     fab = cfg.fabric
     H = cfg.n_hosts
     M = S["size"].shape[1]
     B, U = st["u_valid"].shape[:2]
 
     eligible = st["u_valid"] & (st["u_seq"] + fab.leaf_delay_slots <= now)
+    fl = fab.faults
+    if fl is not None and (fl.link_fail or fl.tor_fail):
+        # a failed uplink black-holes its queue for the window: chunks
+        # already buffered there neither drain nor get re-routed
+        eligible = eligible & ~fx["link_down"][:, None]
     if pre is not None:
         slot_idx, any_e, _ = pre
     else:
@@ -280,9 +343,14 @@ def uplink_drain(cfg, st, S, now, pre=None):
     dst = torch.where(any_e, S["dst"].gather(1, msg.clamp_max(M - 1).long()),
                       H)
     vseq = (now + (fab.spine_delay_slots - cfg.net_delay_slots)).expand(B, U)
+    ins_ok = any_e
+    if fl is not None and (fl.down_loss > 0 or fl.tor_fail):
+        # last-hop loss point: the chunk left the uplink (it still counts
+        # toward u_busy) but dies on the spine->TOR->host leg
+        ins_ok, st = forward_losses(cfg, st, msg, dst, any_e, now, fx)
     r_msg, r_prio, r_seq, r_valid, d_drop = ring_insert(
         st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
-        dst, any_e, msg, prio, vseq)
+        dst, ins_ok, msg, prio, vseq)
 
     qlen = eligible.sum(dim=2, dtype=I32) - any_e.to(I32)
     return {**st,
@@ -294,6 +362,6 @@ def uplink_drain(cfg, st, S, now, pre=None):
             "u_q_max": torch.maximum(st["u_q_max"], qlen)}
 
 
-__all__ = ["FabricConfig", "ROUTING_POLICIES", "spine_hash", "ring_insert",
-           "ring_drain_select", "drain_select", "take_slot", "clear_slot",
+__all__ = ["FabricConfig", "FaultConfig", "ROUTING_POLICIES", "spine_hash",
+           "ring_insert", "ring_drain_select", "drain_select", "take_slot", "clear_slot",
            "init_fabric_state", "route_chunks", "uplink_drain"]

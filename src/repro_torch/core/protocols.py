@@ -120,6 +120,16 @@ class ReceiverPolicy:
         bit-identical to solving it inside :meth:`grants`."""
         return None
 
+    def resend(self, cfg, st, S, now, known, quiet):
+        """Receiver-side loss detection (paper §3.7): (B, M) bool mask of
+        messages whose sender should rewind to the receiver's high-water
+        mark this slot. ``known`` marks messages the receiver has heard
+        from (recv > 0); ``quiet`` is slots since the last chunk arrival
+        (or rewind). Only called on fault-enabled fabrics; the default
+        leaves recovery to the sender fallback timeout — the honest model
+        for window baselines with no receiver scheduler."""
+        return torch.zeros_like(known)
+
 
 def window_grants(cfg, st, S, gate):
     """Keep ``gate``-ed messages granted one RTT of data beyond what was
@@ -240,6 +250,12 @@ class OvercommitSrptReceiver(ReceiverPolicy):
     def grant_problem(self, cfg, st, S, now, n_sched):
         return srpt_grant_matrix(cfg, st, S, self._eligible(cfg, st, now),
                                  self._k(cfg, n_sched))
+
+    def resend(self, cfg, st, S, now, known, quiet):
+        # Homa's receiver timeout (paper §3.7): a receiver that actively
+        # schedules its inbound messages RESENDs any known message quiet
+        # for resend_slots, well before the sender fallback fires
+        return known & (quiet >= cfg.fabric.faults.resend_slots)
 
 
 # ------------------------------------------------------------- protocols ---

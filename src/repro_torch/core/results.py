@@ -9,6 +9,7 @@ benchmark cache stores.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 from typing import Any
@@ -34,6 +35,21 @@ def _json_safe(v):
     if isinstance(v, (list, tuple)):
         return [_json_safe(x) for x in v]
     return v
+
+
+def state_digests(state: dict) -> dict:
+    """``{key: sha256 hex digest}`` of one run's loop state (no run axis):
+    each array read in C order as int64 (bool and integer arrays) or
+    float64 (float ones), with its shape, so the JAX package's state and
+    the port's compare key by key without shipping the arrays."""
+    out = {}
+    for k, v in sorted(state.items()):
+        a = np.asarray(v)
+        a = a.astype(np.float64 if a.dtype.kind == "f" else np.int64)
+        h = hashlib.sha256(repr(a.shape).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+        out[k] = h.hexdigest()
+    return out
 
 
 def bucketed_percentiles(size_bytes: np.ndarray, slowdown: np.ndarray,

@@ -42,15 +42,31 @@ def set_drop(a, idx, vals, keep):
     return flat[:, :n].reshape(a.shape)
 
 
+def _reduce_drop(a, idx, vals, keep, reduce: str):
+    n = a[0].numel()
+    flat = _flat_with_spare(a)
+    flat.scatter_reduce_(1, _target(idx, keep, n), vals, reduce,
+                         include_self=True)
+    return flat[:, :n].reshape(a.shape)
+
+
 def amax_drop(a, idx, vals, keep):
     """``a[b].flat[idx[b, i]] = max(that, vals[b, i])`` where ``keep[b, i]``
     (JAX ``.at[idx].max(vals, mode="drop")`` with the dropped writes
     named by ``~keep``). Returns a new tensor shaped like ``a``."""
-    n = a[0].numel()
-    flat = _flat_with_spare(a)
-    flat.scatter_reduce_(1, _target(idx, keep, n), vals, "amax",
-                         include_self=True)
-    return flat[:, :n].reshape(a.shape)
+    return _reduce_drop(a, idx, vals, keep, "amax")
+
+
+def amin_drop(a, idx, vals, keep):
+    """``a[b].flat[idx[b, i]] = min(that, vals[b, i])`` where ``keep[b, i]``
+    (JAX ``.at[idx].min(vals, mode="drop")``)."""
+    return _reduce_drop(a, idx, vals, keep, "amin")
+
+
+def add_drop(a, idx, vals, keep):
+    """``a[b].flat[idx[b, i]] += vals[b, i]`` where ``keep[b, i]`` (JAX
+    ``.at[idx].add(vals, mode="drop")``)."""
+    return _reduce_drop(a, idx, vals, keep, "sum")
 
 
 def last_writer(idx):
@@ -66,4 +82,4 @@ def last_writer(idx):
     return ~((idx[:, :, None] == idx[:, None, :]) & later).any(dim=2)
 
 
-__all__ = ["set_drop", "amax_drop", "last_writer"]
+__all__ = ["set_drop", "amax_drop", "amin_drop", "add_drop", "last_writer"]

@@ -17,6 +17,12 @@ operations on one device (a CUDA card unless the caller passes
 ``backend="fused"`` solves all three arbitration stages in one launch of
 the ``fused_slot`` kernel at slot start (``_fused_precompute``).
 
+A fabric with a fault layer (``FabricConfig.faults``, DESIGN.md §7) drops
+chunks at its loss points, gates failed uplinks and TORs out of the
+drains, and ends each slot with loss recovery
+(``faults.apply_recovery``); the slot's draws and masks come from a plan
+computed per block of slots (``faults.slot_plan``).
+
 The step carries a leading run axis B on every state tensor: a sweep
 steps B independent runs at once (``run_sweep``), and ``simulate`` is
 the case B = 1 — there is one step function. Integer outputs of every
@@ -35,6 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.fabric import (FabricConfig, drain_select,
                                      init_fabric_state, ring_insert,
                                      route_chunks, spine_hash, take_slot,
@@ -44,7 +51,7 @@ from repro_torch.core.priorities import (PriorityAllocation,
                                          pias_thresholds)
 from repro_torch.core.protocols import (BIG, I32, MSG_BITS, MSG_MOD,
                                         Protocol, get_protocol)
-from repro_torch.core.results import SimResult
+from repro_torch.core.results import SimResult, bucketed_percentiles
 from repro_torch.core.workloads import MessageTable
 from repro_torch.kernels.arbiter import dispatch
 
@@ -123,6 +130,14 @@ class SimConfig:
         """True iff the leaf-spine tier is modeled (``FabricConfig(None)``
         and ``fabric=None`` both mean the single-switch path)."""
         return self.fabric is not None and self.fabric.enabled
+
+    @property
+    def faults_on(self) -> bool:
+        """True iff the fault/recovery layer is active (DESIGN.md §7).
+        Faults hang off the fabric tier; ``fabric.faults=None`` (the
+        default) keeps the loop loss-free and bit-identical to the
+        fault-free simulator."""
+        return self.fabric_on and self.fabric.faults is not None
 
 
 def _to_slots(nbytes: np.ndarray, slot_bytes: int) -> np.ndarray:
@@ -212,6 +227,7 @@ def _init_state(cfg: SimConfig, proto: Protocol, M: int, B: int = 1):
     return {
         **proto.extra_state(cfg, M, B),       # protocol-private carry
         **(init_fabric_state(cfg, B) if cfg.fabric_on else {}),
+        **(faults.init_fault_state(cfg, M, B) if cfg.faults_on else {}),
         "sent": z(M),
         "granted_s": z(M),                    # sender-visible grant (slots)
         "grant_r": z(M),                      # receiver-issued grant (slots)
@@ -256,7 +272,7 @@ def _sender_select(cfg: SimConfig, proto: Protocol, st, S, now):
 
 
 def _fused_precompute(cfg: SimConfig, proto: Protocol, S, n_sched: int,
-                      st, now) -> dict:
+                      st, now, fx=None) -> dict:
     """``fused`` backend (DESIGN.md §11): solve ALL of this slot's
     arbitration — downlink drain, TOR uplink drain, SRPT grant top-K — in
     one kernel launch at slot start, before the stages that normally
@@ -270,19 +286,27 @@ def _fused_precompute(cfg: SimConfig, proto: Protocol, S, n_sched: int,
     1``) and ``ring_insert`` only ever writes invalid slots, so the
     winners and their payloads are unchanged. A stage whose delay
     precondition fails is simply not fused — the staged kernel runs at
-    its usual point instead. (The JAX package's host-RX and fault
-    branches belong to options the port does not run yet.)"""
+    its usual point instead. The fault masks (``fx``, the slot's plan
+    row) enter at the points the staged order applies them: the TOR
+    gate on the downlink eligibility, the link gate on the uplink's. (The
+    JAX package's host-RX branch belongs to an option the port does not
+    run yet, ROADMAP A6.)"""
     fuse_down = cfg.net_delay_slots >= 1
     fuse_up = cfg.fabric_on and cfg.fabric.leaf_delay_slots >= 1
+    fl = cfg.fabric.faults if cfg.faults_on else None
     prob = proto.receiver.grant_problem(cfg, st, S, now, n_sched)
     down = up = None
     if fuse_down:
         eligible = st["r_valid"] & (st["r_seq"] + cfg.net_delay_slots
                                     <= now)
+        if fl is not None and fl.tor_fail:
+            eligible = eligible & ~fx["host_down"][:, None]
         down = (st["r_prio"], st["r_seq"], eligible)
     if fuse_up:
         u_elig = st["u_valid"] & (st["u_seq"] + cfg.fabric.leaf_delay_slots
                                   <= now)
+        if fl is not None and (fl.link_fail or fl.tor_fail):
+            u_elig = u_elig & ~fx["link_down"][:, None]
         up = (st["u_prio"], st["u_seq"], u_elig)
     if down is None and up is None and prob is None:
         return {}
@@ -297,17 +321,20 @@ def _fused_precompute(cfg: SimConfig, proto: Protocol, S, n_sched: int,
     return fused
 
 
-def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now):
+def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
+            fx=None):
     """One link-time slot of B runs: policy-agnostic orchestration of
     receivers, uplinks, the network, and the priority-queue downlinks.
     ``S`` and ``st`` carry a leading run axis; ``now`` is a 0-d int32
-    tensor on the state's device, shared by all runs."""
+    tensor on the state's device, shared by all runs. ``fx`` is the
+    slot's fault plan row (``faults.plan_row``, as :func:`run_slots`
+    passes it), needed where ``faults.plan_needed(cfg)``."""
     H, Dg = cfg.n_hosts, cfg.grant_delay_slots
     B, M = S["size"].shape
 
     # ---- 0. fused backend: one kernel for ALL of this slot's
     # arbitration (DESIGN.md §11); {} when nothing is fusable
-    fused = _fused_precompute(cfg, proto, S, n_sched, st, now) \
+    fused = _fused_precompute(cfg, proto, S, n_sched, st, now, fx) \
         if cfg.backend == "fused" else {}
 
     # ---- 1. receiver policy (current state), store into delay history
@@ -353,14 +380,18 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now):
         st = {**st, "r_msg": r_msg, "r_prio": r_prio, "r_seq": r_seq,
               "r_valid": r_valid, "lost": st["lost"] + n_drop}
     else:
-        st = route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now)
-        st = uplink_drain(cfg, st, S, now, pre=fused.get("up"))
+        st = route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now, fx)
+        st = uplink_drain(cfg, st, S, now, pre=fused.get("up"), fx=fx)
 
     # ---- 4. downlink drain: strict priority, FIFO within level
     # (the priority_arbiter kernel on backend="cuda"; pre-solved at slot
     # start on backend="fused" — this slot's insertions carry seq == now
     # and cannot be eligible yet, so the hoisted winner is the same)
     eligible = st["r_valid"] & (st["r_seq"] + cfg.net_delay_slots <= now)
+    if cfg.faults_on and cfg.fabric.faults.tor_fail:
+        # hosts behind a failed TOR drain nothing for the window; their
+        # buffered chunks survive and resume draining when it lifts
+        eligible = eligible & ~fx["host_down"][:, None]
     if "down" in fused:
         slot_idx, any_elig, pmin = fused["down"]
     else:
@@ -391,6 +422,13 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now):
           "q_max": torch.maximum(st["q_max"], qlen),
           "wasted": wasted, "prio_drained": prio_drained}
 
+    # ---- 5b. loss recovery (fault-enabled fabrics only, DESIGN.md §7):
+    # receiver RESENDs + sender fallback timeouts rewind quiet messages'
+    # send offsets so fault-dropped chunks get retransmitted
+    if cfg.faults_on:
+        st = faults.apply_recovery(cfg, proto, st, S, now, drained_msg,
+                                   any_elig)
+
     # ---- 6. protocol end-of-slot hook (e.g. pHost sender timeouts)
     return proto.post_step(cfg, st, S, now, active, drained_msg, any_elig)
 
@@ -399,12 +437,20 @@ def run_slots(cfg: SimConfig, proto: Protocol, S, st, n_sched: int,
               start: int, stop: int):
     """Step the (stacked) state through slots ``start .. stop-1``.
     Nothing is read back to the host, so the loop only enqueues work on a
-    card."""
+    card. A fault layer or flowlet routing reads its draws and masks from
+    a plan computed once per block of slots (``faults.slot_plan``)."""
     now = torch.full((), start, dtype=I32, device=cfg.device)
+    M = S["size"].shape[1]
+    planned = faults.plan_needed(cfg)
+    block = faults.plan_block(cfg, M) if planned else max(stop - start, 1)
     with torch.inference_mode():
-        for _ in range(start, stop):
-            st = step_fn(cfg, proto, S, n_sched, st, now)
-            now = now + 1
+        for lo in range(start, stop, block):
+            hi = min(lo + block, stop)
+            plan = faults.slot_plan(cfg, M, lo, hi) if planned else None
+            for t in range(lo, hi):
+                fx = faults.plan_row(cfg, plan, lo, t) if planned else None
+                st = step_fn(cfg, proto, S, n_sched, st, now, fx)
+                now = now + 1
     return st
 
 
@@ -442,6 +488,18 @@ def _finalize(cfg: SimConfig, table: MessageTable, S, alloc, st, b: int,
             * cfg.slot_bytes,
             tor_up_q_max_bytes=st["u_q_max"] * cfg.slot_bytes,
             tor_up_lost_chunks=int(st["u_lost"]))
+    if cfg.faults_on:
+        first_loss = st["first_loss"]
+        affected = first_loss < 2 ** 30
+        # recovery time: first fault-drop on the message -> completion;
+        # -1 for messages never hit (or never finished)
+        tor_kw.update(
+            faults=dataclasses.asdict(cfg.fabric.faults),
+            retx_chunks=st["retx"],
+            msg_lost_chunks=st["msg_lost"],
+            recovery_slots=np.where(done & affected,
+                                    st["completion"] - first_loss, -1),
+            fault_lost_chunks=int(st["f_lost"]))
 
     return SimResult(
         protocol=cfg.protocol, alloc=alloc,
@@ -497,6 +555,16 @@ def run_sweep(cfg: SimConfig, spec) -> list:
     return sweep.run_spec(cfg, spec)
 
 
+def slowdown_percentiles(stats: dict | SimResult, pct: float = 99.0,
+                         n_buckets: int = 10) -> dict:
+    """Percentile slowdown bucketed by message size (paper Figs. 8/12).
+    Accepts a :class:`SimResult` or the legacy stats dict."""
+    if isinstance(stats, SimResult):
+        return stats.percentiles_by_size(pct, n_buckets)
+    return bucketed_percentiles(stats["size_bytes"], stats["slowdown"],
+                                stats["done"], pct, n_buckets)
+
+
 __all__ = ["SimConfig", "FabricConfig", "simulate", "run_sweep", "prepare",
            "stack_static", "step_fn", "run_slots", "SimResult",
-           "resolve_device"]
+           "resolve_device", "slowdown_percentiles"]

@@ -293,6 +293,9 @@ def _device_summary(cfg, st, acc) -> dict:
     }
     if cfg.fabric_on:
         out["u_busy"] = st["u_busy"].sum(dim=1)
+    if cfg.faults_on:
+        out["f_lost"] = st["f_lost"]
+        out["retx"] = st["retx"].sum(dim=1)
     return out
 
 
@@ -449,6 +452,8 @@ def _stats_from_row(cfg, stream: StreamSpec, row: dict, alloc,
         tor_up_busy_frac=float(row["u_busy"])
         / (cfg.fabric.n_uplinks(cfg.n_hosts) * ms)
         if cfg.fabric_on else None,
+        fault_lost_chunks=int(row["f_lost"]) if cfg.faults_on else None,
+        retx_chunks=int(row["retx"]) if cfg.faults_on else None,
     )
 
 

@@ -8,9 +8,9 @@ ordering by mean size W1 < ... < W5). Generation draws from
 ``np.random.default_rng(seed)`` in the same order as the JAX package, so
 both packages build identical tables from one seed.
 
-Only the ``poisson`` kind is ported; the scenario kinds (``incast``,
-``hotspot``, ``shuffle``) and the poisson incast overlay raise
-``NotImplementedError`` until ROADMAP A1 ports ``scenarios``.
+Every :class:`WorkloadSpec` kind builds here: ``poisson`` (with the
+optional incast overlay) in this module, ``incast`` / ``hotspot`` /
+``shuffle`` in :mod:`repro_torch.core.scenarios`.
 """
 from __future__ import annotations
 
@@ -68,45 +68,79 @@ class MessageTable:
 
 _SPEC_KINDS = ("poisson", "incast", "hotspot", "shuffle")
 
+# fields each kind requires beyond the defaults
+_SPEC_REQUIRED = {
+    "poisson": ("workload", "load"),
+    "incast": ("fan_in", "burst_bytes"),
+    "hotspot": ("workload", "load"),
+    "shuffle": ("bytes_per_pair",),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
     """One frozen description of how to generate a :class:`MessageTable`.
 
-    The port builds ``kind="poisson"`` tables; the other kinds keep their
-    names so a spec written for the JAX package fails loudly here rather
-    than building something else.
+    Unifies :func:`make_messages` and the scenario generators
+    (``scenarios.incast`` / ``hotspot`` / ``shuffle``) behind one spec
+    type that :class:`repro_torch.core.sweep.SweepSpec` accepts directly;
+    those functions are thin wrappers over ``WorkloadSpec(...).build``,
+    so generation (and its RNG draw order) is defined in one place.
+
+    Only the fields of the chosen ``kind`` matter; topology-dependent
+    parameters (``n_hosts``, ``slot_bytes``) go to :meth:`build`, so one
+    spec serves every topology in a sweep.
     """
-    kind: str = "poisson"
+    kind: str = "poisson"            # poisson | incast | hotspot | shuffle
+    # poisson / hotspot base workload
     workload: str | None = None      # W1..W5
     load: float | None = None
     n_messages: int = 2000
     seed: int = 0
     max_bytes: int | None = None
     incast: tuple[int, int, int] | None = None   # poisson burst overlay
+    # incast scenario
+    fan_in: int | None = None
+    burst_bytes: int | None = None
+    dst: int = 0
+    n_bursts: int = 1
+    period_slots: int = 2000
+    first_slot: int = 0
+    background: str | None = None
+    background_load: float = 0.0
+    n_background: int = 0
+    # hotspot
+    hot_fraction: float = 0.5
+    n_hot: int = 1
+    # shuffle
+    bytes_per_pair: int | None = None
+    spread_slots: int = 0
 
     def __post_init__(self):
         if self.kind not in _SPEC_KINDS:
             raise ValueError(f"unknown WorkloadSpec kind {self.kind!r}; "
                              f"one of {_SPEC_KINDS}")
-        if self.kind != "poisson" or self.incast is not None:
-            what = (f"kind={self.kind!r}" if self.kind != "poisson"
-                    else "the poisson incast overlay")
-            raise NotImplementedError(
-                f"WorkloadSpec {what} is not ported to repro_torch yet "
-                f"(ROADMAP A1: scenarios)")
-        missing = [f for f in ("workload", "load")
+        missing = [f for f in _SPEC_REQUIRED[self.kind]
                    if getattr(self, f) is None]
         if missing:
             raise ValueError(f"WorkloadSpec(kind={self.kind!r}) requires "
                              f"{missing}")
+        if self.incast is not None:
+            object.__setattr__(self, "incast", tuple(self.incast))
 
     def with_seed(self, seed: int) -> "WorkloadSpec":
         return dataclasses.replace(self, seed=seed)
 
     def build(self, *, n_hosts: int, slot_bytes: int = 256) -> MessageTable:
         """Generate the table for a concrete topology."""
-        return _poisson_table(self, n_hosts, slot_bytes)
+        if self.kind == "poisson":
+            return _poisson_table(self, n_hosts, slot_bytes)
+        # scenario kinds live in scenarios, which builds on this module
+        from repro_torch.core import scenarios
+        impl = {"incast": scenarios._incast_impl,
+                "hotspot": scenarios._hotspot_impl,
+                "shuffle": scenarios._shuffle_impl}[self.kind]
+        return impl(self, n_hosts, slot_bytes)
 
 
 def _poisson_table(ws: WorkloadSpec, n_hosts: int,
@@ -122,9 +156,24 @@ def _poisson_table(ws: WorkloadSpec, n_hosts: int,
     src = rng.integers(0, n_hosts, ws.n_messages)
     dst = rng.integers(0, n_hosts - 1, ws.n_messages)
     dst = np.where(dst >= src, dst + 1, dst)   # dst != src
-    return MessageTable(src.astype(np.int32), dst.astype(np.int32),
-                        sizes, arrivals.astype(np.int32), ws.workload,
-                        ws.load, slot_bytes)
+    tbl = MessageTable(src.astype(np.int32), dst.astype(np.int32),
+                       sizes, arrivals.astype(np.int32), ws.workload,
+                       ws.load, slot_bytes)
+    if ws.incast is not None:
+        from repro_torch.core import scenarios
+        fan_in, burst_bytes, period_slots = ws.incast
+        if period_slots < 1:
+            raise ValueError(f"incast period_slots must be >= 1, got "
+                             f"{period_slots}")
+        horizon = int(arrivals.max()) if ws.n_messages else 0
+        bursts = scenarios.incast(
+            fan_in, burst_bytes, n_hosts=n_hosts, slot_bytes=slot_bytes,
+            n_bursts=max(horizon // period_slots, 1),
+            period_slots=period_slots, first_slot=period_slots,
+            seed=ws.seed)
+        tbl = scenarios.merge_tables(tbl, bursts, workload=ws.workload,
+                                     load=ws.load)
+    return tbl
 
 
 def make_messages(workload: str, *, n_hosts: int, load: float,
@@ -135,6 +184,13 @@ def make_messages(workload: str, *, n_hosts: int, load: float,
 
     Each host's downlink drains one slot (slot_bytes) per tick; `load` is the
     fraction of aggregate link bandwidth consumed by message bytes.
+
+    ``incast=(fan_in, burst_bytes, period_slots)`` overlays periodic
+    fan-in bursts on the background traffic: every ``period_slots``,
+    ``fan_in`` senders each emit one ``burst_bytes`` response to host 0
+    simultaneously (``scenarios.incast``), until the background's arrival
+    horizon is covered.
+
     Thin wrapper over ``WorkloadSpec(kind="poisson", ...).build(...)``.
     """
     return WorkloadSpec(kind="poisson", workload=workload, load=load,
@@ -143,5 +199,12 @@ def make_messages(workload: str, *, n_hosts: int, load: float,
                             n_hosts=n_hosts, slot_bytes=slot_bytes)
 
 
+def bytes_weighted_unsched_fraction(sizes: np.ndarray,
+                                    unsched_limit: int) -> float:
+    """Share of all bytes that fall inside each message's first
+    ``unsched_limit`` bytes (the unscheduled, blind part)."""
+    return float(np.minimum(sizes, unsched_limit).sum() / sizes.sum())
+
+
 __all__ = ["WORKLOAD_BINS", "sample_sizes", "MessageTable", "WorkloadSpec",
-           "make_messages"]
+           "make_messages", "bytes_weighted_unsched_fraction"]

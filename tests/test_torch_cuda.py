@@ -2,7 +2,9 @@
 (the staged arbiter and top-K — its one-pass and rounds routines, by
 their counter — the fused per-slot kernel at every stage subset and B in
 {1, 4, 12}, the SSD chunk scan and flash attention, whose wrappers refuse
-inputs that require grad).
+inputs that require grad), and the lossy fabric on the card: each backend
+against ``tests/golden/faults_enabled.json``, and a full-width fault
+window with no host sync.
 
 These tests need a CUDA card and skip without one (marker ``gpu``); run
 them there with ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py``.
@@ -978,3 +980,95 @@ def test_attention_kernels_are_deterministic(cuda, dtype):
     a = flash_attention(q, k, v, causal=True, window=90)
     b = flash_attention(q, k, v, causal=True, window=90)
     assert torch.equal(a, b)
+
+
+# ------------------------------------------------- the lossy fabric ---------
+
+def _fault_golden():
+    import json
+    from pathlib import Path
+    return json.loads((Path(__file__).parent / "golden"
+                       / "faults_enabled.json").read_text())
+
+
+def _windows_runs():
+    return [r for r in _fault_golden()["small"]["runs"]
+            if r["name"].startswith("homa-windows-")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run", _windows_runs(),
+                         ids=[r["routing"] for r in _windows_runs()])
+def test_lossy_leaf_spine_backends_match_the_fault_golden(cuda, run):
+    """A small lossy leaf-spine run with a failed uplink and a failed TOR
+    under each routing policy: ``cuda``, ``fused`` and ``reference`` on
+    the card give the ``"small"`` golden's outputs bit for bit, one
+    kernel launch set per slot on each kernel backend."""
+    from repro_torch.core import (FabricConfig, SimConfig, make_messages,
+                                  simulate)
+    meta = _fault_golden()["small"]["meta"]
+    tbl = make_messages(meta["workload"], n_hosts=meta["n_hosts"],
+                        load=meta["load"], n_messages=meta["n_messages"],
+                        slot_bytes=meta["slot_bytes"], seed=meta["seed"])
+    fab = FabricConfig(racks=meta["racks"], oversub=meta["oversub"],
+                       up_cap=meta["up_cap"], routing=run["routing"],
+                       faults=run["faults"])
+    slots = meta["max_slots"]
+    for backend, want_n in (("cuda", {"priority_arbiter": 2 * slots,
+                                      "srpt_topk": slots}),
+                            ("fused", {"fused_slot": slots}),
+                            ("reference", {})):
+        kernel.reset_launch_counts()
+        r = simulate(SimConfig(protocol="homa", n_hosts=meta["n_hosts"],
+                               max_slots=slots, ring_cap=meta["ring_cap"],
+                               fabric=fab, backend=backend,
+                               device="cuda"), tbl)
+        n = kernel.launch_counts()
+        assert all(n[k] == want_n.get(k, 0) for k in n), (backend, n)
+        got = {"completion": [int(x) for x in r.completion],
+               "retx_chunks": [int(x) for x in r.retx_chunks],
+               "msg_lost_chunks": [int(x) for x in r.msg_lost_chunks],
+               "fault_lost_chunks": int(r.fault_lost_chunks),
+               "lost_chunks": int(r.lost_chunks),
+               "tor_up_lost_chunks": int(r.tor_up_lost_chunks),
+               "busy": [round(float(x), 8) for x in r.busy_frac]}
+        bad = [k for k in got if got[k] != run[k]]
+        assert not bad, (backend, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "fused"])
+@pytest.mark.parametrize("routing", ["flowlet", "adaptive"])
+def test_fault_window_runs_without_host_sync(cuda, backend, routing):
+    """The golden's full-width faults (144 hosts, 9 racks, a failed
+    uplink and a failed TOR open at slot 1500): 20 slots from there,
+    plans included, enqueue no host sync on either kernel backend."""
+    from repro_torch.core import (FabricConfig, SimConfig, make_messages)
+    from repro_torch.core.protocols import get_protocol
+    from repro_torch.core.sim import (_init_state, prepare, run_slots,
+                                      stack_static)
+    g = _fault_golden()["full"]
+    m = g["meta"]
+    tbl = make_messages(m["workload"], n_hosts=m["n_hosts"], load=m["load"],
+                        n_messages=m["n_messages"],
+                        slot_bytes=m["slot_bytes"], seed=m["seed"])
+    cfg = SimConfig(protocol="homa", n_hosts=m["n_hosts"],
+                    ring_cap=m["ring_cap"], max_slots=m["slots"],
+                    fabric=FabricConfig(racks=m["racks"],
+                                        oversub=m["oversub"],
+                                        up_cap=m["up_cap"], routing=routing,
+                                        faults=g["faults"]),
+                    backend=backend, device="cuda")
+    proto = get_protocol("homa")
+    S1, alloc = prepare(cfg, tbl)
+    S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
+    st = _init_state(cfg, proto, len(tbl.size))
+    st = run_slots(cfg, proto, S, st, n_sched, 1000, 1500)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = run_slots(cfg, proto, S, st, n_sched, 1500, 1520)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(st["f_lost"][0]) > 0

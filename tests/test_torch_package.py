@@ -81,18 +81,35 @@ def test_backend_names_are_the_ports_own(monkeypatch):
     (lambda: SimConfig(device="cpu", host="kernel_stack"), "A6"),
     (lambda: SimConfig(device="cpu", host={"model": "cpu"}), "A6"),
     (lambda: SimConfig(device="cpu", trace=object()), "A7"),
-    (lambda: FabricConfig(racks=2, faults={"up_loss": 0.01}), "A5"),
-    (lambda: FabricConfig(racks=2, routing="flowlet"), "A5"),
-    (lambda: FabricConfig(racks=2, routing="adaptive"), "A5"),
-    (lambda: WorkloadSpec(kind="incast"), "A1"),
-    (lambda: WorkloadSpec(kind="hotspot", workload="W1", load=0.5), "A1"),
-    (lambda: WorkloadSpec(kind="shuffle"), "A1"),
-    (lambda: make_messages("W1", n_hosts=4, load=0.5, n_messages=10,
-                           slot_bytes=256, incast=(2, 1000, 100)), "A1"),
+    (lambda: SimConfig(device="cpu", host="kernel_bypass"), "A6"),
+    (lambda: SimConfig(device="cpu", trace={"stride": 8}), "A7"),
 ])
 def test_unported_options_raise(make, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         make()
+
+
+@pytest.mark.parametrize("make", [
+    lambda: SimConfig(device="cpu", n_hosts=8, fabric=FabricConfig(
+        racks=2, faults={"up_loss": 0.01})),
+    lambda: SimConfig(device="cpu", n_hosts=8, fabric=FabricConfig(
+        racks=2, routing="flowlet")),
+    lambda: SimConfig(device="cpu", n_hosts=8, fabric=FabricConfig(
+        racks=2, routing="adaptive")),
+    lambda: WorkloadSpec(kind="incast", fan_in=3,
+                         burst_bytes=1000).build(n_hosts=4),
+    lambda: WorkloadSpec(kind="hotspot", workload="W1", load=0.5,
+                         n_messages=10).build(n_hosts=4),
+    lambda: WorkloadSpec(kind="shuffle", bytes_per_pair=500).build(
+        n_hosts=4),
+    lambda: make_messages("W1", n_hosts=4, load=0.5, n_messages=10,
+                          slot_bytes=256, incast=(2, 1000, 100)),
+])
+def test_front_end_and_fault_options_are_ported(make):
+    """The options ROADMAP A1 and A5 refused until they were ported now
+    build (the tables and runs are held to JAX in test_torch_scenarios.py
+    and test_torch_faults.py)."""
+    assert make() is not None
 
 
 def test_fused_backend_resolves():
