@@ -121,9 +121,32 @@ result line:
            ``fused`` (one ``fused_slot_batch`` a slot) and ``cuda``:
            every integer of the statistics identical, ``f_lost`` and
            ``retx`` included
+10. host   the host/NIC stage and in-loop telemetry (DESIGN.md §10, §8):
+           (a) the 13 runs of ``tests/golden/host_trace_enabled.json``'s
+           ``"small"`` part (16 hosts; all six protocols behind
+           ``kernel_stack`` with tracing, ``kernel_bypass`` and a
+           backpressuring custom host, host and tracing on a lossy
+           fabric, tracing alone), each once, on ``cuda`` and ``fused``
+           in turns (the card tests replay each on both), every state
+           array by digest, the ledger rows and the trace's scalars
+           bit-exact; (b) its ``"full"`` point — 144 hosts, 9
+           racks, W3 at load 0.4, homa behind ``kernel_stack`` with
+           ``TraceConfig(stride=16, ledger_cap=4096)`` — 4000 slots on
+           ``cuda``, ``fused`` and ``reference``: the state identical
+           key by key and equal to the JAX package's (digests,
+           completions, counters), chunks conserved through the RX ring,
+           completions equal to an untraced run's; then a window from
+           slot 2000 with no host sync and a profiled stretch of 50 slots
+           on both
+           kernel backends, and the capture's cost (the wall-clock plane,
+           traced vs capture off, 1000 slots, best of 2); (c) four
+           full-width runs (seeds 0-3) of that point, one streaming
+           ``run_sweep`` batch of 2000 slots on ``fused`` and ``cuda``:
+           host and trace summaries identical. The runs of (a)-(c) go to
+           worker processes, six at once
 
 ``--phases card,llama`` (any comma-separated subset of card, kernels,
-goldens, full, window, sweep, model, llama, faults) runs only those
+goldens, full, window, sweep, model, llama, faults, host) runs only those
 phases and prints no result lines; with no arguments every phase runs.
 
 Then one JSON line with each kernel's numbers, and last
@@ -2165,10 +2188,323 @@ def phase_faults():
     return out
 
 
+# ------------------------------------------------------------ phase 10 -----
+
+HOST_GOLDEN = ROOT / "tests" / "golden" / "host_trace_enabled.json"
+HOST_HANDOFF = 2000              # 10b's window starts here (steady state)
+HOST_SWEEP_SEEDS = (0, 1, 2, 3)
+HOST_SWEEP_SLOTS = 2000          # phase 10c's depth
+CAPTURE_SLOTS = 1000             # the capture-cost runs' depth and repeats
+CAPTURE_REPEATS = 2
+HOST_WINDOW_SLOTS = 50           # 10b's profiled stretch (the profiler's
+                                 # post-processing costs ~0.2 s a slot)
+
+
+def _host_golden():
+    return json.loads(HOST_GOLDEN.read_text())
+
+
+def _golden_script():
+    """``scripts/make_torch_host_trace_golden.py`` as a module: its
+    ``record``/``differences`` (JAX is imported only where it writes
+    the golden)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_host_trace_golden",
+        ROOT / "scripts" / "make_torch_host_trace_golden.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _host_full_config(backend, traced=True, max_slots=None, seed=None):
+    """The golden's "full" point: 144 hosts, 9 racks, W3 at load 0.4,
+    homa behind ``kernel_stack`` with ``TraceConfig(stride=16,
+    ledger_cap=4096)``; ``traced=False`` drops the trace, ``max_slots`` /
+    ``seed`` (the table's) override the depth and table for 10c."""
+    from repro_torch.core import (FabricConfig, SimConfig, TraceConfig,
+                                  make_messages)
+    g = _host_golden()["full"]
+    m = g["meta"]
+    tbl = make_messages(m["workload"], n_hosts=m["n_hosts"], load=m["load"],
+                        n_messages=m["n_messages"],
+                        slot_bytes=m["slot_bytes"],
+                        seed=m["seed"] if seed is None else seed)
+    cfg = SimConfig(protocol=m["protocol"], n_hosts=m["n_hosts"],
+                    ring_cap=m["ring_cap"],
+                    max_slots=max_slots or m["slots"],
+                    fabric=FabricConfig(racks=m["racks"],
+                                        oversub=m["oversub"],
+                                        up_cap=m["up_cap"]),
+                    host=m["host"],
+                    trace=TraceConfig(**g["trace"]) if traced else None,
+                    backend=backend, device=DEVICE)
+    return cfg, tbl
+
+
+def _host_job(kind, arg, backend):
+    """One run of phase 10 in a worker process:
+
+      ("replay", name, backend)   a run of the golden's "small" part:
+                                  the fields that differ, launches, s
+      ("full", traced, backend)   10b's point, 4000 slots: final state,
+                                  the state at HOST_HANDOFF (traced
+                                  cuda run only), launches, s
+      ("sweep", None, backend)    10c's B = 4 streaming sweep: its
+                                  SweepStats, launches, s
+    """
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.kernels.arbiter import kernel
+    kernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kind == "replay":
+        from repro_torch.core import (FabricConfig, SimConfig, TraceConfig,
+                                      make_messages, simulate)
+        gs = _golden_script()
+        small = _host_golden()["small"]
+        meta, run = small["meta"], {r["name"]: r
+                                    for r in small["runs"]}[arg]
+        tbl = make_messages(meta["workload"], n_hosts=meta["n_hosts"],
+                            load=meta["load"],
+                            n_messages=meta["n_messages"],
+                            slot_bytes=meta["slot_bytes"], seed=meta["seed"])
+        fab = gs.small_fabric(meta, run["topology"])
+        r = simulate(SimConfig(
+            protocol=run["protocol"], n_hosts=meta["n_hosts"],
+            max_slots=meta["max_slots"], ring_cap=meta["ring_cap"],
+            fabric=None if fab is None else FabricConfig(**fab),
+            host=run["host_cfg"],
+            trace=None if run["trace_cfg"] is None
+            else TraceConfig(**run["trace_cfg"]),
+            backend=backend, device=DEVICE), tbl, return_state=True)
+        out = gs.differences(run, gs.record(r, r.state))
+    elif kind == "full":
+        from repro_torch.core.protocols import get_protocol
+        from repro_torch.core.sim import (_init_state, host_state, prepare,
+                                          run_slots, stack_static)
+        cfg, tbl = _host_full_config(backend, traced=arg)
+        proto = get_protocol(cfg.protocol)
+        S1, alloc = prepare(cfg, tbl)
+        S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
+        st = _init_state(cfg, proto, len(tbl.size))
+        st = run_slots(cfg, proto, S, st, n_sched, 0, HOST_HANDOFF)
+        handoff = host_state(st) if arg and backend == "cuda" else None
+        st = run_slots(cfg, proto, S, st, n_sched, HOST_HANDOFF,
+                       cfg.max_slots)
+        out = (host_state(st), handoff)
+    else:
+        from repro_torch.core import SweepSpec, run_sweep
+        tables = [_host_full_config("fused", seed=sd)[1]
+                  for sd in HOST_SWEEP_SEEDS]
+        cfg = _host_full_config(backend, max_slots=HOST_SWEEP_SLOTS)[0]
+        out = run_sweep(cfg, SweepSpec(tables=tables, shared_alloc=True,
+                                       chunk_slots=1000, streaming=True))
+    torch.cuda.synchronize()
+    return out, kernel.launch_counts(), time.perf_counter() - t0
+
+
+def _host_conserved(st: dict) -> bool:
+    """Chunk conservation of run 0 through the RX ring: sent == recv +
+    buffered (both tiers) + lost (both rings) + held in the RX ring."""
+    def tot(k):
+        return int(st[k][0].sum())
+    return tot("sent") == (tot("recv") + tot("r_valid") + tot("u_valid")
+                           + tot("lost") + tot("u_lost")
+                           + int((st["h_rx_tail"][0]
+                                  - st["h_rx_head"][0]).sum()))
+
+
+def phase_host():
+    """10a: the host/trace golden's small runs on both kernel backends;
+    10b: the full-width point with the kernel_stack host and tracing on
+    every backend (and untraced), state identical key by key at slot 4000
+    and equal to the JAX package's, a window from slot 2000 with no host
+    sync and profiled, and the capture's cost; 10c: a B = 4 streaming
+    sweep on both kernel backends, host and trace summaries identical.
+    The runs of 10a-10c go to worker processes at once, longest first."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import ReceiverPolicy, simulate
+    from repro_torch.core.protocols import get_protocol
+    from repro_torch.core.results import state_digests
+    from repro_torch.core.sim import prepare, stack_static
+    from repro_torch.core.telemetry import TraceConfig
+    golden = _host_golden()
+    full = golden["full"]
+    slots = full["meta"]["slots"]
+    small = golden["small"]
+    out = {"launches": {}, "rate": {}}
+
+    # 10a replays each small run once, on cuda and fused in turns (the
+    # card tests replay every run on both)
+    jobs = ([("full", True, b) for b in ("cuda", "fused", "reference")]
+            + [("full", False, "cuda")]
+            + [("sweep", None, b) for b in ("fused", "cuda")]
+            + [("replay", r["name"], ("cuda", "fused")[i % 2])
+               for i, r in enumerate(small["runs"])])
+    t0 = time.perf_counter()
+    res = dict(zip(jobs, _in_workers(_host_job, jobs)))
+    say(f"[host] {len(jobs)} runs of 10a-10c in {GOLDEN_WORKERS} worker "
+        f"processes: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10a
+    n_small = small["meta"]["max_slots"]
+    runs = {r["name"]: r for r in small["runs"]}
+    for (kind, name, backend), (bad, n, secs) in res.items():
+        if kind != "replay":
+            continue
+        check(not bad, f"host golden {name} {backend}: differs in {bad}")
+        run = runs[name]
+        if backend == "cuda":
+            # one arbiter launch a tier a slot; a top-K a slot where the
+            # receiver selects a grant set
+            recv = type(get_protocol(run["protocol"]).receiver)
+            want = {"priority_arbiter": n_small
+                    * (1 if run["topology"] == "switch" else 2),
+                    "srpt_topk": n_small if recv.grant_problem
+                    is not ReceiverPolicy.grant_problem else 0}
+        else:
+            want = {"fused_slot": n_small}
+        check(all(n[k] == want.get(k, 0) for k in n),
+              f"host golden {name} {backend}: launches {n}, want {want}")
+    say(f"[host] 10a: the {len(small['runs'])} runs of the host/trace "
+        f"golden's small part bit-exact, on cuda and fused in turns (every "
+        f"state array by digest, ledger rows, trace scalars, host summary)")
+
+    # ---- 10b
+    states = {}
+    for backend in ("cuda", "fused", "reference"):
+        (st, handoff), n, secs = res[("full", True, backend)]
+        states[backend] = st
+        if handoff is not None:
+            out["handoff"] = handoff
+        out["launches"][backend] = n
+        out["rate"][backend] = slots / secs
+        say(f"[host] 10b full width, {slots} slots, {backend}: {secs:.2f} s "
+            f"in a worker, {slots / secs:.1f} slots/s; launches {n}")
+    check(out["launches"]["cuda"] == {"priority_arbiter": 2 * slots,
+                                      "srpt_topk": slots, "fused_slot": 0,
+                                      "fused_slot_batch": 0},
+          f"host run launches {out['launches']['cuda']} on cuda")
+    check(out["launches"]["fused"] == {"priority_arbiter": 0,
+                                       "srpt_topk": 0, "fused_slot": slots,
+                                       "fused_slot_batch": 0},
+          f"host run launches {out['launches']['fused']} on fused")
+    check(set(out["launches"]["reference"].values()) == {0},
+          "the reference backend launched a kernel")
+    ref = states["reference"]
+    for backend in ("cuda", "fused"):
+        st = states[backend]
+        check(set(st) == set(ref), f"{backend}: state keys differ")
+        for k in ref:
+            check(st[k].dtype == ref[k].dtype
+                  and np.array_equal(st[k], ref[k]),
+                  f"slot {slots}: {backend} and reference differ in {k}")
+    digests = state_digests({k: v[0] for k, v in ref.items()})
+    check(digests == full["digests"],
+          f"slot {slots}: state differs from the JAX package's in "
+          f"{sorted(k for k in digests if digests[k] != full['digests'].get(k))}")
+    check([int(x) for x in ref["completion"][0]] == full["completion"],
+          "completions differ from the JAX package's")
+    gs = _golden_script()
+    counters = gs.full_counters({k: v[0] for k, v in ref.items()})
+    check(counters == full["counters"],
+          f"counters {counters} != the JAX package's {full['counters']}")
+    check(_host_conserved(ref), f"chunk conservation fails: {counters}")
+    check(counters["rx_ring"] > 0 and counters["h_tx_defer"] > 0,
+          f"the host stage held nothing back: {counters}")
+    (plain_st, _), _, secs = res[("full", False, "cuda")]
+    check(np.array_equal(plain_st["completion"], ref["completion"]),
+          "tracing changed the completions of the full-width host run")
+    check(not any(k.startswith("tr_") for k in plain_st),
+          "the untraced run carries trace state")
+    done = int((ref["completion"][0] >= 0).sum())
+    say(f"[host] 10b: every state key identical on cuda, fused and "
+        f"reference at slot {slots}, equal to the JAX package's (digests, "
+        f"completions, counters {counters}); chunks conserved through the "
+        f"RX ring; {done} of {len(full['completion'])} messages complete; "
+        f"completions equal to the untraced run's ({secs:.2f} s in a worker)")
+
+    # the window: from the staged run's state at HOST_HANDOFF
+    cfg, tbl = _host_full_config("cuda")
+    proto = get_protocol(cfg.protocol)
+    S1, alloc = prepare(cfg, tbl)
+    S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
+    st = {k: torch.from_numpy(v).to(DEVICE)
+          for k, v in out.pop("handoff").items()}
+    cfgs = {b: _host_full_config(b)[0] for b in ("cuda", "fused")}
+    t0 = time.perf_counter()
+    out["window"] = _windows(cfgs, S, st, n_sched, HOST_HANDOFF,
+                             HOST_WINDOW_SLOTS, "host")
+    say(f"[host] the windows: {time.perf_counter() - t0:.1f} s")
+
+    # the capture's cost: the wall-clock plane, traced vs capture off
+    t0 = time.perf_counter()
+    cost = {}
+    for name, trace in (("traced", TraceConfig(
+            stride=16, ledger_cap=4096, wallclock=True,
+            wallclock_repeats=CAPTURE_REPEATS)),
+            ("off", TraceConfig(enabled=False, wallclock=True,
+                                wallclock_repeats=CAPTURE_REPEATS))):
+        c = dataclasses.replace(_host_full_config("cuda")[0],
+                                max_slots=CAPTURE_SLOTS, trace=trace)
+        r = simulate(c, tbl)
+        t = r.trace.timings if r.trace is not None \
+            else r.trace_summary["timings"]
+        check(set(t) == {"trace_s", "compile_s", "execute_s",
+                         "execute_repeats"}, f"wallclock keys {sorted(t)}")
+        cost[name] = t
+    out["capture"] = cost
+    out["capture_pct"] = (cost["traced"]["execute_s"]
+                          / cost["off"]["execute_s"] - 1) * 100
+    say(f"[host] capture cost, cuda, {CAPTURE_SLOTS} slots, best of "
+        f"{CAPTURE_REPEATS}: traced {cost['traced']}, capture off "
+        f"{cost['off']}: {out['capture_pct']:+.1f}% execute time "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 10c
+    stats = {}
+    for backend in ("fused", "cuda"):
+        stats[backend], n, secs = res[("sweep", None, backend)]
+        out["launches"][f"sweep_{backend}"] = n
+        out["rate"][f"sweep_{backend}"] = \
+            len(HOST_SWEEP_SEEDS) * HOST_SWEEP_SLOTS / secs
+        say(f"[host] 10c sweep: {len(HOST_SWEEP_SEEDS)} full-width runs "
+            f"(seeds {HOST_SWEEP_SEEDS}), {HOST_SWEEP_SLOTS} slots, "
+            f"{backend}: {secs:.2f} s in a worker, "
+            f"{out['rate'][f'sweep_{backend}']:.1f} runs*slots/s; "
+            f"launches {n}")
+    check(out["launches"]["sweep_fused"]["fused_slot_batch"]
+          == HOST_SWEEP_SLOTS
+          and out["launches"]["sweep_fused"]["fused_slot"] == 0,
+          "host sweep: expected one fused_slot_batch launch a slot")
+    check(out["launches"]["sweep_cuda"]["priority_arbiter"]
+          == 2 * HOST_SWEEP_SLOTS
+          and out["launches"]["sweep_cuda"]["srpt_topk"]
+          == HOST_SWEEP_SLOTS, "host sweep: staged launches")
+    for i, (a, b) in enumerate(zip(stats["fused"], stats["cuda"])):
+        check(np.array_equal(a.hist, b.hist)
+              and a.summary() == b.summary(),
+              f"host sweep run {i}: fused and cuda summaries differ")
+    check(all(s.summary()["host"] and s.summary()["trace"]
+              and s.n_counted > 0 for s in stats["fused"]),
+          "host sweep: a run has no host or trace summary, or completed "
+          "nothing")
+    say(f"[host] 10c: host and trace summaries identical on fused and "
+        f"cuda: host {[s.summary()['host'] for s in stats['fused']][:1]}, "
+        f"events seen "
+        f"{[s.trace_summary['n_events_seen'] for s in stats['fused']]}, "
+        f"completed {[s.n_complete for s in stats['fused']]}")
+    return out
+
+
 # ---------------------------------------------------------------- main -----
 
 PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model",
-          "llama", "faults")
+          "llama", "faults", "host")
 
 
 def main(argv=None) -> int:
@@ -2226,6 +2562,8 @@ def main(argv=None) -> int:
             res["llama"] = run("llama", phase_llama)
         if "faults" in phases:
             res["faults"] = run("faults", phase_faults)
+        if "host" in phases:
+            res["host"] = run("host", phase_host)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2238,8 +2576,9 @@ def main(argv=None) -> int:
     sweep_rate, sweep_window = res["sweep_rate"], res["sweep_window"]
     full_launches, sweep_launches = res["full_launches"], \
         res["sweep_launches"]
-    err, perf, model, llama, fz = (res["err"], res["perf"], res["model"],
-                                   res["llama"], res["faults"])
+    err, perf, model, llama, fz, hz = (res["err"], res["perf"],
+                                       res["model"], res["llama"],
+                                       res["faults"], res["host"])
     say(f"[summary] runs*slots/s: B=1 cuda {full_rate:.1f}; B=12 "
         + ", ".join(f"{b} {r:.1f}" for b, r in sweep_rate.items()))
     sweep_cuda = sweep_window["cuda"]
@@ -2266,6 +2605,22 @@ def main(argv=None) -> int:
         f"{fw['fused']['device_us_per_slot']:.1f}); B=4 sweep runs*slots/s "
         f"fused {fz['rate']['sweep_fused']:.1f}, cuda "
         f"{fz['rate']['sweep_cuda']:.1f}")
+    hw = hz["window"]
+    say(f"[summary] host (kernel_stack + trace, 144 hosts, 4000 slots in "
+        f"workers): slots/s cuda {hz['rate']['cuda']:.1f}, fused "
+        f"{hz['rate']['fused']:.1f}, reference {hz['rate']['reference']:.1f}"
+        f"; window ms/slot (device busy; device us/slot; kernels/slot) cuda "
+        f"{hw['cuda']['ms_per_slot']:.3f} ({hw['cuda']['busy']:.4f}; "
+        f"{hw['cuda']['device_us_per_slot']:.1f}; "
+        f"{hw['cuda']['kernels_per_slot']:.1f}), fused "
+        f"{hw['fused']['ms_per_slot']:.3f} ({hw['fused']['busy']:.4f}; "
+        f"{hw['fused']['device_us_per_slot']:.1f}; "
+        f"{hw['fused']['kernels_per_slot']:.1f}) beside phase 5's cuda "
+        f"{window['cuda']['kernels_per_slot']:.1f} kernels/slot, "
+        f"{window['cuda']['device_us_per_slot']:.1f} us/slot; capture "
+        f"cost {hz['capture_pct']:+.1f}%; B=4 sweep runs*slots/s fused "
+        f"{hz['rate']['sweep_fused']:.1f}, cuda "
+        f"{hz['rate']['sweep_cuda']:.1f}")
     say(f"[summary] mamba2-130m: prefill {model['tokens_per_s']:.0f} "
         f"tokens/s (4 x 4096), serve {model['decode_steps_per_s']:.1f} "
         f"decode steps/s (batch 4)")
@@ -2304,9 +2659,17 @@ def main(argv=None) -> int:
         "srpt_topk": fl["cuda"]["srpt_topk"],
         "fused_slot": fl["fused"]["fused_slot"],
         "fused_slot_batch": fl["sweep_fused"]["fused_slot_batch"]}
+    # and on phase 10's: the host/trace runs of 10b (B = 1) and 10c (B = 4)
+    hl = hz["launches"]
+    host_launches = {
+        "priority_arbiter": hl["cuda"]["priority_arbiter"],
+        "srpt_topk": hl["cuda"]["srpt_topk"],
+        "fused_slot": hl["fused"]["fused_slot"],
+        "fused_slot_batch": hl["sweep_fused"]["fused_slot_batch"]}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "launches_faults": fault_launches[name],
+         "launches_host": host_launches[name],
          "max_abs_err": err[name], "ms": perf[name]["ms"],
          "plain_ms": perf[name]["plain_ms"],
          "bound_ms": perf[name]["bound_ms"], "bound_by": "bytes",

@@ -353,13 +353,20 @@ def uplink_drain(cfg, st, S, now, pre=None, fx=None):
         dst, ins_ok, msg, prio, vseq)
 
     qlen = eligible.sum(dim=2, dtype=I32) - any_e.to(I32)
-    return {**st,
-            "r_msg": r_msg, "r_prio": r_prio, "r_seq": r_seq,
-            "r_valid": r_valid, "u_valid": u_valid,
-            "lost": st["lost"] + d_drop,
-            "u_busy": st["u_busy"] + any_e.to(I32),
-            "u_q_sum": st["u_q_sum"] + qlen.to(torch.float32),
-            "u_q_max": torch.maximum(st["u_q_max"], qlen)}
+    out = {**st,
+           "r_msg": r_msg, "r_prio": r_prio, "r_seq": r_seq,
+           "r_valid": r_valid, "u_valid": u_valid,
+           "lost": st["lost"] + d_drop,
+           "u_busy": st["u_busy"] + any_e.to(I32),
+           "u_q_sum": st["u_q_sum"] + qlen.to(torch.float32),
+           "u_q_max": torch.maximum(st["u_q_max"], qlen)}
+    if cfg.trace_on:
+        # telemetry tap (DESIGN.md §8): running uplink-tier per-priority
+        # drain counter, sampled into the strided series by capture_slot
+        dp = torch.where(any_e, prio.clamp_max(cfg.n_prios - 1), 0)
+        out["tr_uprio_c"] = st["tr_uprio_c"].scatter_add(
+            1, dp.long(), any_e.to(I32))
+    return out
 
 
 __all__ = ["FabricConfig", "FaultConfig", "ROUTING_POLICIES", "spine_hash",

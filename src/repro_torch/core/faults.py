@@ -434,11 +434,18 @@ def apply_recovery(cfg, proto, st, S, now, drained_msg, any_elig):
     resend = proto.receiver.resend(cfg, st, S, now, known, quiet)
     rw = missing & (resend | (quiet >= fl.sender_timeout_slots))
     rewound = torch.where(rw, st["sent"] - st["recv"], 0)
-    return {**st,
-            "last_arr": last_arr,
-            "sent": torch.where(rw, st["recv"], st["sent"]),
-            "retx": st["retx"] + rewound,
-            "last_rw": torch.where(rw, now, st["last_rw"])}
+    out = {**st,
+           "last_arr": last_arr,
+           "sent": torch.where(rw, st["recv"], st["sent"]),
+           "retx": st["retx"] + rewound,
+           "last_rw": torch.where(rw, now, st["last_rw"])}
+    if cfg.ledger_on:
+        # telemetry tap (DESIGN.md §8): this slot's rewinds split by
+        # trigger, read by the event ledger at the end of the slot;
+        # RESEND wins when both timers fired in the same slot
+        out["tr_resend"] = torch.where(rw & resend, rewound, 0)
+        out["tr_timeout"] = torch.where(rw & ~resend, rewound, 0)
+    return out
 
 
 __all__ = ["FaultConfig", "link_down_mask", "host_down_mask",

@@ -208,6 +208,14 @@ def topk_srpt_grants(cfg, st, S, eligible, K, n_sched, topk=None):
     return grant_r, sched_prio, active, withheld
 
 
+def grant_preempted(prev_active, active, completion):
+    """(B, M) bool: messages evicted from the receiver's active grant set
+    this slot while still incomplete, i.e. preempted for shorter messages
+    under SRPT overcommitment (paper §3.5), not retired by completion.
+    Used by the telemetry event ledger."""
+    return prev_active & ~active & (completion < 0)
+
+
 @dataclasses.dataclass(frozen=True)
 class WindowReceiver(ReceiverPolicy):
     """RTT-window grants to every known (``blind=False``) or merely arrived

@@ -120,7 +120,7 @@ class SimResult:
     recovery_slots: np.ndarray | None = None   # (M,) first loss -> done; -1
     fault_lost_chunks: int = 0       # total chunks dropped by fault injection
     # host/NIC software-overhead stage (None when SimConfig.host was off
-    # or ideal — DESIGN.md §10); per-host (H,)
+    # or ideal — repro_torch.core.hostmodel, DESIGN.md §10); per-host (H,)
     host: dict | None = None         # HostConfig echo (model, costs, caps)
     host_tx_busy_frac: np.ndarray | None = None   # TX CPU time / horizon
     host_tx_defer_frac: np.ndarray | None = None  # slots gated w/ traffic
@@ -130,7 +130,7 @@ class SimResult:
     # telemetry capture (None when SimConfig.trace was off, DESIGN.md §8):
     # trace is the full SimTrace (simulate only — run_sweep keeps just
     # trace_summary, the reduced streaming-stat dict)
-    trace: Any | None = None         # telemetry trace (not ported yet)
+    trace: Any | None = None         # repro_torch.core.telemetry.SimTrace
     trace_summary: dict | None = None
     # optional raw scan state (return_state=True)
     state: dict | None = None

@@ -23,6 +23,13 @@ drains, and ends each slot with loss recovery
 (``faults.apply_recovery``); the slot's draws and masks come from a plan
 computed per block of slots (``faults.slot_plan``).
 
+A host/NIC stage (``SimConfig.host``, :mod:`repro_torch.core.hostmodel`,
+DESIGN.md §10) gates each sender on its TX CPU budget and passes drained
+chunks through a bounded per-host RX service ring before they reach
+``recv``; a full ring backpressures the downlink. In-loop telemetry
+(``SimConfig.trace``, :mod:`repro_torch.core.telemetry`, DESIGN.md §8)
+writes strided time series and an event ledger at the end of each slot.
+
 The step carries a leading run axis B on every state tensor: a sweep
 steps B independent runs at once (``run_sweep``), and ``simulate`` is
 the case B = 1 — there is one step function. Integer outputs of every
@@ -41,17 +48,21 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import faults
+from repro_torch.core import faults, telemetry
 from repro_torch.core.fabric import (FabricConfig, drain_select,
                                      init_fabric_state, ring_insert,
                                      route_chunks, spine_hash, take_slot,
                                      clear_slot, uplink_drain)
+from repro_torch.core.hostmodel import (QSCALE, HostConfig, as_host_config,
+                                        get_host_model)
 from repro_torch.core.priorities import (PriorityAllocation,
                                          allocate_priorities,
                                          pias_thresholds)
 from repro_torch.core.protocols import (BIG, I32, MSG_BITS, MSG_MOD,
                                         Protocol, get_protocol)
 from repro_torch.core.results import SimResult, bucketed_percentiles
+from repro_torch.core.telemetry import SimTrace, TraceConfig, \
+    as_trace_config
 from repro_torch.core.workloads import MessageTable
 from repro_torch.kernels.arbiter import dispatch
 
@@ -85,10 +96,15 @@ class SimConfig:
     phost_timeout_slots: int = 114      # ~3 RTT
     max_slots: int = 20_000
     fabric: FabricConfig | None = None  # None: single switch (DESIGN.md §5)
-    # host/NIC overhead stage: only None / "ideal" (no stage) are ported
-    host: str | None = None
-    # in-loop telemetry: not ported, only None
-    trace: object | None = None
+    # host/NIC software-overhead stage (repro_torch.core.hostmodel,
+    # DESIGN.md §10): HostConfig | preset name ("ideal" | "kernel_stack"
+    # | "kernel_bypass") | dict | None. None and zero-cost configs add
+    # nothing to the loop, bit-identical to the host-free simulator.
+    host: HostConfig | str | dict | None = None
+    # in-loop telemetry (repro_torch.core.telemetry, DESIGN.md §8):
+    # TraceConfig | dict | None; None and TraceConfig(enabled=False) add
+    # nothing to the loop
+    trace: TraceConfig | dict | None = None
     # "cuda" (the staged hand-written kernels) | "fused" (one fused kernel
     # launch per slot; the plain fused version on the CPU) | "reference"
     # (the plain versions); None: "cuda" on a CUDA device, "reference" on
@@ -101,15 +117,6 @@ class SimConfig:
 
     def __post_init__(self):
         get_protocol(self.protocol)     # ValueError on unknown protocol
-        if self.host not in (None, "ideal"):
-            raise NotImplementedError(
-                f"SimConfig.host={self.host!r}: the host/NIC overhead stage "
-                f"is not ported to repro_torch yet (ROADMAP A6); only "
-                f"None and 'ideal' run")
-        if self.trace is not None:
-            raise NotImplementedError(
-                "SimConfig.trace: in-loop telemetry is not ported to "
-                "repro_torch yet (ROADMAP A7)")
         if self.pallas_interpret is not None:
             raise ValueError("SimConfig.pallas_interpret is a knob of the "
                              "JAX package's Pallas kernels; repro_torch has "
@@ -120,6 +127,12 @@ class SimConfig:
                                                     self.device))
         if self.fabric is not None:
             self.fabric.validate(self.n_hosts)
+        object.__setattr__(self, "host", as_host_config(self.host))
+        if self.host is not None:
+            self.host.validate()
+        object.__setattr__(self, "trace", as_trace_config(self.trace))
+        if self.trace is not None:
+            self.trace.validate()
 
     @property
     def rtt_bytes(self) -> int:
@@ -138,6 +151,41 @@ class SimConfig:
         default) keeps the loop loss-free and bit-identical to the
         fault-free simulator."""
         return self.fabric_on and self.fabric.faults is not None
+
+    @property
+    def trace_on(self) -> bool:
+        """True iff in-loop telemetry is captured (DESIGN.md §8).
+        ``trace=None`` and ``TraceConfig(enabled=False)`` both keep the
+        loop identical to the untraced simulator."""
+        return self.trace is not None and self.trace.enabled
+
+    @property
+    def ledger_on(self) -> bool:
+        """True iff the protocol event ledger is captured (``trace_on``
+        with a nonzero ``ledger_cap``)."""
+        return self.trace_on and self.trace.ledger_cap > 0
+
+    @property
+    def host_on(self) -> bool:
+        """True iff an active host/NIC stage is modeled (DESIGN.md §10).
+        ``host=None`` and zero-overhead configs (the ``ideal`` preset)
+        add nothing to the loop."""
+        return self.host is not None and not self.host.is_ideal
+
+    @property
+    def host_tx_on(self) -> bool:
+        """Send-side host gate active (nonzero TX cost)."""
+        return self.host_on and self.host.tx_on
+
+    @property
+    def host_rx_on(self) -> bool:
+        """Receive-side host FIFO active (nonzero RX cost)."""
+        return self.host_on and self.host.rx_on
+
+    @property
+    def host_model(self):
+        """The registered :class:`repro_torch.core.hostmodel.HostModel`."""
+        return get_host_model(self.host.model)
 
 
 def _to_slots(nbytes: np.ndarray, slot_bytes: int) -> np.ndarray:
@@ -228,6 +276,8 @@ def _init_state(cfg: SimConfig, proto: Protocol, M: int, B: int = 1):
         **proto.extra_state(cfg, M, B),       # protocol-private carry
         **(init_fabric_state(cfg, B) if cfg.fabric_on else {}),
         **(faults.init_fault_state(cfg, M, B) if cfg.faults_on else {}),
+        **(cfg.host_model.init_state(cfg, M, B) if cfg.host_on else {}),
+        **(telemetry.init_trace_state(cfg, M, B) if cfg.trace_on else {}),
         "sent": z(M),
         "granted_s": z(M),                    # sender-visible grant (slots)
         "grant_r": z(M),                      # receiver-issued grant (slots)
@@ -272,13 +322,23 @@ def _sender_select(cfg: SimConfig, proto: Protocol, st, S, now):
 
 
 def _fused_precompute(cfg: SimConfig, proto: Protocol, S, n_sched: int,
-                      st, now, fx=None) -> dict:
+                      st, now, fx=None):
     """``fused`` backend (DESIGN.md §11): solve ALL of this slot's
     arbitration — downlink drain, TOR uplink drain, SRPT grant top-K — in
     one kernel launch at slot start, before the stages that normally
-    interleave with them. Returns per-stage answers: ``"down"``/``"up"``
-    -> the ``drain_select`` triple, ``"topk"`` -> ``(vals, idx)`` for
-    ``ReceiverPolicy.grants``; ``{}`` when nothing is fusable.
+    interleave with them. Returns ``(st, grant_st, fused)``:
+
+      st        slot state, with the host RX delivery already applied
+                when the downlink stage is fused (its room gate is a
+                kernel input; ``rx_deliver`` touches only RX-ring state
+                and ``recv``, which stages 1–3 read only in the grants)
+      grant_st  the state the receiver policy must see: slot-start
+                ``recv`` (grants run before RX delivery in the staged
+                order), everything else current
+      fused     per-stage answers: ``"down"``/``"up"`` -> the
+                ``drain_select`` triple, ``"topk"`` -> ``(vals, idx)``
+                for ``ReceiverPolicy.grants``; ``{}`` when nothing is
+                fusable
 
     Hoisting the drains is bit-exact because every chunk inserted later
     in the slot is ineligible until the next slot (``net_delay_slots >=
@@ -288,19 +348,28 @@ def _fused_precompute(cfg: SimConfig, proto: Protocol, S, n_sched: int,
     precondition fails is simply not fused — the staged kernel runs at
     its usual point instead. The fault masks (``fx``, the slot's plan
     row) enter at the points the staged order applies them: the TOR
-    gate on the downlink eligibility, the link gate on the uplink's. (The
-    JAX package's host-RX branch belongs to an option the port does not
-    run yet, ROADMAP A6.)"""
+    gate on the downlink eligibility, the link gate on the uplink's; the
+    RX-ring room gate (and its stall count) comes after the TOR gate."""
     fuse_down = cfg.net_delay_slots >= 1
     fuse_up = cfg.fabric_on and cfg.fabric.leaf_delay_slots >= 1
     fl = cfg.fabric.faults if cfg.faults_on else None
     prob = proto.receiver.grant_problem(cfg, st, S, now, n_sched)
+    grant_st = st
     down = up = None
     if fuse_down:
+        if cfg.host_rx_on:
+            recv_pre = st["recv"]
+            st = cfg.host_model.rx_deliver(cfg, st, S, now)
+            room = cfg.host_model.rx_room(cfg, st)
+            grant_st = {**st, "recv": recv_pre}
         eligible = st["r_valid"] & (st["r_seq"] + cfg.net_delay_slots
                                     <= now)
         if fl is not None and fl.tor_fail:
             eligible = eligible & ~fx["host_down"][:, None]
+        if cfg.host_rx_on:
+            st = {**st, "h_rx_stall": st["h_rx_stall"]
+                  + (eligible.any(dim=2) & ~room).to(I32)}
+            eligible = eligible & room[:, :, None]
         down = (st["r_prio"], st["r_seq"], eligible)
     if fuse_up:
         u_elig = st["u_valid"] & (st["u_seq"] + cfg.fabric.leaf_delay_slots
@@ -309,7 +378,7 @@ def _fused_precompute(cfg: SimConfig, proto: Protocol, S, n_sched: int,
             u_elig = u_elig & ~fx["link_down"][:, None]
         up = (st["u_prio"], st["u_seq"], u_elig)
     if down is None and up is None and prob is None:
-        return {}
+        return st, grant_st, {}
     out = dispatch.fused_slot(down=down, up=up, topk=prob, backend="fused")
     fused = {}
     for name in ("down", "up"):
@@ -318,7 +387,7 @@ def _fused_precompute(cfg: SimConfig, proto: Protocol, S, n_sched: int,
             fused[name] = (bi, bp < BIG, bp)
     if "topk" in out:
         fused["topk"] = out["topk"]
-    return fused
+    return st, grant_st, fused
 
 
 def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
@@ -332,14 +401,19 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
     H, Dg = cfg.n_hosts, cfg.grant_delay_slots
     B, M = S["size"].shape
 
+    # slot-start references for the telemetry event deltas (DESIGN.md §8)
+    tr_prev = telemetry.snapshot(cfg, st) if cfg.trace_on else None
+
     # ---- 0. fused backend: one kernel for ALL of this slot's
     # arbitration (DESIGN.md §11); {} when nothing is fusable
-    fused = _fused_precompute(cfg, proto, S, n_sched, st, now, fx) \
-        if cfg.backend == "fused" else {}
+    grant_st, fused = st, {}
+    if cfg.backend == "fused":
+        st, grant_st, fused = _fused_precompute(cfg, proto, S, n_sched, st,
+                                                now, fx)
 
     # ---- 1. receiver policy (current state), store into delay history
     grant_r, sched_prio, active, withheld = proto.receiver.grants(
-        cfg, st, S, now, n_sched, topk=fused.get("topk"))
+        cfg, grant_st, S, now, n_sched, topk=fused.get("topk"))
     st = {**st, "grant_r": grant_r, "sched_prio": sched_prio}
     row = (now % Dg).long().view(1)
     hist_grant = st["hist_grant"].index_copy(1, row, grant_r[:, None])
@@ -360,6 +434,10 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
 
     # ---- 2. senders pick + transmit one chunk (sender policy)
     chosen, has = _sender_select(cfg, proto, st, S, now)
+    if cfg.host_tx_on:
+        # host/NIC stage (DESIGN.md §10): the selected chunk only makes
+        # the wire if the host's TX CPU budget covers it this slot
+        has, st = cfg.host_model.host_tx(cfg, st, has, now)
     cm = chosen.clamp_max(M - 1)                        # (B, H) int32
     cml = cm.long()                                     # gather index
     unsched_chunk = st["sent"].gather(1, cml) < S["unsched"].gather(1, cml)
@@ -392,15 +470,36 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
         # hosts behind a failed TOR drain nothing for the window; their
         # buffered chunks survive and resume draining when it lifts
         eligible = eligible & ~fx["host_down"][:, None]
+    q_eligible = eligible                       # backlog incl. stalled rows
     if "down" in fused:
+        # pre-solved at slot start with the RX delivery and room gate
+        # (_fused_precompute); q_eligible is the kernel's eligibility
+        # before the room gate
         slot_idx, any_elig, pmin = fused["down"]
     else:
+        if cfg.host_rx_on:
+            # host/NIC RX stage (DESIGN.md §10): finish service on ring
+            # entries whose CPU time elapsed (feeds recv -> grants AND
+            # completions), then gate the downlink on RX-ring room — a
+            # full ring backpressures the network (chunks stay queued)
+            hm = cfg.host_model
+            st = hm.rx_deliver(cfg, st, S, now)
+            room = hm.rx_room(cfg, st)
+            st = {**st, "h_rx_stall": st["h_rx_stall"]
+                  + (eligible.any(dim=2) & ~room).to(I32)}
+            eligible = eligible & room[:, :, None]
         slot_idx, any_elig, pmin = drain_select(
             st["r_prio"], st["r_seq"], eligible, backend=cfg.backend)
     drained_msg = torch.where(any_elig, take_slot(st["r_msg"], slot_idx), M)
     any_i = any_elig.to(I32)
-    recv = st["recv"].scatter_add(1, drained_msg.clamp_max(M - 1).long(),
-                                  any_i)
+    if cfg.host_rx_on:
+        # drained chunks enter the RX ring; recv advances in rx_deliver
+        st = cfg.host_model.rx_accept(cfg, st, S, drained_msg, any_elig,
+                                      now)
+        recv = st["recv"]
+    else:
+        recv = st["recv"].scatter_add(
+            1, drained_msg.clamp_max(M - 1).long(), any_i)
     r_valid = clear_slot(st["r_valid"], slot_idx, any_elig)
     st = proto.on_drain(cfg, st, S, drained_msg, any_elig, now)
 
@@ -408,7 +507,7 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
                              now, st["completion"])
 
     # ---- 5. stats
-    qlen = eligible.sum(dim=2, dtype=I32) - any_i
+    qlen = q_eligible.sum(dim=2, dtype=I32) - any_i
     drained_prio = torch.where(any_elig, pmin.clamp_max(cfg.n_prios - 1), 0)
     prio_drained = st["prio_drained"].scatter_add(1, drained_prio.long(),
                                                   any_i)
@@ -430,7 +529,12 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
                                    any_elig)
 
     # ---- 6. protocol end-of-slot hook (e.g. pHost sender timeouts)
-    return proto.post_step(cfg, st, S, now, active, drained_msg, any_elig)
+    st = proto.post_step(cfg, st, S, now, active, drained_msg, any_elig)
+
+    # ---- 7. telemetry capture (ledger append + strided series rows)
+    if cfg.trace_on:
+        st = telemetry.capture_slot(cfg, st, S, now, tr_prev, active, qlen)
+    return st
 
 
 def run_slots(cfg: SimConfig, proto: Protocol, S, st, n_sched: int,
@@ -460,10 +564,13 @@ def host_state(st: dict) -> dict:
 
 
 def _finalize(cfg: SimConfig, table: MessageTable, S, alloc, st, b: int,
-              return_state: bool) -> SimResult:
+              return_state: bool, reduce_trace: bool = False,
+              timings: dict | None = None) -> SimResult:
     """Numpy post-processing of run ``b``: ``S`` is its :func:`prepare`
     statics, ``st`` the stacked final state of its batch
-    (:func:`host_state`)."""
+    (:func:`host_state`). ``reduce_trace=True`` (the ``run_sweep`` path)
+    keeps only the scalars of a captured trace (``trace_summary``);
+    ``timings`` is :func:`telemetry.timed_run`'s split."""
     S = {k: v.cpu().numpy() for k, v in S.items()}
     st = {k: v[b] for k, v in st.items()}
     size_slots = S["size"]
@@ -500,6 +607,28 @@ def _finalize(cfg: SimConfig, table: MessageTable, S, alloc, st, b: int,
             recovery_slots=np.where(done & affected,
                                     st["completion"] - first_loss, -1),
             fault_lost_chunks=int(st["f_lost"]))
+    if cfg.host_on:
+        tor_kw["host"] = dataclasses.asdict(cfg.host)
+        if cfg.host_tx_on:
+            tor_kw.update(
+                host_tx_busy_frac=st["h_tx_work_q"]
+                / (cfg.max_slots * QSCALE),
+                host_tx_defer_frac=st["h_tx_defer"] / cfg.max_slots)
+        if cfg.host_rx_on:
+            tor_kw.update(
+                host_rx_stall_frac=st["h_rx_stall"] / cfg.max_slots,
+                host_rx_q_mean_chunks=st["h_rx_q_sum"] / cfg.max_slots,
+                host_rx_q_max_chunks=st["h_rx_q_max"])
+
+    trace = trace_summary = None
+    if cfg.trace_on:
+        tr = telemetry.finalize_trace(cfg, st, timings)
+        trace_summary = tr.reduce()
+        if not reduce_trace:
+            trace = tr
+    elif timings is not None:
+        # wallclock-only run (capture disabled): keep the split
+        trace_summary = {"timings": timings}
 
     return SimResult(
         protocol=cfg.protocol, alloc=alloc,
@@ -515,6 +644,7 @@ def _finalize(cfg: SimConfig, table: MessageTable, S, alloc, st, b: int,
         lost_chunks=int(st["lost"]) + int(st.get("u_lost", 0)),
         n_complete=int(done.sum()), n_messages=len(size_slots),
         fabric=fabric, **tor_kw,
+        trace=trace, trace_summary=trace_summary,
         state=st if return_state else None,
         static=S if return_state else None,
     )
@@ -525,14 +655,36 @@ def simulate(cfg: SimConfig, table: MessageTable,
              unsched_limit_bytes=None,
              return_state: bool = False) -> SimResult:
     """Run one simulation of ``cfg.max_slots`` slots on ``cfg.device``;
-    returns a structured :class:`SimResult` (numpy arrays)."""
+    returns a structured :class:`SimResult` (numpy arrays).
+
+    With ``cfg.trace = TraceConfig(wallclock=True)`` the host set-up,
+    the kernel library build and the loop are timed apart
+    (:func:`repro_torch.core.telemetry.timed_run`) and the split lands
+    in ``result.trace.timings`` (``result.trace_summary["timings"]`` when
+    capture is disabled)."""
     proto = get_protocol(cfg.protocol)
-    S, alloc = prepare(cfg, table, alloc, unsched_limit_bytes)
-    n_sched = proto.n_sched(cfg, alloc)
-    st0 = _init_state(cfg, proto, len(table.size))
-    st = run_slots(cfg, proto, stack_static([S]), st0, n_sched, 0,
-                   cfg.max_slots)
-    return _finalize(cfg, table, S, alloc, host_state(st), 0, return_state)
+    M = len(table.size)
+
+    def setup():
+        S, al = prepare(cfg, table, alloc, unsched_limit_bytes)
+        return S, al, _init_state(cfg, proto, M)
+
+    def execute(S, al, st0):
+        return run_slots(cfg, proto, stack_static([S]), st0,
+                         proto.n_sched(cfg, al), 0, cfg.max_slots)
+
+    timings = None
+    if cfg.trace is not None and cfg.trace.wallclock:
+        on_card = torch.device(cfg.device).type == "cuda"
+        (S, alloc, _), st, timings = telemetry.timed_run(
+            setup, lambda: dispatch.load_kernels(cfg.backend, cfg.device),
+            execute, cfg.trace.wallclock_repeats,
+            sync=torch.cuda.synchronize if on_card else None)
+    else:
+        S, alloc, st0 = setup()
+        st = execute(S, alloc, st0)
+    return _finalize(cfg, table, S, alloc, host_state(st), 0, return_state,
+                     timings=timings)
 
 
 def run_sweep(cfg: SimConfig, spec) -> list:
@@ -565,6 +717,7 @@ def slowdown_percentiles(stats: dict | SimResult, pct: float = 99.0,
                                 stats["done"], pct, n_buckets)
 
 
-__all__ = ["SimConfig", "FabricConfig", "simulate", "run_sweep", "prepare",
+__all__ = ["SimConfig", "FabricConfig", "TraceConfig", "SimTrace",
+           "HostConfig", "simulate", "run_sweep", "prepare",
            "stack_static", "step_fn", "run_slots", "SimResult",
            "resolve_device", "slowdown_percentiles"]

@@ -20,9 +20,12 @@ bucket), and only O(buckets) numbers per run are copied to the host —
 never the (B, M) per-message arrays. Percentile estimates from the
 histogram carry a documented relative error bound of half a bucket in
 log space (:meth:`StreamSpec.rel_err_bound`, ~0.9% at the defaults).
-Queue/busy/priority counters reduce exactly; ``q_sum`` sums in float64
-(its per-host values are integers held in float32, so the float64 sum is
-exact, where the JAX package's float32 sum may round).
+Queue/busy/priority counters reduce exactly; ``q_sum`` and the host
+stage's ``h_tx_work`` sum in float64 (their per-host values are integers,
+so the float64 sums are exact, where the JAX package's float32 sums may
+round). A captured trace reduces on the device to its peaks and event
+count (``telemetry.reduce_state``); an exact sweep keeps its trace's
+scalars (``SimResult.trace_summary``) and not the series.
 
 **Sharding.** The port runs a sweep on one device: ``shard`` is
 validated against the card count (``True`` on one card is 1 device, the
@@ -37,7 +40,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import sim
+from repro_torch.core import sim, telemetry
+from repro_torch.core.hostmodel import QSCALE
 from repro_torch.core.priorities import allocate_priorities
 from repro_torch.core.protocols import I32, get_protocol
 from repro_torch.core.workloads import MessageTable, WorkloadSpec, \
@@ -280,7 +284,9 @@ def _device_summary(cfg, st, acc) -> dict:
     """Reduce a batch's final state to the streaming gather set, ``(B,
     ...)`` per key; the per-message and ring state never leaves the
     device. Integer counters reduce exactly; ``q_sum`` sums its
-    integer-valued float32 entries in float64, which is exact."""
+    integer-valued float32 entries in float64, which is exact, and so
+    does ``h_tx_work`` its int32 micro-slots (their total can pass
+    2**31)."""
     out = {
         "hist": acc,
         "n_complete": (st["completion"] >= 0).sum(dim=1),
@@ -296,6 +302,14 @@ def _device_summary(cfg, st, acc) -> dict:
     if cfg.faults_on:
         out["f_lost"] = st["f_lost"]
         out["retx"] = st["retx"].sum(dim=1)
+    if cfg.host_tx_on:
+        out["h_tx_work"] = st["h_tx_work_q"].to(torch.float64).sum(dim=1)
+        out["h_tx_defer"] = st["h_tx_defer"].sum(dim=1)
+    if cfg.host_rx_on:
+        out["h_rx_stall"] = st["h_rx_stall"].sum(dim=1)
+        out["h_rx_q_max"] = st["h_rx_q_max"].amax(dim=1)
+    if cfg.trace_on:
+        out.update(telemetry.reduce_state(cfg, st))
     return out
 
 
@@ -331,9 +345,8 @@ class SweepStats:
     """One streaming run's bounded-size statistics (the SweepSpec
     ``streaming`` result type). ``hist`` is the (size buckets, slowdown
     buckets) completion-count table; everything else reduced exactly
-    from the loop's running counters. The host-model and trace fields of
-    the JAX package stay ``None``: the port does not run those stages
-    yet."""
+    from the loop's running counters; the host-stage fields are ``None``
+    without a host stage, ``trace_summary`` without tracing."""
     protocol: str
     stream: StreamSpec
     alloc: Any
@@ -427,8 +440,15 @@ class SweepStats:
                 "n_counted": self.n_counted,
                 "warmup_frac": self.stream.warmup_frac,
             },
-            "host": None,
-            "trace": None,
+            "host": None
+            if self.host_tx_busy_frac is None
+            and self.host_rx_stall_frac is None else {
+                "tx_busy_frac": r(self.host_tx_busy_frac),
+                "tx_defer_frac": r(self.host_tx_defer_frac),
+                "rx_stall_frac": r(self.host_rx_stall_frac),
+                "rx_q_max_chunks": self.host_rx_q_max_chunks,
+            },
+            "trace": self.trace_summary,
         }
 
 
@@ -436,6 +456,23 @@ def _stats_from_row(cfg, stream: StreamSpec, row: dict, alloc,
                     n_messages: int) -> SweepStats:
     """Host-side assembly of one run's row of the streaming gather set."""
     H, ms, sb = cfg.n_hosts, cfg.max_slots, cfg.slot_bytes
+    trace_summary = None
+    if cfg.trace_on:
+        seen = int(row.get("tr_ev_seen", 0))
+        cap = cfg.trace.ledger_cap
+        trace_summary = {
+            "stride": cfg.trace.stride,
+            "samples": telemetry.n_samples(cfg),
+            "n_events": min(seen, cap), "n_events_seen": seen,
+            "events_dropped": max(0, seen - cap), "ledger_cap": cap,
+            "q_peak_bytes": int(row["tr_q_peak"]) * sb,
+            "grant_out_peak_bytes": int(row["tr_go_peak"]) * sb,
+            "up_q_peak_bytes": int(row["tr_uq_peak"]) * sb
+            if "tr_uq_peak" in row else None,
+            "host_rx_q_peak_chunks": int(row["tr_hq_peak"])
+            if "tr_hq_peak" in row else None,
+            "timings": None,
+        }
     return SweepStats(
         protocol=cfg.protocol, stream=stream, alloc=alloc,
         n_messages=n_messages, n_complete=int(row["n_complete"]),
@@ -454,6 +491,15 @@ def _stats_from_row(cfg, stream: StreamSpec, row: dict, alloc,
         if cfg.fabric_on else None,
         fault_lost_chunks=int(row["f_lost"]) if cfg.faults_on else None,
         retx_chunks=int(row["retx"]) if cfg.faults_on else None,
+        host_tx_busy_frac=float(row["h_tx_work"]) / (H * ms * QSCALE)
+        if cfg.host_tx_on else None,
+        host_tx_defer_frac=float(row["h_tx_defer"]) / (H * ms)
+        if cfg.host_tx_on else None,
+        host_rx_stall_frac=float(row["h_rx_stall"]) / (H * ms)
+        if cfg.host_rx_on else None,
+        host_rx_q_max_chunks=int(row["h_rx_q_max"])
+        if cfg.host_rx_on else None,
+        trace_summary=trace_summary,
     )
 
 
@@ -514,7 +560,8 @@ def run_spec(cfg, spec: SweepSpec) -> list:
             for k, i in enumerate(idxs):
                 results[i] = sim._finalize(cfg, tables[i], prepped[i][0],
                                            prepped[i][1], st, k,
-                                           spec.return_state)
+                                           spec.return_state,
+                                           reduce_trace=True)
     return results
 
 

@@ -52,6 +52,14 @@ def resolve_backend(name: str | None, device: str | torch.device) -> str:
     return name
 
 
+def load_kernels(backend: str, device: str | torch.device) -> None:
+    """Build (or load) the kernel library a backend launches on a card;
+    nothing on the CPU, where every backend runs the plain versions."""
+    if backend in KERNEL_BACKENDS and torch.device(device).type == "cuda":
+        from repro_torch.kernels.arbiter.build import load_library
+        load_library()
+
+
 def arbitrate(prio, seq, elig, *, backend: str = "reference"):
     """Strict-priority, FIFO-within-level winner per row. Returns
     ``(best_prio (H,), best_idx (H,))``; rows with no eligible entry
@@ -116,4 +124,5 @@ def fused_slot(down=None, up=None, topk=None, *, backend: str = "fused"):
     return out
 
 
-__all__ = ["BACKENDS", "resolve_backend", "arbitrate", "topk", "fused_slot"]
+__all__ = ["BACKENDS", "resolve_backend", "load_kernels", "arbitrate", "topk",
+           "fused_slot"]

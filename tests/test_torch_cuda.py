@@ -2,9 +2,11 @@
 (the staged arbiter and top-K — its one-pass and rounds routines, by
 their counter — the fused per-slot kernel at every stage subset and B in
 {1, 4, 12}, the SSD chunk scan and flash attention, whose wrappers refuse
-inputs that require grad), and the lossy fabric on the card: each backend
+inputs that require grad), the lossy fabric on the card (each backend
 against ``tests/golden/faults_enabled.json``, and a full-width fault
-window with no host sync.
+window with no host sync), and the host stage with telemetry (both
+kernel backends against ``tests/golden/host_trace_enabled.json``, and
+the ideal host with capture off against both fabric goldens).
 
 These tests need a CUDA card and skip without one (marker ``gpu``); run
 them there with ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py``.
@@ -1072,3 +1074,112 @@ def test_fault_window_runs_without_host_sync(cuda, backend, routing):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert int(st["f_lost"][0]) > 0
+
+
+# ------------------------------------------ the host stage and telemetry ----
+
+def _host_golden_script():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "make_torch_host_trace_golden.py"
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_host_trace_golden", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _host_golden():
+    import json
+    from pathlib import Path
+    return json.loads((Path(__file__).parent / "golden"
+                       / "host_trace_enabled.json").read_text())
+
+
+def _host_runs():
+    return _host_golden()["small"]["runs"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run", _host_runs(),
+                         ids=[r["name"] for r in _host_runs()])
+def test_host_trace_golden_on_kernel_backends(cuda, run):
+    """A run of ``tests/golden/host_trace_enabled.json``'s ``"small"``
+    part on ``cuda`` and ``fused``: every state array by digest, the
+    ledger rows, the trace's scalars and the host summary bit for bit,
+    with one launch set a slot."""
+    from repro_torch.core import (FabricConfig, ReceiverPolicy, SimConfig,
+                                  TraceConfig, make_messages, simulate)
+    from repro_torch.core.protocols import get_protocol
+    gs = _host_golden_script()
+    meta = _host_golden()["small"]["meta"]
+    tbl = make_messages(meta["workload"], n_hosts=meta["n_hosts"],
+                        load=meta["load"], n_messages=meta["n_messages"],
+                        slot_bytes=meta["slot_bytes"], seed=meta["seed"])
+    fab = gs.small_fabric(meta, run["topology"])
+    slots = meta["max_slots"]
+    recv = type(get_protocol(run["protocol"]).receiver)
+    topk = recv.grant_problem is not ReceiverPolicy.grant_problem
+    tiers = 1 if fab is None else 2
+    for backend, want_n in (
+            ("cuda", {"priority_arbiter": tiers * slots,
+                      "srpt_topk": slots if topk else 0}),
+            ("fused", {"fused_slot": slots})):
+        kernel.reset_launch_counts()
+        r = simulate(SimConfig(
+            protocol=run["protocol"], n_hosts=meta["n_hosts"],
+            max_slots=slots, ring_cap=meta["ring_cap"],
+            fabric=None if fab is None else FabricConfig(**fab),
+            host=run["host_cfg"],
+            trace=None if run["trace_cfg"] is None
+            else TraceConfig(**run["trace_cfg"]),
+            backend=backend, device="cuda"), tbl, return_state=True)
+        n = kernel.launch_counts()
+        assert all(n[k] == want_n.get(k, 0) for k in n), (backend, n)
+        bad = gs.differences(run, gs.record(r, r.state))
+        assert not bad, (backend, bad)
+
+
+def _sentinel_cases():
+    return [(name, proto) for name in ("fabric_disabled", "fabric_enabled")
+            for proto in ("homa", "basic", "phost", "pias", "pfabric",
+                          "ndp")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, proto", _sentinel_cases())
+def test_off_sentinels_match_the_fabric_goldens(cuda, name, proto):
+    """``host="ideal"`` with ``TraceConfig(enabled=False)`` is the
+    simulator without either stage: each fabric golden's run of every
+    protocol bit-exact, on ``cuda`` for the single switch and on
+    ``fused`` for the fabric."""
+    import json
+    from pathlib import Path
+    from repro_torch.core import (FabricConfig, SimConfig, TraceConfig,
+                                  make_messages, simulate)
+    g = json.loads((Path(__file__).parent / "golden" / f"{name}.json")
+                   .read_text())
+    meta, want = g["meta"], g["protocols"][proto]
+    fab = (FabricConfig(racks=meta["racks"], oversub=meta["oversub"],
+                        up_cap=meta["up_cap"])
+           if name == "fabric_enabled" else None)
+    tbl = make_messages(meta["workload"], n_hosts=meta["n_hosts"],
+                        load=meta["load"], n_messages=meta["n_messages"],
+                        slot_bytes=meta["slot_bytes"], seed=meta["seed"])
+    r = simulate(SimConfig(protocol=proto, n_hosts=meta["n_hosts"],
+                           max_slots=meta["max_slots"],
+                           ring_cap=meta["ring_cap"], fabric=fab,
+                           host="ideal", trace=TraceConfig(enabled=False),
+                           backend="cuda" if fab is None else "fused",
+                           device="cuda"), tbl, return_state=True)
+    assert not any(k.startswith(("h_", "tr_")) for k in r.state)
+    got = {"completion": [int(x) for x in r.completion],
+           "lost_chunks": int(r.lost_chunks),
+           "q_max_bytes": [int(x) for x in r.q_max_bytes],
+           "prio_drained_bytes": [int(x) for x in r.prio_drained_bytes],
+           "busy": [round(float(x), 8) for x in r.busy_frac]}
+    if fab is not None:
+        got["tor_up_q_max_bytes"] = [int(x) for x in r.tor_up_q_max_bytes]
+        got["tor_up_lost_chunks"] = int(r.tor_up_lost_chunks)
+    assert got == want

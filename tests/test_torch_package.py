@@ -1,5 +1,6 @@
 """Package rules of the port: no JAX and nothing of ``repro`` inside it,
-no silent CPU fallback, and every option it does not run yet raises."""
+no silent CPU fallback, and every option normalized or refused as the
+JAX package does it."""
 import ast
 import os
 import subprocess
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.core import (FabricConfig, SimConfig, WorkloadSpec,
+from repro_torch.core import (HOST_PRESETS, FabricConfig, HostConfig,
+                              SimConfig, TraceConfig, WorkloadSpec,
                               make_messages, simulate)
 from repro_torch.kernels.arbiter import build, dispatch
 
@@ -22,7 +24,8 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.arbiter.kernel, "
             "repro_torch.kernels.ssd.ops, repro_torch.kernels.attention.ops, "
             "repro_torch.models.model, repro_torch.configs.llama3_2_3b, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.core.hostmodel, "
+            "repro_torch.core.telemetry; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro'))")
@@ -77,16 +80,23 @@ def test_backend_names_are_the_ports_own(monkeypatch):
         SimConfig(device="meta")
 
 
-@pytest.mark.parametrize("make, item", [
-    (lambda: SimConfig(device="cpu", host="kernel_stack"), "A6"),
-    (lambda: SimConfig(device="cpu", host={"model": "cpu"}), "A6"),
-    (lambda: SimConfig(device="cpu", trace=object()), "A7"),
-    (lambda: SimConfig(device="cpu", host="kernel_bypass"), "A6"),
-    (lambda: SimConfig(device="cpu", trace={"stride": 8}), "A7"),
+@pytest.mark.parametrize("kw, want", [
+    (dict(host="kernel_stack"), HOST_PRESETS["kernel_stack"]),
+    (dict(host={"model": "cpu"}), HostConfig()),
+    (dict(trace=object()), TypeError),
+    (dict(host="kernel_bypass"), HOST_PRESETS["kernel_bypass"]),
+    (dict(trace={"stride": 8}), TraceConfig(stride=8)),
 ])
-def test_unported_options_raise(make, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        make()
+def test_host_and_trace_options_normalize(kw, want):
+    """``SimConfig.host`` takes a preset name or a dict and ``trace`` a
+    dict, normalized to their configs as in the JAX package; anything
+    else raises an error naming the field."""
+    if want is TypeError:
+        with pytest.raises(TypeError, match="SimConfig.trace"):
+            SimConfig(device="cpu", **kw)
+        return
+    cfg = SimConfig(device="cpu", **kw)
+    assert getattr(cfg, next(iter(kw))) == want
 
 
 @pytest.mark.parametrize("make", [
@@ -136,7 +146,7 @@ def test_other_bad_options_raise():
         SimConfig(device="cpu", protocol="tcp")
     with pytest.raises(ValueError, match="not divisible"):
         SimConfig(device="cpu", n_hosts=10, fabric=FabricConfig(racks=3))
-    assert SimConfig(device="cpu", host="ideal").host == "ideal"
+    assert SimConfig(device="cpu", host="ideal").host == HostConfig()
 
 
 def test_ideal_host_and_single_rack_match_the_single_switch():
