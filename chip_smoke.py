@@ -144,10 +144,29 @@ result line:
            ``run_sweep`` batch of 2000 slots on ``fused`` and ``cuda``:
            host and trace summaries identical. The runs of (a)-(c) go to
            worker processes, six at once
+11. train  Mamba2-130m training at full width (random bf16 weights from a
+           seed), on the plain path autograd differentiates: (a) 5 steps
+           of ``build_train_step`` with remat at 16 x 2048 tokens
+           (``choose_grad_accum`` gives 2), after a warm-up: finite
+           losses, no hand-written kernel launched (the counters and a
+           profiled step; ROADMAP C2), ms/step, tokens/s, peak memory
+           and the device's busy share; (b) its grad_accum 2 and remat-off
+           variants against the plain step at 4 x 512 in fp32 (the bf16
+           distances printed only); (c) the reduced config's step on the
+           card against the CPU's, fp32 and bf16: loss, every gradient
+           leaf, the update; (d) ``python -m repro_torch.launch.train`` at
+           full width in subprocesses, 12 steps of 8 x 1024 with a
+           checkpoint every 5: ``--crash-at 7`` exits 17, ``--resume``
+           goes on from step 5 to 12, its losses against two
+           uninterrupted runs'; (e) the data-parallel step
+           (``distrib.homa_collectives``) on a NCCL world of one: homa
+           (64 KiB chunks, K = 7) and naive against the plain step, int8
+           with a non-zero error state; chunk collectives a step
 
 ``--phases card,llama`` (any comma-separated subset of card, kernels,
-goldens, full, window, sweep, model, llama, faults, host) runs only those
-phases and prints no result lines; with no arguments every phase runs.
+goldens, full, window, sweep, model, llama, faults, host, train) runs
+only those phases and prints no result lines; with no arguments every
+phase runs.
 
 Then one JSON line with each kernel's numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2501,10 +2520,338 @@ def phase_host():
     return out
 
 
+# ------------------------------------------------------------ phase 11 -----
+
+TRAIN = dict(arch="mamba2-130m", seed=0)
+TRAIN_FULL = dict(seq=2048, batch=16, steps=5)   # 11a: grad_accum 2
+TRAIN_SMALL = dict(seq=512, batch=4)             # 11b, 11e
+TRAIN_CKPT = dict(steps=12, seq=1024, batch=8, every=5, crash=7)   # 11d
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=100, weight_decay=0.01)
+# names of the port's hand-written kernels: the train step launches none
+OUR_KERNELS = ("ssd_cb_kernel", "ssd_chunk_state", "ssd_state_pass",
+               "ssd_output", "flash_attention", "priority_arbiter",
+               "srpt_topk", "fused_slot")
+# 11b/11e: a variant's step against the plain step (grad_accum 1, remat),
+# from one state on one batch at full width: the loss (relative) and the
+# gradient, as AdamW's first m ((1 - b1) x the clipped gradient), in
+# relative RMS over the whole tree. 11b runs in fp32: with bf16 weights
+# and activations the full-width gradient is mostly rounding noise (one
+# H100: grad_accum 2 vs 1 at rel RMS 1.12 in bf16, and 11b prints the
+# bf16 plain step against the fp32 one), so no bound below 1 holds
+# there. 11e's world of one computes the plain step's
+# bf16 function exactly (the sync of one rank is the identity). Each
+# bound ~4x the largest value measured on one H100 (NVIDIA H100 80GB
+# HBM3, 700.00 W): 11b fp32 grad_accum 2 loss 8.7e-8, gradient 2.2e-3;
+# remat off and 11e's homa and naive steps 0 (the card computes the
+# step deterministically: a repeated plain step gives the same bits)
+TRAIN_TOL = dict(loss=4e-7, grad=1e-2)
+# 11c: the card's step against the CPU's, reduced config, fp32 and bf16:
+# loss (relative), gradient leaves (worst leaf's relative RMS), the
+# update (p_new - p, relative RMS over the tree); ~4x the values
+# measured on that card: fp32 8.5e-8, 6.9e-6, 1.2e-4 (an Adam update
+# flips sign where a gradient element is near 0); bf16 8.5e-7, 3.2e-3,
+# 2.3e-2 (rounding noise, which two layers of width 64 amplify little)
+TRAIN_CPU_TOL = {"float32": dict(loss=4e-7, grad=3e-5, update=5e-4),
+                 "bfloat16": dict(loss=4e-6, grad=1.3e-2, update=0.1)}
+# 11d: |resumed loss - uninterrupted loss| at steps 6-12, as the
+# launcher prints them (6 decimals). Two uninterrupted runs and the
+# resumed one printed identical losses on that card, so 4x their spread
+# is 0: the bound is the print's resolution
+TRAIN_RESUME_TOL = 1e-6
+
+
+def _tree_rel(got, want) -> float:
+    """Relative RMS error over a whole tree (every leaf's elements)."""
+    from repro_torch.tree import flatten
+    num = den = 0.0
+    for g, w in zip(flatten(got), flatten(want)):
+        num += float(((g.float() - w.float()) ** 2).sum())
+        den += float((w.float() ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _train_losses(text: str) -> dict:
+    import re
+    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"\[train\] step (\d+) loss ([-0-9.eE+na]+)", text)}
+
+
+def phase_train():
+    """11a: the full-width train step (remat, grad_accum 2) 5 steps, no
+    kernel launched; 11b: its grad_accum and remat variants against the
+    plain step; 11c: the card's step against the CPU's; 11d: crash and
+    resume of ``launch.train`` in subprocesses; 11e: the data-parallel
+    step on a NCCL world of one (homa, naive, int8)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distrib import homa_collectives as HC
+    from repro_torch.kernels.arbiter import kernel as arb_kernel
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.launch.mesh import host_group
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.training.optimizer import (OptConfig, adamw_update,
+                                                init_opt_state)
+    from repro_torch.training.step import (build_train_step,
+                                           choose_grad_accum,
+                                           value_and_grad)
+    from repro_torch.tree import flatten, tree_map
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    dev = torch.device(DEVICE)
+    cfg = get_config(TRAIN["arch"])
+    oc = OptConfig(**TRAIN_OPT)
+    params0 = init_params(M.model_defs(cfg), torch.Generator(dev)
+                          .manual_seed(TRAIN["seed"]), dev)
+    opt0 = init_opt_state(params0, oc)
+    out = {}
+
+    def batches(seq, batch, n, seed, device=dev, c=cfg):
+        src = SyntheticLM(DataConfig(seq_len=seq, global_batch=batch,
+                                     vocab_size=c.vocab_size, seed=seed))
+        return [{k: torch.from_numpy(v).to(device)
+                 for k, v in src.batch(i).items()} for i in range(n)]
+
+    def counts():
+        return (ssd_kernel.ssd_scan.launches,
+                attn_kernel.flash_attention.launches,
+                sum(arb_kernel.launch_counts().values()))
+
+    def reset_counts():
+        ssd_kernel.ssd_scan.launches = ssd_kernel.ssd_scan.launches_tc = 0
+        attn_kernel.flash_attention.launches = 0
+        attn_kernel.flash_attention.launches_tc = 0
+        arb_kernel.reset_launch_counts()
+
+    # (a) the full-width step: 1 warm-up + TRAIN_FULL["steps"] timed
+    S, B, n = TRAIN_FULL["seq"], TRAIN_FULL["batch"], TRAIN_FULL["steps"]
+    shape = ShapeConfig("cli", S, B, "train")
+    ga = choose_grad_accum(cfg, shape, {"data": 1})
+    check(ga == 2, f"choose_grad_accum gave {ga} for {shape}, expected 2")
+    step = build_train_step(cfg, oc, shape=shape, remat=True)
+    data = batches(S, B, n + 1, TRAIN["seed"])
+    reset_counts()
+    params, opt, _ = step(params0, opt0, data[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for b in data[1:]:
+        params, opt, met = step(params, opt, b)
+        losses.append(met["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).tolist()
+    check(all(map(lambda x: x == x and abs(x) < float("inf"), losses)),
+          f"train losses not finite: {losses}")
+    _, pwall, ev = _profiled(lambda: step(params, opt, data[0]))
+    check(counts() == (0, 0, 0), f"the train step launched a kernel: "
+                                 f"counters {counts()} (C2)")
+    ours = [e for e in ev if any(k in e[0] for k in OUR_KERNELS)]
+    check(not ours, f"the profiled train step ran {ours[:3]} (C2)")
+    ms = wall / n * 1e3
+    device_ms = sum(e[2] for e in ev) / 1e3
+    # busy against the timed (unprofiled) step: the profiler slows the
+    # host, not the device
+    out.update(ms_per_step=ms, tokens_per_s=n * B * S / wall,
+               peak_gb=peak / 1e9, device_ms=device_ms,
+               busy=device_ms / ms, losses=losses, profiled_ms=pwall * 1e3,
+               kernels=sum(e[1] for e in ev))
+    say(f"[train] {cfg.name} full width ({M.count_model_params(cfg)} bf16 "
+        f"parameters, random, seed {TRAIN['seed']}), {B} x {S} tokens a "
+        f"step, grad_accum {ga}, remat: {ms:.1f} ms/step, "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{out['peak_gb']:.2f} GB; device time {device_ms:.1f} ms a step "
+        f"({out['kernels']} kernels; the profiled step {pwall * 1e3:.1f} "
+        f"ms of wall time), busy {out['busy']:.4f} of the timed step; {smi}")
+    say(f"[train] losses {[round(x, 6) for x in losses]}; kernel launches "
+        f"{counts()} (ssd_scan, flash_attention, arbiters)")
+    for us, cnt, key in sorted(((e[2], e[1], e[0]) for e in ev),
+                               reverse=True)[:6]:
+        say(f"[train]   {us / 1e3:8.2f} ms {cnt:5d}x {key[:80]}")
+    del params, opt, data, step
+
+    # (b) the step's variants against the plain step, in fp32: at full
+    # width the bf16 gradient is dominated by rounding noise (see
+    # TRAIN_TOL), so the variants are held to the plain step on the same
+    # weights cast to fp32, and their bf16 distance is only printed
+    small = batches(TRAIN_SMALL["seq"], TRAIN_SMALL["batch"], 1, 1)[0]
+    params32 = tree_map(lambda p: p.float(), params0)
+    opt32 = init_opt_state(params32, oc)
+
+    def one(p, s, **kw):
+        return build_train_step(cfg, oc, **kw)(p, s, small)
+
+    def distance(name, got, plain):
+        errs = dict(loss=abs(float(got[2]["loss"]) - float(plain[2]["loss"]))
+                    / abs(float(plain[2]["loss"])),
+                    grad=_tree_rel(got[1]["m"], plain[1]["m"]))
+        say(f"[train] {name}: loss {errs['loss']:.3e}, gradient rel RMS "
+            f"{errs['grad']:.3e}")
+        return errs
+
+    def held(name, got, plain):
+        errs = distance(name, got, plain)
+        for k in errs:
+            check(errs[k] <= TRAIN_TOL[k], f"{name}: {k} beyond {TRAIN_TOL}")
+        return errs
+
+    plain32 = one(params32, opt32, grad_accum=1, remat=True)
+    out["variants"] = {name: held(f"fp32 {name} vs the plain step",
+                                  one(params32, opt32, **kw), plain32)
+                       for name, kw in (
+        ("plain again", dict(grad_accum=1, remat=True)),
+        ("grad_accum 2", dict(grad_accum=2, remat=True)),
+        ("remat off", dict(grad_accum=1, remat=False)))}
+    say(f"[train] tolerance {TRAIN_TOL}")
+    plain = one(params0, opt0, grad_accum=1, remat=True)
+    out["variants_bf16"] = {name: distance(
+        f"{name} vs the bf16 plain step (not bounded)", got, plain)
+                            for name, got in (
+        ("bf16 plain again", one(params0, opt0, grad_accum=1, remat=True)),
+        ("bf16 grad_accum 2", one(params0, opt0, grad_accum=2, remat=True)),
+        ("fp32 plain", plain32))}
+    del plain32, params32, opt32
+
+    # (c) the card's step against the CPU's, reduced config
+    rcfg = reduced_config(TRAIN["arch"])
+    rp = init_params(M.model_defs(rcfg), torch.Generator().manual_seed(1),
+                     "cpu")
+    rb = batches(64, 4, 1, 2, "cpu", rcfg)[0]
+    out["cpu"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pc = tree_map(lambda p: p.to(dtype), rp)
+        pd = tree_map(lambda p: p.to(dev), pc)
+        bd = {k: v.to(dev) for k, v in rb.items()}
+        loss_f = lambda p, b: M.loss_fn(rcfg, p, b)[0]
+        lc, _, gc = value_and_grad(loss_f, pc, rb)
+        ld, _, gd = value_and_grad(loss_f, pd, bd)
+        st = build_train_step(rcfg, oc, grad_accum=1)
+        nc, _, _ = st(pc, init_opt_state(pc, oc), rb)
+        nd, _, _ = st(pd, init_opt_state(pd, oc), bd)
+        name = str(dtype).split(".")[1]
+        errs = dict(
+            loss=abs(float(ld) - float(lc)) / abs(float(lc)),
+            grad=max(_rel(a.cpu(), b) for a, b in zip(flatten(gd),
+                                                     flatten(gc))),
+            update=_tree_rel(tree_map(lambda a, b: a.cpu().float()
+                                      - b.float(), nd, pc),
+                             tree_map(lambda a, b: a.float() - b.float(),
+                                      nc, pc)))
+        tol = TRAIN_CPU_TOL[name]
+        say(f"[train] {rcfg.name} {name}, card vs CPU: loss {errs['loss']:.3e}"
+            f", worst gradient leaf rel RMS {errs['grad']:.3e}, update rel "
+            f"RMS {errs['update']:.3e} (tolerance {tol})")
+        for k in errs:
+            check(errs[k] <= tol[k], f"card vs CPU {name}: {k} beyond the "
+                                     f"bound")
+        out["cpu"][name] = errs
+
+    # (d) crash and resume of the launcher at full width
+    ck = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN["arch"], "--steps", str(TRAIN_CKPT["steps"]), "--seq-len",
+           str(TRAIN_CKPT["seq"]), "--batch", str(TRAIN_CKPT["batch"]),
+           "--log-every", "1", "--seed", str(TRAIN["seed"]), "--device",
+           DEVICE]
+    ckpt = ["--ckpt-dir", ck, "--ckpt-every", str(TRAIN_CKPT["every"])]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for extra in ([], [], ckpt + ["--crash-at", str(TRAIN_CKPT["crash"])]):
+            procs.append(subprocess.Popen(cmd + extra, env=env, cwd=ROOT,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        runs = [p.communicate(timeout=300) for p in procs]
+        codes = [p.returncode for p in procs]
+        check(codes == [0, 0, 17], f"launcher exit codes {codes} (want 0, 0,"
+                                   f" 17): {runs[2][1][-2000:]}"
+                                   f"{runs[0][1][-2000:]}")
+        check("simulated preemption" in runs[2][0], "no simulated preemption")
+        resumed = subprocess.run(cmd + ckpt + ["--resume"], env=env,
+                                 cwd=ROOT, capture_output=True, text=True,
+                                 timeout=300)
+        check(resumed.returncode == 0, f"resume failed: "
+                                       f"{resumed.stderr[-2000:]}")
+        check(f"resumed from step {TRAIN_CKPT['every']}" in resumed.stdout,
+              "the resumed run did not start from the checkpoint")
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(ck, ignore_errors=True)
+    a, b = _train_losses(runs[0][0]), _train_losses(runs[1][0])
+    c, d = _train_losses(runs[2][0]), _train_losses(resumed.stdout)
+    last = TRAIN_CKPT["steps"]
+    check(sorted(d) == list(range(TRAIN_CKPT["every"] + 1, last + 1)),
+          f"the resumed run logged steps {sorted(d)}")
+    spread = max(abs(a[s] - b[s]) for s in range(1, last + 1))
+    crash = max(abs(c[s] - a[s]) for s in c)
+    resume = max(abs(d[s] - a[s]) for s in d)
+    out["resume"] = dict(spread=spread, crash=crash, resume=resume,
+                         wall_s=wall, losses=[a[s] for s in sorted(a)])
+    say(f"[train] launcher at full width, {TRAIN_CKPT['batch']} x "
+        f"{TRAIN_CKPT['seq']}, {last} steps, checkpoints every "
+        f"{TRAIN_CKPT['every']}: --crash-at {TRAIN_CKPT['crash']} exited 17,"
+        f" --resume went on from step {TRAIN_CKPT['every']} to {last}; "
+        f"|loss - uninterrupted|: resumed <= {resume:.3e}, crashed run <= "
+        f"{crash:.3e}, a second uninterrupted run <= {spread:.3e} "
+        f"(tolerance {TRAIN_RESUME_TOL}); {wall:.1f} s")
+    check(resume <= TRAIN_RESUME_TOL and crash <= TRAIN_RESUME_TOL,
+          "resumed losses differ from the uninterrupted run's")
+
+    # (e) the data-parallel step on a NCCL world of one
+    out["dp"] = {}
+    with host_group(dev) as group:
+        for name, scfg in (
+                ("homa", HC.SyncConfig(chunk_bytes=1 << 16, overcommit=7)),
+                ("naive", HC.SyncConfig(chunk_bytes=1 << 16, srpt=False,
+                                        overcommit=1)),
+                ("int8", HC.SyncConfig(chunk_bytes=1 << 16, overcommit=7,
+                                       compress="int8"))):
+            dp = HC.build_dp_train_step(
+                lambda p, b: M.loss_fn(cfg, p, b)[0],
+                lambda p, g, s: adamw_update(p, g, s, oc), group, scfg)
+            before = HC.homa_allreduce.collectives
+            HC.homa_allreduce.max_in_flight = 0
+            t0 = time.perf_counter()
+            got = dp(params0, opt0, small, HC.init_err_state(params0, scfg))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            chunks = HC.homa_allreduce.collectives - before
+            say(f"[train] data-parallel step, NCCL world of "
+                f"{group.size()}, {name}: {chunks} chunk collectives, at "
+                f"most {HC.homa_allreduce.max_in_flight} in flight, "
+                f"{ms:.1f} ms")
+            errs = {"chunks": chunks, "ms": ms}
+            if name == "int8":
+                check(bool(torch.isfinite(got[2]["loss"]))
+                      and any(bool(e.abs().max() > 0)
+                              for e in flatten(got[3])),
+                      "int8 step: loss not finite or error state zero")
+            else:
+                errs.update(held(f"data-parallel {name} vs the bf16 plain "
+                                 f"step", got[:3], plain))
+            out["dp"][name] = errs
+    return out
+
+
 # ---------------------------------------------------------------- main -----
 
 PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model",
-          "llama", "faults", "host")
+          "llama", "faults", "host", "train")
 
 
 def main(argv=None) -> int:
@@ -2564,6 +2911,8 @@ def main(argv=None) -> int:
             res["faults"] = run("faults", phase_faults)
         if "host" in phases:
             res["host"] = run("host", phase_host)
+        if "train" in phases:
+            res["train"] = run("train", phase_train)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2627,6 +2976,11 @@ def main(argv=None) -> int:
     say(f"[summary] llama3.2-3b: prefill {llama['tokens_per_s']:.0f} "
         f"tokens/s (4 x 4096), serve {llama['decode_steps_per_s']:.1f} "
         f"decode steps/s (batch 4)")
+    tr = res["train"]
+    say(f"[summary] mamba2-130m train (16 x 2048, grad_accum 2, remat): "
+        f"{tr['ms_per_step']:.1f} ms/step, {tr['tokens_per_s']:.0f} "
+        f"tokens/s, peak {tr['peak_gb']:.2f} GB, busy {tr['busy']:.4f}; "
+        f"homa sync {tr['dp']['homa']['chunks']} chunk collectives a step")
     src = "src/repro_torch/kernels/arbiter/csrc/arbiter.cu"
     rows = {
         # name: (replaces, launches on its path, device ms per launch)

@@ -1,4 +1,4 @@
-"""Architecture configuration dataclass and the registry.
+"""Architecture and shape configuration dataclasses and the registry.
 
 A copy of the JAX package's ``configs/base.py`` (plain Python): the port
 keeps its own so that it imports nothing of ``repro``. Only the fields
@@ -110,6 +110,25 @@ class ModelConfig:
     def padded_vocab(self, multiple: int = 2048) -> int:
         return ((self.vocab_size + multiple - 1) // multiple) * multiple
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                                # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 _REGISTRY: dict[str, ModelConfig] = {}
 

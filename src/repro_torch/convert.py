@@ -12,8 +12,11 @@ which is how the tests check the two simulators slot for slot.
 ``params_from_jax(params_np, device)`` does the same for a model's
 parameter tree (``repro.models.params.init_params``'s output as numpy
 arrays): the port's tree with the same keys, shapes and dtypes, so both
-packages run one set of weights. Only numpy crosses: this module imports
-nothing of JAX.
+packages run one set of weights. ``opt_state_from_jax(opt_np, device)``
+carries an AdamW state (``repro.training.optimizer.init_opt_state``'s
+tree, or one a JAX step returned) across the same way, so that both
+packages can take a step from one state. Only numpy crosses: this module
+imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -59,4 +62,13 @@ def params_from_jax(params_np: dict, device) -> dict:
     return _tensor(params_np, device)
 
 
-__all__ = ["from_jax", "params_from_jax"]
+def opt_state_from_jax(opt_np: dict, device) -> dict:
+    """The JAX package's AdamW state ``{"m", "v", "step"}`` (numpy) as the
+    port's: m and v trees like ``params_from_jax``'s, bit for bit in
+    their dtype, and ``step`` an int32 0-d tensor."""
+    return {"m": params_from_jax(opt_np["m"], device),
+            "v": params_from_jax(opt_np["v"], device),
+            "step": _tensor(np.asarray(opt_np["step"], np.int32), device)}
+
+
+__all__ = ["from_jax", "opt_state_from_jax", "params_from_jax"]

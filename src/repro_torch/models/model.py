@@ -1,13 +1,15 @@
 """Model assembly for decoder-only models whose layers are ``ssm``
 (Mamba2) or ``attn`` (GQA self-attention) mixers with an optional dense
-MLP: the part of the JAX package's ``models/model.py`` that inference of
-such a model runs.
+MLP: the part of the JAX package's ``models/model.py`` that training and
+inference of such a model run.
 
 Entrypoints
 -----------
 - ``model_defs(cfg)``        -> ParamDef tree (single source of truth)
+- ``forward_train(...)``     -> (logits over the full sequence, aux loss)
 - ``forward_prefill(...)``   -> (last-token logits, caches)
 - ``forward_decode(...)``    -> (logits, new caches) for one token
+- ``loss_fn(...)``           -> (scalar LM loss, its parts)
 - ``cache_shapes(cfg, ...)`` -> tree of cache shapes for decode
 - ``count_model_params(cfg)``
 
@@ -18,12 +20,19 @@ blocks in Python, so a tree carried across from JAX
 (:func:`repro_torch.convert.params_from_jax`) is used as it is. MLA,
 cross-attention, MoE and encoder layers raise ``NotImplementedError``
 naming ROADMAP A11.
+
+Training differentiates the plain path with ``torch.autograd``, as the
+JAX package differentiates its plain path with ``jax.value_and_grad``:
+``forward_train`` runs both mixers with ``use_kernel=False``, since the
+hand-written kernels have no backward (ROADMAP C2) and JAX's training
+path calls neither Pallas kernel.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -98,6 +107,17 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` blocks of a stacked tree, each leaf split by one
+    ``torch.unbind`` (whose backward stacks the blocks' gradients once,
+    where indexing block by block would scatter each into a zero tensor
+    of the stacked shape)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _stack(trees: list):
     """Stack per-block trees along a new leading axis (``lax.scan``'s
     stacked outputs)."""
@@ -113,27 +133,41 @@ def _ffn(cfg, lp, x):
     return x + L.mlp(cfg, lp["ffn"], h)
 
 
-def layer_forward(cfg: ModelConfig, lp, x, l: int, *,
+def layer_forward(cfg: ModelConfig, lp, x, l: int, *, mode: str = "prefill",
                   use_kernel: bool | None = None):
-    """One layer, full sequence (prefill from position 0). Returns (x,
-    new_cache). ``use_kernel`` is passed to the mixer (``self_attention``
-    or ``mamba_block``)."""
+    """One layer, full sequence from position 0. Returns (x, new_cache).
+
+    ``mode="prefill"`` keeps the layer's cache and passes ``use_kernel``
+    to the mixer (``self_attention`` or ``mamba_block``);
+    ``mode="train"`` keeps none ({}) and runs the mixer's plain path,
+    which autograd can differentiate (the kernels have no backward)."""
     kind = _check_ported(cfg, l)
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"unknown mode {mode!r}")
+    train = mode == "train"
+    if train:
+        if use_kernel:
+            raise ValueError("mode='train' runs the plain mixers: the "
+                             "kernels have no backward")
+        use_kernel = False
     h = L.apply_norm(cfg, lp["norm1"], x)
+    new_cache = {}
     if kind == "attn":
         positions = torch.arange(x.shape[1], device=x.device)
         y, (k, v) = L.self_attention(cfg, lp["mixer"], h, positions,
                                      window=cfg.sliding_window,
                                      use_kernel=use_kernel)
-        if cfg.sliding_window:   # ring cache: keep last `window`
-            w = min(cfg.sliding_window, k.shape[1])
-            k, v = k[:, -w:], v[:, -w:]
-        new_cache = {"k": k, "v": v}
+        if not train:
+            if cfg.sliding_window:   # ring cache: keep last `window`
+                w = min(cfg.sliding_window, k.shape[1])
+                k, v = k[:, -w:], v[:, -w:]
+            new_cache = {"k": k, "v": v}
     else:
         y, (final_state, conv_tail) = S.mamba_block(cfg, lp["mixer"], h,
                                                     use_kernel=use_kernel)
-        new_cache = {"state": final_state.to(x.dtype),
-                     "conv": conv_tail.to(x.dtype)}
+        if not train:
+            new_cache = {"state": final_state.to(x.dtype),
+                         "conv": conv_tail.to(x.dtype)}
     x = x + y
     if "ffn" in lp:
         x = _ffn(cfg, lp, x)
@@ -173,6 +207,35 @@ def _logits(cfg, params, x):
         logits = torch.where(mask, logits, torch.full((), -1e9, dtype=F32,
                                                       device=logits.device))
     return logits
+
+
+def forward_train(cfg: ModelConfig, params, tokens, *, remat: bool = True):
+    """tokens: (B, S) -> (logits (B, S, Vp) fp32, aux loss).
+
+    Every layer runs in ``mode="train"`` (plain mixers, no caches).
+    ``remat=True`` recomputes each stacked block in the backward pass
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``),
+    so only the blocks' inputs are kept. ``aux`` is a zero fp32 scalar:
+    the port has no MoE layer, the only source of an aux loss."""
+    x = _embed(cfg, params, tokens)
+    for i in range(cfg.first_dense_layers):
+        x, _ = layer_forward(cfg, params["prefix"][f"p{i}"], x, i,
+                             mode="train")
+    npfx, period = cfg.first_dense_layers, cfg.block_period
+
+    def block_fn(x, bp, bi):
+        for i in range(period):
+            x, _ = layer_forward(cfg, bp[f"s{i}"], x,
+                                 npfx + bi * period + i, mode="train")
+        return x
+
+    for bi, bp in enumerate(_unstack(params["blocks"], n_scan_blocks(cfg))):
+        if remat:
+            x = checkpoint(block_fn, x, bp, bi, use_reentrant=False)
+        else:
+            x = block_fn(x, bp, bi)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    return _logits(cfg, params, x), aux
 
 
 def forward_prefill(cfg: ModelConfig, params, tokens, *,
@@ -224,6 +287,31 @@ def forward_decode(cfg: ModelConfig, params, token, pos, caches):
         per_block.append(deltas)
     logits = _logits(cfg, params, x)[:, 0]
     return logits, {"prefix": prefix_deltas, "blocks": _stack(per_block)}
+
+
+# ----------------------------------------------------------------- loss ----
+
+def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
+            aux_weight: float = 0.01, z_weight: float = 1e-4):
+    """The JAX package's LM loss: mean next-token NLL over labels >= 0,
+    plus ``z_weight`` times the mean squared log-partition (z-loss) and
+    ``aux_weight`` times the aux loss. Returns (loss, {"nll", "aux",
+    "zloss"}), fp32 scalars.
+
+    JAX picks the label's logit by a one-hot masked sum over the vocab;
+    one non-zero term plus zeros sums without rounding, so the gather
+    here is the same number, and builds no (B, S, Vp) one-hot."""
+    logits, aux = forward_train(cfg, params, batch["tokens"], remat=remat)
+    labels = batch["labels"]
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = (labels >= 0).to(F32)
+    labels = torch.clamp_min(labels, 0).long()
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    count = torch.clamp_min(mask.sum(), 1.0)
+    nll = torch.sum((lse - ll) * mask) / count
+    zloss = torch.sum((lse ** 2) * mask) / count
+    loss = nll + z_weight * zloss + aux_weight * aux
+    return loss, {"nll": nll, "aux": aux, "zloss": zloss}
 
 
 # ----------------------------------------------------------- cache decls ---

@@ -6,7 +6,9 @@ inputs that require grad), the lossy fabric on the card (each backend
 against ``tests/golden/faults_enabled.json``, and a full-width fault
 window with no host sync), and the host stage with telemetry (both
 kernel backends against ``tests/golden/host_trace_enabled.json``, and
-the ideal host with capture off against both fabric goldens).
+the ideal host with capture off against both fabric goldens), and the
+training step (the card's against the CPU's, no kernel launched) and the
+data-parallel step on a NCCL world of one.
 
 These tests need a CUDA card and skip without one (marker ``gpu``); run
 them there with ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py``.
@@ -1183,3 +1185,103 @@ def test_off_sentinels_match_the_fabric_goldens(cuda, name, proto):
         got["tor_up_q_max_bytes"] = [int(x) for x in r.tor_up_q_max_bytes]
         got["tor_up_lost_chunks"] = int(r.tor_up_lost_chunks)
     assert got == want
+
+
+# ------------------------------------------------------------- training ----
+
+# the card's fp32 training step against the CPU's on one reduced config
+# (TF32 off, so the two differ only in the order of fp32 sums): the loss
+# relative, each gradient leaf and each AdamW m normwise (max |diff| over
+# max |cpu|); tests/test_torch_train.py holds the CPU to JAX
+TRAIN_CARD_TOL = dict(loss=1e-5, grad=1e-4)
+
+
+def _train_inputs(arch, dtype, device):
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.tree import tree_map
+    cfg = reduced_config(arch)
+    params = init_params(M.model_defs(cfg), torch.Generator()
+                         .manual_seed(0), "cpu")
+    params = tree_map(lambda p: p.to(device=device, dtype=dtype), params)
+    batch = SyntheticLM(DataConfig(seq_len=40, global_batch=4,
+                                   vocab_size=cfg.vocab_size,
+                                   seed=1)).batch(0)
+    return cfg, params, {k: torch.from_numpy(v).to(device)
+                         for k, v in batch.items()}
+
+
+def _normwise(got, want):
+    got, want = got.cpu().float(), want.cpu().float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "llama3.2-3b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The fp32 step of the reduced config on the card equals the CPU's
+    within fp32 summation order, and launches no hand-written kernel
+    (the plain mixers, ROADMAP C2)."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.step import build_train_step, value_and_grad
+    from repro_torch.tree import flatten
+    oc = OptConfig(lr=1e-3, warmup_steps=5, total_steps=40)
+    got, want = {}, {}
+    before = (ssd_kernel.ssd_scan.launches,
+              attn_kernel.flash_attention.launches)
+    for device, res in ((cuda, got), ("cpu", want)):
+        cfg, params, batch = _train_inputs(arch, torch.float32, device)
+        res["loss"], _, res["grads"] = value_and_grad(
+            lambda p, b: M.loss_fn(cfg, p, b)[0], params, batch)
+        step = build_train_step(cfg, oc, grad_accum=2)
+        _, res["opt"], res["metrics"] = step(
+            params, init_opt_state(params, oc), batch)
+    assert (ssd_kernel.ssd_scan.launches,
+            attn_kernel.flash_attention.launches) == before
+    assert abs(float(got["loss"]) - float(want["loss"])) \
+        <= TRAIN_CARD_TOL["loss"] * abs(float(want["loss"]))
+    for a, b in zip(flatten(got["grads"]) + flatten(got["opt"]["m"]),
+                    flatten(want["grads"]) + flatten(want["opt"]["m"])):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _normwise(a, b) <= TRAIN_CARD_TOL["grad"]
+
+
+@pytest.mark.gpu
+def test_dp_step_on_a_nccl_world_of_one(cuda):
+    """The data-parallel step on a NCCL group of one rank (homa, 64 KiB
+    chunks, K = 7) computes the single-process step: its sync of one rank
+    is the identity, up to the fp32 round trip of bf16 gradients."""
+    import torch.distributed as dist
+    from repro_torch.distrib import homa_collectives as HC
+    from repro_torch.launch.mesh import host_group
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import (OptConfig, adamw_update,
+                                                init_opt_state)
+    from repro_torch.training.step import build_train_step
+    from repro_torch.tree import flatten
+    cfg, params, batch = _train_inputs("llama3.2-3b", torch.float32, cuda)
+    oc = OptConfig(lr=1e-3, warmup_steps=5, total_steps=40)
+    opt = init_opt_state(params, oc)
+    _, want_opt, want = build_train_step(cfg, oc, grad_accum=1)(
+        params, opt, batch)
+    with host_group(cuda) as group:
+        assert dist.get_backend(group) == "nccl"
+        cfg_s = HC.SyncConfig(chunk_bytes=1 << 16, overcommit=7)
+        step = HC.build_dp_train_step(
+            lambda p, b: M.loss_fn(cfg, p, b)[0],
+            lambda p, g, s: adamw_update(p, g, s, oc), group, cfg_s)
+        before = HC.homa_allreduce.collectives
+        _, got_opt, got, err = step(params, opt, batch,
+                                    HC.init_err_state(params, cfg_s))
+        assert HC.homa_allreduce.collectives - before == len(HC.chunk_plan(
+            [(tuple(p.shape), p.dtype) for p in flatten(params)], cfg_s))
+    assert not dist.is_initialized()
+    assert abs(float(got["loss"]) - float(want["loss"])) \
+        <= TRAIN_CARD_TOL["loss"] * abs(float(want["loss"]))
+    for a, b in zip(flatten(got_opt["m"]), flatten(want_opt["m"])):
+        assert _normwise(a, b) <= TRAIN_CARD_TOL["grad"]

@@ -25,7 +25,11 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.ssd.ops, repro_torch.kernels.attention.ops, "
             "repro_torch.models.model, repro_torch.configs.llama3_2_3b, "
             "repro_torch.launch.serve, repro_torch.core.hostmodel, "
-            "repro_torch.core.telemetry; "
+            "repro_torch.core.telemetry, repro_torch.training.optimizer, "
+            "repro_torch.training.step, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint.store, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.distrib.homa_collectives, "
+            "repro_torch.tree; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro'))")
@@ -46,8 +50,14 @@ def _imports(path: Path) -> list[str]:
 
 
 def test_no_file_of_the_port_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
+        ROOT / "examples" / "torch_homa_gradient_sync.py"]
     assert len(files) > 10
+    for mod in ("training/optimizer.py", "training/step.py",
+                "data/pipeline.py", "checkpoint/store.py", "launch/train.py",
+                "launch/mesh.py", "distrib/homa_collectives.py"):
+        assert PORT / mod in files, mod
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
