@@ -37,8 +37,9 @@ result line:
            turns
 3. goldens ``tests/golden/fabric_disabled.json`` and ``fabric_enabled.json``
            replayed for all six protocols on the staged (``cuda``) and the
-           fused kernel backend, bit-exact; the 24 replays run six at a
-           time in worker processes
+           fused kernel backend, bit-exact; the 24 replays run in the
+           worker pool (seven spawned processes, kept for the whole script)
+           at once with phase 4's three runs, which go first
 4. full    the paper's 144-host, 9-rack full-bisection leaf-spine network,
            W3 at load 0.8 with 8000 messages, homa, 12000 slots (every
            message has arrived by slot 9186), on the
@@ -47,10 +48,12 @@ result line:
            the plain backend for the first 5000 slots (state identical
            key by key), and through ``simulate`` on the
            fused backend (one ``fused_slot`` launch per slot, nothing
-           staged; integer outputs identical to the staged run)
+           staged; integer outputs identical to the staged run); each run
+           in a worker, counters set to 0 there just before it
 5. window  a steady window of that run from phase 4's state at slot
-           5000: no host sync inside the slot loop on either kernel
-           backend, then a profiled stretch of each from that one state —
+           5000, brought back onto the card: no host sync inside the slot
+           loop on either kernel backend, then a profiled stretch of 50
+           slots of each from that one state —
            device busy share, kernels per slot and each kernel's device
            time per launch
 6. sweep   (a) the committed ``benchmarks/baselines/sweep_speed.json``
@@ -63,7 +66,8 @@ result line:
            ``fused_slot_batch`` launch per slot; (c) profiled windows of
            that batch from slot 1000 on both backends (the staged one
            runs the arbiter on (1728, 1024) and (1728, 512)) beside phase
-           5's single run
+           5's single run; (a), (b) and (c)'s warm-up run in the worker
+           pool at once, the windows here
 7. model   Mamba2-130m inference at full width (24 layers, d_model 768,
            H 24, P 64, N 128, chunk 256; random weights from a seed):
            (a) the SSD chunk-scan kernels (``csrc/ssd.cu``) against their
@@ -120,7 +124,8 @@ result line:
            adaptive routing, one ``run_sweep`` batch of 2000 slots on
            ``fused`` (one ``fused_slot_batch`` a slot) and ``cuda``:
            every integer of the statistics identical, ``f_lost`` and
-           ``retx`` included
+           ``retx`` included. The runs of (a)-(c) go to the worker pool at
+           once, the windows run here
 10. host   the host/NIC stage and in-loop telemetry (DESIGN.md §10, §8):
            (a) the 13 runs of ``tests/golden/host_trace_enabled.json``'s
            ``"small"`` part (16 hosts; all six protocols behind
@@ -139,11 +144,11 @@ result line:
            slot 2000 with no host sync and a profiled stretch of 50 slots
            on both
            kernel backends, and the capture's cost (the wall-clock plane,
-           traced vs capture off, 1000 slots, best of 2); (c) four
+           traced vs capture off, 500 slots, best of 2); (c) four
            full-width runs (seeds 0-3) of that point, one streaming
            ``run_sweep`` batch of 2000 slots on ``fused`` and ``cuda``:
            host and trace summaries identical. The runs of (a)-(c) go to
-           worker processes, six at once
+           the worker pool at once
 11. train  Mamba2-130m training at full width (random bf16 weights from a
            seed), on the plain path autograd differentiates: (a) 5 steps
            of ``build_train_step`` with remat at 16 x 2048 tokens
@@ -856,19 +861,49 @@ def _golden_run(meta, proto, fabric, backend):
     return simulate(cfg, tbl)
 
 
-GOLDEN_WORKERS = 6   # replays at once, one process each (8 host cores)
+GOLDEN_WORKERS = 7   # worker processes (8 host cores; the parent waits)
+_POOL = None
 
 
 def _in_workers(fn, jobs):
-    """``[fn(*job) for job in jobs]``, run in up to GOLDEN_WORKERS spawned
-    processes at once: a replay is host-bound (one core each, device busy
-    under 10%), so replays in parallel share the card well. A worker's
-    exception re-raises here; the pool's processes end with it."""
+    """``[fn(*job) for job in jobs]``, run in the script's worker pool:
+    GOLDEN_WORKERS spawned processes, started at its first use and kept
+    until the script ends, so each imports torch and opens the card once.
+    A replay is host-bound (one core each, device busy under 10%), so
+    replays in parallel share the card well. Jobs start in the order
+    given: list the longest first. A worker's exception re-raises
+    here."""
+    return _in_workers_each([(fn, job) for job in jobs])
+
+
+def _in_workers_each(calls):
+    """``[fn(*args) for fn, args in calls]`` in the worker pool."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
-    with ProcessPoolExecutor(min(GOLDEN_WORKERS, len(jobs)),
-                             mp_context=mp.get_context("spawn")) as pool:
-        return list(pool.map(fn, *zip(*jobs)))
+    global _POOL
+    if _POOL is None:
+        _POOL = ProcessPoolExecutor(GOLDEN_WORKERS,
+                                    mp_context=mp.get_context("spawn"))
+    futures = [_POOL.submit(_job, fn, args) for fn, args in calls]
+    return [f.result() for f in futures]
+
+
+def _job(fn, args):
+    """One job in a worker; its memory goes back to the card after it,
+    so that idle workers hold little beside the later phases."""
+    try:
+        return fn(*args)
+    finally:
+        import torch
+        torch.cuda.empty_cache()
+
+
+def _close_pool():
+    """End the worker pool's processes (queued jobs are dropped)."""
+    global _POOL
+    if _POOL is not None:
+        _POOL.shutdown(wait=True, cancel_futures=True)
+        _POOL = None
 
 
 def _golden_job(name, proto, backend):
@@ -896,12 +931,8 @@ def _golden_job(name, proto, backend):
         time.perf_counter() - t0
 
 
-def phase_goldens():
-    jobs = [(name, proto, backend) for backend in ("cuda", "fused")
-            for name in ("fabric_disabled", "fabric_enabled")
-            for proto in PROTOCOLS]
-    for (name, proto, backend), (bad, secs) in zip(
-            jobs, _in_workers(_golden_job, jobs)):
+def _golden_checks(jobs, results):
+    for (name, proto, backend), (bad, secs) in zip(jobs, results):
         check(not bad, f"{name} {proto} {backend}: differs from the "
                        f"golden in {bad}")
         say(f"[goldens] {name} {proto} {backend}: bit-exact ({secs:.1f} s "
@@ -930,75 +961,83 @@ INT_FIELDS = ("completion", "q_max_bytes", "prio_drained_bytes",
               "tor_up_q_mean_bytes", "q_mean_bytes", "wasted_frac")
 
 
-def phase_full():
-    """The staged kernel run is ``simulate`` split at PLAIN_SLOTS (the same
-    prepare, loop and finalize) so that its state there can be held
-    against the plain backend's; the fused run goes through
-    ``simulate``."""
-    import numpy as np
+def _full_job(backend):
+    """One run of phase 4 in a worker process: on ``cuda`` the staged run,
+    ``simulate`` split at PLAIN_SLOTS (the same prepare, loop and
+    finalize) so that its state there can be held against the plain
+    backend's; on ``reference`` that plain run to PLAIN_SLOTS; on
+    ``fused`` ``simulate``. Returns the state at PLAIN_SLOTS (or None),
+    the SimResult (or None), the launches, the top-K launches on the
+    rounds routine and the seconds."""
+    sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.core import simulate
     from repro_torch.core.protocols import get_protocol
     from repro_torch.core.sim import (_finalize, _init_state, host_state,
                                       prepare, run_slots, stack_static)
     from repro_torch.kernels.arbiter import kernel
-    slots = FULL["max_slots"]
-
-    def stepped(backend, stops):
-        cfg, tbl = _full_config(backend)
-        proto = get_protocol(cfg.protocol)
-        S1, alloc = prepare(cfg, tbl)
-        S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
-        st, t, snaps = _init_state(cfg, proto, len(tbl.size)), 0, []
-        handoff = None
-        for stop in stops:
-            st = run_slots(cfg, proto, S, st, n_sched, t, stop)
-            snaps.append(host_state(st))
-            if stop == PLAIN_SLOTS:      # phase 5's windows start here
-                handoff = (S, n_sched, st)
-            t = stop
-        return cfg, tbl, S1, alloc, snaps, handoff
-
+    cfg, tbl = _full_config(backend)
     torch.cuda.synchronize()
     kernel.reset_launch_counts()
     t0 = time.perf_counter()
-    cfg, tbl, S1, alloc, (snap, end), handoff = stepped(
-        "cuda", (PLAIN_SLOTS, slots))
-    r_k = _finalize(cfg, tbl, S1, alloc, end, 0, False)
-    wall_k = time.perf_counter() - t0
-    launches = {"cuda": kernel.launch_counts()}
-    check(launches["cuda"] == {"priority_arbiter": 2 * slots,
-                               "srpt_topk": slots, "fused_slot": 0,
-                               "fused_slot_batch": 0},
-          f"staged run launches {launches['cuda']}, expected 2 arbiter and "
-          f"1 top-K per slot over {slots} slots")
-    rounds = {"srpt_topk": kernel.srpt_topk.launches_rounds}
+    snap = r = None
+    if backend == "fused":
+        r = simulate(cfg, tbl)       # ends in host copies: synchronized
+    else:
+        proto = get_protocol(cfg.protocol)
+        S1, alloc = prepare(cfg, tbl)
+        S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
+        st = _init_state(cfg, proto, len(tbl.size))
+        st = run_slots(cfg, proto, S, st, n_sched, 0, PLAIN_SLOTS)
+        snap = host_state(st)
+        if backend == "cuda":
+            st = run_slots(cfg, proto, S, st, n_sched, PLAIN_SLOTS,
+                           cfg.max_slots)
+            r = _finalize(cfg, tbl, S1, alloc, host_state(st), 0, False)
+    wall = time.perf_counter() - t0
+    rounds = {fn.__name__: fn.launches_rounds for fn in kernel.TOPK_WRAPPERS}
+    return snap, r, kernel.launch_counts(), rounds, wall
 
-    t0 = time.perf_counter()
-    *_, (plain,), _ = stepped("reference", (PLAIN_SLOTS,))
-    wall_p = time.perf_counter() - t0
+
+def phase_goldens_full(phases):
+    """Phases 3 and 4 in one pass of the worker pool, phase 4's three runs
+    (the longest) first; phase 4's results, or None."""
+    import numpy as np
+    full_jobs = ([(b,) for b in ("cuda", "fused", "reference")]
+                 if "full" in phases else [])
+    golden_jobs = ([(name, proto, backend) for backend in ("cuda", "fused")
+                    for name in ("fabric_disabled", "fabric_enabled")
+                    for proto in PROTOCOLS]
+                   if "goldens" in phases else [])
+    res = _in_workers_each([(_full_job, j) for j in full_jobs]
+                           + [(_golden_job, j) for j in golden_jobs])
+    _golden_checks(golden_jobs, res[len(full_jobs):])
+    if not full_jobs:
+        return None
+    (snap, r_k, n_k, rounds_k, wall_k), (_, r_f, n_f, rounds_f, wall_f), \
+        (plain, _, n_p, _, wall_p) = res[:3]
+    slots = FULL["max_slots"]
+    launches = {"cuda": n_k, "fused": n_f}
+    check(n_k == {"priority_arbiter": 2 * slots, "srpt_topk": slots,
+                  "fused_slot": 0, "fused_slot_batch": 0},
+          f"staged run launches {n_k}, expected 2 arbiter and 1 top-K per "
+          f"slot over {slots} slots")
+    check(n_f == {"priority_arbiter": 0, "srpt_topk": 0,
+                  "fused_slot": slots, "fused_slot_batch": 0},
+          f"fused run launches {n_f}, expected one fused_slot per slot over "
+          f"{slots} slots and nothing staged")
+    check(set(n_p.values()) == {0}, "the reference backend launched a kernel")
+    rounds = {"srpt_topk": rounds_k["srpt_topk"],
+              "fused_slot": rounds_f["fused_slot"]}
+    check(rounds == {"srpt_topk": 0, "fused_slot": 0},
+          f"full run: top-K launches on the rounds routine {rounds}; the "
+          f"main path's K = 7 must take the one-pass routine")
     check(set(plain) == set(snap), "plain and kernel state keys differ")
     for k in snap:
         check(plain[k].dtype == snap[k].dtype
               and np.array_equal(plain[k], snap[k]),
               f"slot {PLAIN_SLOTS}: plain and kernel backends differ in "
               f"state {k}")
-
-    cfg_f, tbl = _full_config("fused")
-    kernel.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r_f = simulate(cfg_f, tbl)       # ends in host copies: synchronized
-    wall_f = time.perf_counter() - t0
-    launches["fused"] = kernel.launch_counts()
-    check(launches["fused"] == {"priority_arbiter": 0, "srpt_topk": 0,
-                                "fused_slot": slots, "fused_slot_batch": 0},
-          f"fused run launches {launches['fused']}, expected one fused_slot "
-          f"per slot over {slots} slots and nothing staged")
-    rounds["fused_slot"] = kernel.fused_slot.launches_rounds
-    check(rounds == {"srpt_topk": 0, "fused_slot": 0},
-          f"full run: top-K launches on the rounds routine {rounds}; the "
-          f"main path's K = 7 must take the one-pass routine")
     for field in INT_FIELDS:
         check(np.array_equal(getattr(r_k, field), getattr(r_f, field)),
               f"full run: fused and staged backends differ in {field}")
@@ -1009,16 +1048,17 @@ def phase_full():
           and (r_k.slowdown[r_k.done] > 0).all(),
           "full run: completions missing or slowdowns not positive")
     s = r_k.summary()
+    tbl = _full_config("cuda")[1]
     say(f"[full] 144 hosts, 9 racks x 16 uplinks, W3 load 0.8, 8000 msgs "
         f"(arrival horizon {int(tbl.arrival_slot.max())} slots), "
-        f"{slots} slots")
+        f"{slots} slots; each run in a worker beside the goldens")
     say(f"[full] cuda backend: {wall_k:.2f} s wall, "
-        f"{slots / wall_k:.1f} slots/s; launches {launches['cuda']}")
+        f"{slots / wall_k:.1f} slots/s; launches {n_k}")
     say(f"[full] reference backend, first {PLAIN_SLOTS} slots: "
         f"{wall_p:.2f} s wall, {PLAIN_SLOTS / wall_p:.1f} slots/s; state "
         f"identical to the cuda run's at slot {PLAIN_SLOTS}, key by key")
     say(f"[full] fused backend: {wall_f:.2f} s wall, "
-        f"{slots / wall_f:.1f} slots/s; launches {launches['fused']}")
+        f"{slots / wall_f:.1f} slots/s; launches {n_f}")
     say(f"[full] top-K launches on the rounds routine: {rounds} (all on "
         f"the one-pass routine)")
     say(f"[full] identical integer outputs; completed "
@@ -1026,12 +1066,13 @@ def phase_full():
         f"({r_k.completion_rate:.4f}); p99_small {s['p99_small']}; "
         f"p99_all {s['p99_all']}; lost {r_k.lost_chunks}")
     launches["rounds"] = rounds
-    return launches, slots / wall_k, handoff
+    return launches, slots / wall_k, snap
 
 
 # ------------------------------------------------------------- phase 5 -----
 
-WINDOW_SLOTS = 100
+WINDOW_SLOTS = 50                # a profiled stretch (the profiler's post-
+                                 # processing costs ~0.2 s a slot)
 SWEEP_WINDOW_START = 1000        # phase 6c's window: its warm-up's depth
 
 
@@ -1048,6 +1089,7 @@ def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
     for backend, cfg in cfgs.items():
         proto = get_protocol(cfg.protocol)
         torch.cuda.synchronize()
+        t_dbg = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")   # a host sync now raises
         try:
             st1 = run_slots(cfg, proto, S, st, n_sched, t, t + 20)
@@ -1055,7 +1097,8 @@ def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         say(f"[{tag}] {backend}: slots {t}..{t + 19}: no host sync in the "
-            f"loop")
+            f"loop ({time.perf_counter() - t_dbg:.1f} s)")
+        t_prof = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1066,6 +1109,7 @@ def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
                        for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA),
                       reverse=True)
+        t_prof = time.perf_counter() - t_prof - wall
         busy_us = sum(k[0] for k in kern)
         row = dict(ms_per_slot=wall / n * 1e3, busy=busy_us / 1e6 / wall,
                    kernels_per_slot=sum(k[1] for k in kern) / n,
@@ -1073,7 +1117,8 @@ def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
         say(f"[{tag}] {backend}: {n} slots from {t + 20}: "
             f"{row['ms_per_slot']:.3f} ms/slot wall, device busy "
             f"{row['busy']:.4f}, {row['kernels_per_slot']:.1f} kernels/slot, "
-            f"{row['device_us_per_slot']:.1f} us/slot of device time")
+            f"{row['device_us_per_slot']:.1f} us/slot of device time; the "
+            f"profiler's set-up and post-processing {t_prof:.1f} s")
         for us, cnt, key in kern[:8]:
             say(f"[{tag}]   {us / n:8.2f} us/slot {cnt / n:6.1f}/slot "
                 f"{key[:90]}")
@@ -1092,9 +1137,17 @@ def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
 
 def phase_window(handoff):
     """A steady window of the full run from phase 4's staged state at
-    slot PLAIN_SLOTS (identical on every backend, phase 4 checks it):
-    each kernel backend's window from that one state."""
-    S, n_sched, st = handoff
+    slot PLAIN_SLOTS (identical on every backend, phase 4 checks it),
+    brought back onto the card: each kernel backend's window from that
+    one state."""
+    import torch
+    from repro_torch.core.protocols import get_protocol
+    from repro_torch.core.sim import prepare, stack_static
+    cfg, tbl = _full_config("cuda")
+    proto = get_protocol(cfg.protocol)
+    S1, alloc = prepare(cfg, tbl)
+    S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
+    st = {k: torch.from_numpy(v).to(DEVICE) for k, v in handoff.items()}
     cfgs = {b: _full_config(b)[0] for b in ("cuda", "fused")}
     w = _windows(cfgs, S, st, n_sched, PLAIN_SLOTS, WINDOW_SLOTS, "window")
     check("priority_arbiter" in w["cuda"]["per_launch_ms"]
@@ -1109,14 +1162,13 @@ def phase_window(handoff):
 def _sweep_mega():
     """The committed mega cell: 6 protocols x 3 loads x 4 seeds of W1 at 8
     hosts, each protocol one batch of 12, chunked and streaming, on the
-    fused backend; the pooled p99 per protocol and the completions must
-    equal the baseline's."""
+    fused backend: the pooled p99 per protocol, the completions, the
+    runs, the horizon and the seconds (phase 6 holds them to the
+    baseline's)."""
     from repro_torch.core import (SimConfig, SweepSpec, make_messages,
                                   run_sweep)
     from repro_torch.core.sweep import percentile_from_hist
-    base = json.loads((ROOT / "benchmarks" / "baselines" / "sweep_speed.json")
-                      .read_text())
-    mega = next(r for r in base if r["kind"] == "mega")
+    mega = _mega_baseline()
     tables = [make_messages(mega["workload"], n_hosts=8, load=ld,
                             n_messages=mega["n_messages"], slot_bytes=256,
                             seed=s)
@@ -1125,24 +1177,22 @@ def _sweep_mega():
     spec = SweepSpec(tables=tables, shared_alloc=True, shard=True,
                      chunk_slots=512, streaming=True)
     t0 = time.perf_counter()
-    done = 0
+    done, p99 = 0, {}
     for proto in PROTOCOLS:
         cfg = SimConfig(n_hosts=8, protocol=proto, ring_cap=256,
                         max_slots=horizon, backend="fused", device=DEVICE)
         stats = run_sweep(cfg, spec)
         done += sum(s.n_complete for s in stats)
         pooled = sum(s.hist.sum(axis=0) for s in stats)
-        p99 = round(percentile_from_hist(pooled, stats[0].stream, 99.0), 4)
-        check(p99 == mega[f"p99_{proto}"],
-              f"mega cell {proto}: pooled p99 {p99} != baseline "
-              f"{mega[f'p99_{proto}']}")
-    wall = time.perf_counter() - t0
-    check(done == mega["completions"],
-          f"mega cell: {done} completions != baseline {mega['completions']}")
-    say(f"[sweep] mega cell ({len(PROTOCOLS)} protocols x {len(tables)} "
-        f"runs, {horizon} slots, fused): pooled p99s and {done} completions "
-        f"equal the baseline; {wall:.2f} s wall, "
-        f"{len(PROTOCOLS) * len(tables) / wall:.2f} runs/s")
+        p99[proto] = round(percentile_from_hist(pooled, stats[0].stream,
+                                                99.0), 4)
+    return p99, done, len(tables), horizon, time.perf_counter() - t0
+
+
+def _mega_baseline():
+    base = json.loads((ROOT / "benchmarks" / "baselines" / "sweep_speed.json")
+                      .read_text())
+    return next(r for r in base if r["kind"] == "mega")
 
 
 def _sweep_tables():
@@ -1159,33 +1209,83 @@ def _sweep_config(backend):
     return dataclasses.replace(cfg, max_slots=SWEEP_SLOTS)
 
 
-def phase_sweep():
+def _sweep_job(kind, backend):
+    """One run of phase 6 in a worker process:
+
+      ("mega", None)      the mega cell (:func:`_sweep_mega`)
+      ("sweep", backend)  6b's batch of 12 through ``run_sweep``: its
+                          SweepStats, launches, top-K launches on the
+                          rounds routine, seconds
+      ("warm", None)      6c's batch on ``fused`` to SWEEP_WINDOW_START
+                          (the priorities shared as ``run_sweep`` shares
+                          them): the state there
+    """
+    sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch
     from repro_torch.core import SweepSpec, run_sweep
+    from repro_torch.core.priorities import allocate_priorities
     from repro_torch.core.protocols import get_protocol
-    from repro_torch.core.sim import (_init_state, prepare, run_slots,
-                                      stack_static)
+    from repro_torch.core.sim import (_init_state, host_state, prepare,
+                                      run_slots, stack_static)
     from repro_torch.kernels.arbiter import kernel
-    _sweep_mega()
+    if kind == "mega":
+        return _sweep_mega()
+    tables = _sweep_tables()
+    if kind == "warm":
+        cfg = _sweep_config("fused")
+        proto = get_protocol(cfg.protocol)
+        alloc = allocate_priorities(np.concatenate([t.size for t in tables]),
+                                    unsched_limit=cfg.rtt_bytes,
+                                    n_prios=cfg.n_prios)
+        S = stack_static([prepare(cfg, t, alloc)[0] for t in tables])
+        st = _init_state(cfg, proto, S["size"].shape[1], len(tables))
+        return host_state(run_slots(cfg, proto, S, st,
+                                    proto.n_sched(cfg, alloc), 0,
+                                    SWEEP_WINDOW_START))
+    spec = SweepSpec(tables=tables, shared_alloc=True, chunk_slots=1000,
+                     streaming=True)
+    kernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = run_sweep(_sweep_config(backend), spec)
+    wall = time.perf_counter() - t0
+    return (stats, kernel.launch_counts(),
+            {fn.__name__: fn.launches_rounds for fn in kernel.TOPK_WRAPPERS},
+            wall)
+
+
+def phase_sweep():
+    """6a-6b and 6c's warm-up in the worker pool at once, then 6c's
+    windows here."""
+    import numpy as np
+    import torch
+    from repro_torch.core.protocols import get_protocol
+    from repro_torch.core.sim import prepare, stack_static
+    backends = ("fused", "cuda")
+    res = _in_workers(_sweep_job, [("sweep", b) for b in backends]
+                      + [("mega", None), ("warm", None)])
+    (p99, done, n_runs, horizon, wall_m), warm = res[2:]
+    mega = _mega_baseline()
+    for proto in PROTOCOLS:
+        check(p99[proto] == mega[f"p99_{proto}"],
+              f"mega cell {proto}: pooled p99 {p99[proto]} != baseline "
+              f"{mega[f'p99_{proto}']}")
+    check(done == mega["completions"],
+          f"mega cell: {done} completions != baseline {mega['completions']}")
+    say(f"[sweep] mega cell ({len(PROTOCOLS)} protocols x {n_runs} "
+        f"runs, {horizon} slots, fused): pooled p99s and {done} completions "
+        f"equal the baseline; {wall_m:.2f} s wall in a worker, "
+        f"{len(PROTOCOLS) * n_runs / wall_m:.2f} runs/s")
 
     tables = _sweep_tables()
     B = len(tables)
-    spec = SweepSpec(tables=tables, shared_alloc=True, chunk_slots=1000,
-                     streaming=True)
     stats, launches, wall, rounds = {}, {}, {}, {}
-    for backend in ("fused", "cuda"):
-        kernel.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats[backend] = run_sweep(_sweep_config(backend), spec)
-        wall[backend] = time.perf_counter() - t0
-        launches[backend] = kernel.launch_counts()
-        rounds[backend] = {fn.__name__: fn.launches_rounds
-                           for fn in kernel.TOPK_WRAPPERS}
+    for backend, (stats[backend], launches[backend], rounds[backend],
+                  wall[backend]) in zip(backends, res[:2]):
         say(f"[sweep] {B} full-width runs (W3, loads {SWEEP_LOADS} x seeds "
             f"{SWEEP_SEEDS}), {SWEEP_SLOTS} slots, {backend}: "
-            f"{wall[backend]:.2f} s wall, "
+            f"{wall[backend]:.2f} s wall in a worker, "
             f"{B * SWEEP_SLOTS / wall[backend]:.1f} runs*slots/s; launches "
             f"{launches[backend]}")
     check(launches["fused"] == {"priority_arbiter": 0, "srpt_topk": 0,
@@ -1215,15 +1315,14 @@ def phase_sweep():
         f"{[s.n_complete for s in stats['fused']]}; p99_all "
         f"{[round(s.percentile(99.0), 4) for s in stats['fused']]}")
 
-    # the batch's profiled window, beside phase 5's single run
+    # the batch's profiled window, beside phase 5's single run, from the
+    # warm-up's state brought back onto the card
     cfg = _sweep_config("fused")
     proto = get_protocol(cfg.protocol)
     alloc = stats["fused"][0].alloc
     S = stack_static([prepare(cfg, t, alloc)[0] for t in tables])
     n_sched = proto.n_sched(cfg, alloc)
-    st = run_slots(cfg, proto, S, _init_state(cfg, proto, S["size"].shape[1],
-                                              B),
-                   n_sched, 0, SWEEP_WINDOW_START)
+    st = {k: torch.from_numpy(v).to(DEVICE) for k, v in warm.items()}
     ws = _windows({"fused": cfg, "cuda": _sweep_config("cuda")}, S, st,
                   n_sched, SWEEP_WINDOW_START, WINDOW_SLOTS, f"sweep B={B}")
     w = ws["fused"]
@@ -2046,6 +2145,47 @@ def _fault_full_config(backend, routing=None, max_slots=None, seed=None):
     return cfg, tbl
 
 
+def _fault_job(kind, backend):
+    """One run of phase 9b/9c in a worker process:
+
+      ("full", backend)   9b's point to the golden's depth: the final
+                          state, the state at FAULT_HANDOFF (cuda only),
+                          launches, seconds
+      ("sweep", backend)  9c's B = 4 batch under adaptive routing: its
+                          SweepStats, launches, seconds
+    """
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.core import SweepSpec, run_sweep
+    from repro_torch.core.protocols import get_protocol
+    from repro_torch.core.sim import (_init_state, host_state, prepare,
+                                      run_slots, stack_static)
+    from repro_torch.kernels.arbiter import kernel
+    kernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kind == "full":
+        cfg, tbl = _fault_full_config(backend)
+        proto = get_protocol(cfg.protocol)
+        S1, alloc = prepare(cfg, tbl)
+        S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
+        st = _init_state(cfg, proto, len(tbl.size))
+        st = run_slots(cfg, proto, S, st, n_sched, 0, FAULT_HANDOFF)
+        handoff = host_state(st) if backend == "cuda" else None
+        st = run_slots(cfg, proto, S, st, n_sched, FAULT_HANDOFF,
+                       cfg.max_slots)
+        out = (host_state(st), handoff)
+    else:
+        tables = [_fault_full_config("fused", seed=sd)[1]
+                  for sd in FAULT_SWEEP_SEEDS]
+        cfg = _fault_full_config(backend, routing="adaptive",
+                                 max_slots=FAULT_SWEEP_SLOTS)[0]
+        out = run_sweep(cfg, SweepSpec(tables=tables, shared_alloc=True,
+                                       chunk_slots=1000, streaming=True))
+    torch.cuda.synchronize()
+    return out, kernel.launch_counts(), time.perf_counter() - t0
+
+
 def _conserved(st: dict) -> bool:
     """Chunk conservation of run 0 (``tests/test_faults.py``): sent +
     retx == recv + buffered (both tiers) + lost (both rings) + f_lost."""
@@ -2060,24 +2200,27 @@ def phase_faults():
     lossy run on every backend, state identical key by key at the
     golden's depth and equal to the JAX package's there; its profiled
     window under failure, with no host sync; 9c: a fault sweep of four
-    full-width runs on both kernel backends."""
+    full-width runs on both kernel backends. The runs of 9a-9c go to the
+    worker pool at once, longest first; the windows run here."""
     import numpy as np
     import torch
-    from repro_torch.core import SweepSpec, run_sweep
     from repro_torch.core.protocols import get_protocol
     from repro_torch.core.results import state_digests
-    from repro_torch.core.sim import (_init_state, host_state, prepare,
-                                      run_slots, stack_static)
-    from repro_torch.kernels.arbiter import kernel
+    from repro_torch.core.sim import prepare, stack_static
     golden = _fault_golden()
     out = {"launches": {}, "rate": {}}
+    backends = ("cuda", "fused", "reference")
+    replays = [(name, backend) for backend, names in FAULT_REPLAYS.items()
+               for name in names]
+    res = _in_workers_each(
+        [(_fault_job, ("full", b)) for b in backends]
+        + [(_fault_job, ("sweep", b)) for b in ("fused", "cuda")]
+        + [(_fault_replay_job, job) for job in replays])
 
     # ---- 9a
     slots = golden["small"]["meta"]["max_slots"]
-    jobs = [(name, backend) for backend, names in FAULT_REPLAYS.items()
-            for name in names]
-    for (name, backend), (bad, n, f_lost, retx, secs) in zip(
-            jobs, _in_workers(_fault_replay_job, jobs)):
+    for (name, backend), (bad, n, f_lost, retx, secs) in zip(replays,
+                                                             res[5:]):
         check(not bad, f"fault golden {name} {backend}: differs in {bad}")
         want = ({"priority_arbiter": 2 * slots, "srpt_topk": slots}
                 if backend == "cuda" else {"fused_slot": slots})
@@ -2091,26 +2234,14 @@ def phase_faults():
     slots = full["meta"]["slots"]
     out["label"] = f"{full['meta']['n_hosts']} hosts, {slots} slots"
     states, handoff = {}, None
-    for backend in ("cuda", "fused", "reference"):
-        cfg, tbl = _fault_full_config(backend)
-        proto = get_protocol(cfg.protocol)
-        S1, alloc = prepare(cfg, tbl)
-        S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
-        st = _init_state(cfg, proto, len(tbl.size))
-        torch.cuda.synchronize()
-        kernel.reset_launch_counts()
-        t0 = time.perf_counter()
-        st = run_slots(cfg, proto, S, st, n_sched, 0, FAULT_HANDOFF)
-        if backend == "cuda":
-            handoff = (S, n_sched, st)
-        st = run_slots(cfg, proto, S, st, n_sched, FAULT_HANDOFF, slots)
-        states[backend] = host_state(st)     # synchronizes
-        wall = time.perf_counter() - t0
-        out["launches"][backend] = kernel.launch_counts()
-        out["rate"][backend] = slots / wall
-        say(f"[faults] full width, {slots} slots, {backend}: {wall:.2f} s "
-            f"wall, {slots / wall:.1f} slots/s; launches "
-            f"{out['launches'][backend]}")
+    for backend, ((st, snap), n, secs) in zip(backends, res[:3]):
+        states[backend] = st
+        if snap is not None:
+            handoff = snap
+        out["launches"][backend] = n
+        out["rate"][backend] = slots / secs
+        say(f"[faults] full width, {slots} slots, {backend}: {secs:.2f} s "
+            f"in a worker, {slots / secs:.1f} slots/s; launches {n}")
     check(out["launches"]["cuda"] == {"priority_arbiter": 2 * slots,
                                       "srpt_topk": slots, "fused_slot": 0,
                                       "fused_slot_batch": 0},
@@ -2149,34 +2280,28 @@ def phase_faults():
     out["counters"] = counters
 
     # the window: from the staged run's state at FAULT_HANDOFF, inside
-    # both failure windows; 20 slots each under sync debug mode "error"
-    S, n_sched, st = handoff
+    # both failure windows, brought back onto the card; 20 slots each
+    # under sync debug mode "error"
+    cfg, tbl = _fault_full_config("cuda")
+    proto = get_protocol(cfg.protocol)
+    S1, alloc = prepare(cfg, tbl)
+    S, n_sched = stack_static([S1]), proto.n_sched(cfg, alloc)
+    st = {k: torch.from_numpy(v).to(DEVICE) for k, v in handoff.items()}
     cfgs = {b: _fault_full_config(b)[0] for b in ("cuda", "fused")}
     out["window"] = _windows(cfgs, S, st, n_sched, FAULT_HANDOFF,
                              WINDOW_SLOTS, "faults")
 
     # ---- 9c
-    tables = [_fault_full_config("fused", seed=sd)[1]
-              for sd in FAULT_SWEEP_SEEDS]
-    spec = SweepSpec(tables=tables, shared_alloc=True, chunk_slots=1000,
-                     streaming=True)
     stats = {}
-    for backend in ("fused", "cuda"):
-        cfg = _fault_full_config(backend, routing="adaptive",
-                                 max_slots=FAULT_SWEEP_SLOTS)[0]
-        kernel.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats[backend] = run_sweep(cfg, spec)
-        wall = time.perf_counter() - t0
-        n = kernel.launch_counts()
+    n_runs = len(FAULT_SWEEP_SEEDS)
+    for backend, (stats[backend], n, secs) in zip(("fused", "cuda"),
+                                                  res[3:5]):
         out["launches"][f"sweep_{backend}"] = n
-        out["rate"][f"sweep_{backend}"] = \
-            len(tables) * FAULT_SWEEP_SLOTS / wall
-        say(f"[faults] sweep: {len(tables)} full-width runs (seeds "
+        out["rate"][f"sweep_{backend}"] = n_runs * FAULT_SWEEP_SLOTS / secs
+        say(f"[faults] sweep: {n_runs} full-width runs (seeds "
             f"{FAULT_SWEEP_SEEDS}), adaptive routing, {FAULT_SWEEP_SLOTS} "
-            f"slots, {backend}: {wall:.2f} s wall, "
-            f"{len(tables) * FAULT_SWEEP_SLOTS / wall:.1f} runs*slots/s; "
+            f"slots, {backend}: {secs:.2f} s in a worker, "
+            f"{n_runs * FAULT_SWEEP_SLOTS / secs:.1f} runs*slots/s; "
             f"launches {n}")
     check(out["launches"]["sweep_fused"]["fused_slot_batch"]
           == FAULT_SWEEP_SLOTS
@@ -2213,10 +2338,8 @@ HOST_GOLDEN = ROOT / "tests" / "golden" / "host_trace_enabled.json"
 HOST_HANDOFF = 2000              # 10b's window starts here (steady state)
 HOST_SWEEP_SEEDS = (0, 1, 2, 3)
 HOST_SWEEP_SLOTS = 2000          # phase 10c's depth
-CAPTURE_SLOTS = 1000             # the capture-cost runs' depth and repeats
+CAPTURE_SLOTS = 500              # the capture-cost runs' depth and repeats
 CAPTURE_REPEATS = 2
-HOST_WINDOW_SLOTS = 50           # 10b's profiled stretch (the profiler's
-                                 # post-processing costs ~0.2 s a slot)
 
 
 def _host_golden():
@@ -2457,7 +2580,7 @@ def phase_host():
     cfgs = {b: _host_full_config(b)[0] for b in ("cuda", "fused")}
     t0 = time.perf_counter()
     out["window"] = _windows(cfgs, S, st, n_sched, HOST_HANDOFF,
-                             HOST_WINDOW_SLOTS, "host")
+                             WINDOW_SLOTS, "host")
     say(f"[host] the windows: {time.perf_counter() - t0:.1f} s")
 
     # the capture's cost: the wall-clock plane, traced vs capture off
@@ -2772,18 +2895,24 @@ def phase_train():
             procs.append(subprocess.Popen(cmd + extra, env=env, cwd=ROOT,
                                           stdout=subprocess.PIPE,
                                           stderr=subprocess.PIPE, text=True))
-        runs = [p.communicate(timeout=300) for p in procs]
+        # the resume starts once the crashed run has exited, beside the
+        # uninterrupted runs
+        crashed = procs[2].communicate(timeout=300)
+        check(procs[2].returncode == 17, f"the crashed run exited "
+                                         f"{procs[2].returncode}, not 17: "
+                                         f"{crashed[1][-2000:]}")
+        check("simulated preemption" in crashed[0], "no simulated preemption")
+        procs.append(subprocess.Popen(cmd + ckpt + ["--resume"], env=env,
+                                      cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+        runs = [p.communicate(timeout=300) for p in procs[:2]]
+        runs.append(crashed)
+        resumed = procs[3].communicate(timeout=300)
         codes = [p.returncode for p in procs]
-        check(codes == [0, 0, 17], f"launcher exit codes {codes} (want 0, 0,"
-                                   f" 17): {runs[2][1][-2000:]}"
-                                   f"{runs[0][1][-2000:]}")
-        check("simulated preemption" in runs[2][0], "no simulated preemption")
-        resumed = subprocess.run(cmd + ckpt + ["--resume"], env=env,
-                                 cwd=ROOT, capture_output=True, text=True,
-                                 timeout=300)
-        check(resumed.returncode == 0, f"resume failed: "
-                                       f"{resumed.stderr[-2000:]}")
-        check(f"resumed from step {TRAIN_CKPT['every']}" in resumed.stdout,
+        check(codes == [0, 0, 17, 0], f"launcher exit codes {codes} (want 0, "
+                                      f"0, 17, 0): {resumed[1][-2000:]}"
+                                      f"{runs[0][1][-2000:]}")
+        check(f"resumed from step {TRAIN_CKPT['every']}" in resumed[0],
               "the resumed run did not start from the checkpoint")
         wall = time.perf_counter() - t0
     finally:
@@ -2793,7 +2922,7 @@ def phase_train():
                 p.wait()
         shutil.rmtree(ck, ignore_errors=True)
     a, b = _train_losses(runs[0][0]), _train_losses(runs[1][0])
-    c, d = _train_losses(runs[2][0]), _train_losses(resumed.stdout)
+    c, d = _train_losses(runs[2][0]), _train_losses(resumed[0])
     last = TRAIN_CKPT["steps"]
     check(sorted(d) == list(range(TRAIN_CKPT["every"] + 1, last + 1)),
           f"the resumed run logged steps {sorted(d)}")
@@ -2893,11 +3022,11 @@ def main(argv=None) -> int:
         run("card", phase_card)
         if "kernels" in phases:
             res["err"], res["perf"] = run("kernels", phase_kernels)
-        if "goldens" in phases:
-            run("goldens", phase_goldens)
-        if "full" in phases:
-            (res["full_launches"], res["full_rate"],
-             res["handoff"]) = run("full", phase_full)
+        if "goldens" in phases or "full" in phases:
+            r = run(",".join(p for p in ("goldens", "full") if p in phases),
+                    phase_goldens_full, phases)
+            if r is not None:
+                res["full_launches"], res["full_rate"], res["handoff"] = r
         if "window" in phases:
             res["window"] = run("window", phase_window, res["handoff"])
         if "sweep" in phases:
@@ -2911,11 +3040,14 @@ def main(argv=None) -> int:
             res["faults"] = run("faults", phase_faults)
         if "host" in phases:
             res["host"] = run("host", phase_host)
+        _close_pool()                # no later phase uses it
         if "train" in phases:
             res["train"] = run("train", phase_train)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        _close_pool()
     say(f"[summary] phases {','.join(phases)}: "
         f"{time.perf_counter() - t_start:.1f} s")
     if set(phases) != set(PHASES):
