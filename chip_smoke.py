@@ -168,10 +168,37 @@ result line:
            (64 KiB chunks, K = 7) and naive against the plain step, int8
            with a non-zero error state; chunk collectives a step
 
-``--phases card,llama`` (any comma-separated subset of card, kernels,
-goldens, full, window, sweep, model, llama, faults, host, train) runs
-only those phases and prints no result lines; with no arguments every
-phase runs.
+12. deepseek DeepSeek-V2-Lite-16B inference at full width (27 layers,
+           d_model 2048, MLA with 16 heads, q/k 192 and v 128 wide, kv
+           latent 512; the first layer dense, 26 MoE layers of 64 experts
+           top-6 plus 2 shared; random bf16 weights from a seed, the
+           routers fp32; 31.4 GB on the card): (a) the flash-attention
+           kernel against ``attention_ref`` at MLA's shape on synthetic
+           inputs and on layer 0's q, k, v of a real 4 x 4096 prefill (the
+           tensor-core kernel's three q/k panels), at StableLM-12B's
+           full-width shape (32 heads over 8 of 160, on the CUDA-core
+           kernel) and on edge cases (d 192 with Sq < 8, kv_len < Skv, a
+           window with GQA, fp32; d 256 / dv 256 in bf16 and fp32), the
+           counters showing each call's design, both full-width shapes
+           timed beside ``attention_ref``, one
+           ``scaled_dot_product_attention`` call and the bound; (b)
+           ``forward_prefill`` of 4 x 4096 tokens on the kernel (27
+           launches, all on the tensor cores, counted and seen by the
+           profiler; tokens/s, peak memory, busy share, device time by
+           kind) against ``use_kernel=False``, layer by layer on the same
+           inputs (MLA output, the absorbed decode step, tokens whose
+           top-6 expert set differs) and end to end; (c) prefill of 4095
+           tokens plus one ``forward_decode`` (MoE at T = 4, C = 1)
+           against the 4096-token prefill with the last tokens routed as
+           the decode step routes them (``_decode_reference``); a
+           profiled window of 3 decode steps; (d) the full-width serve
+           of 16 requests, whose statistics must equal the JAX package's
+           (``DEEPSEEK_SERVE_EXPECTED``)
+
+``--phases card,deepseek`` (any comma-separated subset of card, kernels,
+goldens, full, window, sweep, model, llama, faults, host, train,
+deepseek) runs only those phases and prints no result lines; with no
+arguments every phase runs.
 
 Then one JSON line with each kernel's numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -247,6 +274,38 @@ LLAMA_TOL = dict(layer=1e-2, decode_layer=1e-2, logits=5e-2,
 SERVE_EXPECTED = {"served": 64, "steps": 747,
                   "mean_slowdown": 1.3890566225810979,
                   "p99_slowdown": 4.0776315789473685}
+DEEPSEEK = dict(arch="deepseek-v2-lite-16b", batch=4, seq=4096, seed=0)
+# StableLM-12B's full-width prefill attention (32 heads over 8 KV heads of
+# 160 at 4 x 4096): a shape the tensor-core kernel does not take (dv 160)
+STABLELM_ATTN = dict(batch=4, seq=4096, heads=32, kv_heads=8, head_dim=160)
+# relative RMS error of DeepSeek's kernel path against the plain path,
+# measured on the CPU with the kernel's plain version by ``python
+# tests/test_torch_mla.py --kernel-path`` (``deep_config``: the full
+# depth, head widths and routing at d_model 256, 4 x 512 tokens, 6
+# seeds): MLA output layer by layer 2.7e-3, the absorbed decode step
+# against the prefill's last row 3.1e-3; last-token logits end to end
+# 0.115, where a token's top-6 expert set differs between the two paths
+# in ~0.6% of the routings (a flip a layer moves that token's output
+# wholesale, and 26 MoE layers carry it on); prefill(S-1) + decode 0.128
+# against the S-token prefill with the last tokens routed as the decode
+# step routes them (``_decode_reference``) — against the plain S-token
+# prefill 0.37, since the decode step's 4 tokens meet C = 1 (an expert
+# two of them pick keeps only the first), where the prefill (C 240 there,
+# 1920 on the card) keeps them all, exactly as the JAX package routes.
+# Each bound ~4x its measurement.
+DEEPSEEK_TOL = dict(layer=1e-2, decode_layer=1e-2, logits=0.45,
+                    decode_logits=0.5)
+# phase 12's serve: 16 requests, not 64 — a full-width DeepSeek decode
+# step takes ~81 ms of device time (its fp32 expert weight casts and
+# GEMVs), so 747 steps would not fit the phase's budget. Its statistics,
+# computed with the JAX package's ``repro.launch.serve.main`` on the CPU
+# with ``["--arch", "deepseek-v2-lite-16b", "--smoke",
+# *DEEPSEEK_SERVE_ARGV]``; tests/test_torch_serve.py checks both packages
+# against them
+DEEPSEEK_SERVE_ARGV = ["--requests", "16", "--batch-size", "4"]
+DEEPSEEK_SERVE_EXPECTED = {"served": 16, "steps": 273,
+                           "mean_slowdown": 0.9924048920419063,
+                           "p99_slowdown": 1.6403449502133713}
 
 
 class SmokeFailure(RuntimeError):
@@ -1698,9 +1757,10 @@ def phase_model():
     return out
 
 
-def _decode_window(cfg, params, dev, tag):
-    """A profiled window of the serve's decode step (batch 4, eager, on
-    the serve's caches); returns its wall ms per step and device busy."""
+def _decode_window(cfg, params, dev, tag, n=10):
+    """A profiled window of ``n`` of the serve's decode steps (batch 4,
+    eager, on the serve's caches); returns its wall ms per step and
+    device busy."""
     import torch
     from repro_torch.models import model as M
     C = int(SERVE_ARGV[-1])
@@ -1710,7 +1770,6 @@ def _decode_window(cfg, params, dev, tag):
         tok = torch.zeros((C, 1), dtype=torch.int32, device=dev)
         for _ in range(3):
             M.forward_decode(cfg, params, tok, 4, caches)
-        n = 10
 
         def steps():
             c, t = caches, tok
@@ -1748,7 +1807,7 @@ def _attn_work(q, k, v, causal):
 
 
 def _attn_check(name, q, k, v, *, causal=True, window=None, kv_len=None,
-                tc=True):
+                tc=True, tag="llama"):
     """The kernel against ``attention_ref`` on the same inputs,
     elementwise within ATTN_TOL and in relative RMS within ATTN_RMS_TOL;
     one launch, of the tensor-core kernel iff ``tc`` (the counters say
@@ -1790,7 +1849,7 @@ def _attn_check(name, q, k, v, *, causal=True, window=None, kv_len=None,
                           window=window, kv_len=kv_len)
     rounding = _rel(want, exact)
     del exact
-    say(f"[llama] attention kernel == attention_ref: {name} q "
+    say(f"[{tag}] attention kernel == attention_ref: {name} q "
         f"{tuple(q.shape)} kv {tuple(k.shape)} {str(q.dtype)[6:]}, causal "
         f"{causal}, window {window}, kv_len {kv_len}, "
         f"{'tensor' if tc else 'CUDA'} cores: max abs {err:.3e}, tolerance "
@@ -2023,7 +2082,7 @@ def phase_llama():
                 {"k": k[:, :-1], "v": v[:, :-1]})
             worst["decode_layer"] = max(worst["decode_layer"],
                                         _rel(yd, yk[:, -1:]))
-            x = M._ffn(cfg, lp, x + yk)
+            x, _ = M._ffn(cfg, lp, x + yk)
         say(f"[llama] layer by layer, same inputs: kernel vs plain "
             f"attention rel RMS <= {worst['layer']:.2e} (tolerance "
             f"{LLAMA_TOL['layer']}); decode at {Slen - 1} on the first "
@@ -2977,10 +3036,376 @@ def phase_train():
     return out
 
 
+# ------------------------------------------------------------ phase 12 -----
+
+def _attn_bound(q, k, v):
+    """The attention's bound at a causal call (``_attn_work``): q.k,
+    p_hi.v and p_lo.v on the bf16 tensor cores against the bytes."""
+    nbytes, qk, pv = _attn_work(q, k, v, True)
+    ops_s = (qk + 2 * pv) / TC_BF16_FLOP_PER_S
+    by_s = nbytes / HBM_BYTES_PER_S
+    return (max(ops_s, by_s) * 1e3, "operations" if ops_s > by_s
+            else "bytes", qk + pv, nbytes)
+
+
+def _attn_times(tag, name, q, k, v, tc):
+    """One causal call's times by CUDA events: the kernel (its design
+    checked by the counters), its plain version ``attention_ref`` and one
+    ``scaled_dot_product_attention`` call (the yardstick; the port never
+    calls it), beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention.ref import attention_ref
+    fa = attn_kernel.flash_attention
+    n, n_tc = fa.launches, fa.launches_tc
+    out = dict(ms=time_ms(lambda: fa(q, k, v), batch=5, reps=5, warmup=2))
+    check(fa.launches_tc - n_tc == (fa.launches - n) * int(tc),
+          f"{name}: the timed calls ran on the "
+          f"{'CUDA' if tc else 'tensor'} cores")
+    out["plain_ms"] = time_ms(lambda: attention_ref(q, k, v), batch=1,
+                              reps=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    try:
+        lib_out = sdpa()
+    except RuntimeError as e:     # no backend takes the shape
+        say(f"[{tag}] scaled_dot_product_attention refused {name}: {e}")
+        out["library_ms"] = None
+    else:
+        check(_rel(lib_out.transpose(1, 2), attention_ref(q, k, v)) < 1e-2,
+              "scaled_dot_product_attention computes another function")
+        out["library_ms"] = time_ms(sdpa, batch=5, reps=5, warmup=2)
+    out["bound_ms"], out["bound_by"], flops, nbytes = _attn_bound(q, k, v)
+    lib = (f"{out['library_ms']:.4f} ms" if out["library_ms"] is not None
+           else "refused")
+    say(f"[{tag}] attention {name} q {tuple(q.shape)}, k {tuple(k.shape)}, "
+        f"v {tuple(v.shape)} bf16, causal, {'tensor' if tc else 'CUDA'} "
+        f"cores: {out['ms']:.4f} ms a call ({out['bound_ms'] / out['ms']:.3f}"
+        f" of the bound); scaled_dot_product_attention {lib}; plain "
+        f"attention_ref {out['plain_ms']:.3f} ms; {flops / 1e9:.1f} GFLOP "
+        f"of q.k and p.v, {nbytes / 1e6:.1f} MB; bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: q.k, p_hi.v and "
+        f"p_lo.v on the bf16 tensor cores)")
+    return out
+
+
+def _kernel_shares(ev, busy, tag, n=8):
+    """Print the top kernels of a profiled window and the device time by
+    kind: GEMMs, the attention kernel, dispatch (index, scatter, gather,
+    sort) and casts/copies."""
+    kinds = {"GEMM": ("gemm",), "attention": ("flash_attention",),
+             "dispatch": ("index", "scatter", "gather", "sort", "radix",
+                          "bincount", "cumsum", "scan"),
+             "casts and copies": ("copy", "convert", "cast")}
+    shares = {}
+    for kind, keys in kinds.items():
+        us = sum(e[2] for e in ev if any(k in e[0].lower() for k in keys))
+        shares[kind] = us / busy
+    say(f"[{tag}]   device time by kind: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in shares.items()))
+    for us, cnt, key in sorted(((e[2], e[1], e[0]) for e in ev),
+                               reverse=True)[:n]:
+        say(f"[{tag}]   {us / 1e3:8.2f} ms {cnt:5d}x {key[:80]}")
+    return shares
+
+
+def _layer_params(cfg, params, l):
+    """Layer ``l``'s parameters out of the stacked tree."""
+    from repro_torch.models import model as M
+    npfx, period = cfg.first_dense_layers, cfg.block_period
+    if l < npfx:
+        return params["prefix"][f"p{l}"]
+    bi, i = divmod(l - npfx, period)
+    return M._index(params["blocks"], bi)[f"s{i}"]
+
+
+def _decode_reference(cfg, params, tokens, use_kernel=None):
+    """The last token's logits as a prefill of the first S-1 tokens plus
+    ``forward_decode`` of the last one compute them, but with prefill
+    attention (an MLA model): every layer attends over all S tokens
+    (causally, so the first S-1 rows are the (S-1)-token prefill's), and
+    its FFN runs the first S-1 rows as that prefill does and the last
+    rows of the B sequences as one batch of B tokens, as the decode step
+    does — the decode's MoE routing, capacity (C = 1 for B = 4 at
+    DeepSeek's 64 experts, top-6) and drops. Returns (B, Vp) logits."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    x = M._embed(cfg, params, tokens)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    for l in range(cfg.num_layers):
+        lp = _layer_params(cfg, params, l)
+        y, _ = L.mla_attention(cfg, lp["mixer"],
+                               L.apply_norm(cfg, lp["norm1"], x), pos,
+                               use_kernel=use_kernel)
+        x = x + y
+        moe = cfg.is_moe_layer(l)
+        x = torch.cat([M._ffn(cfg, lp, x[:, :-1], moe)[0],
+                       M._ffn(cfg, lp, x[:, -1:], moe)[0]], 1)
+    return M._logits(cfg, params, x[:, -1:])[:, 0]
+
+
+def phase_deepseek():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.arbiter import kernel as arb_kernel
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    cfg = get_config(DEEPSEEK["arch"])
+    Bsz, Slen = DEEPSEEK["batch"], DEEPSEEK["seq"]
+    H, V, E, K = (cfg.num_heads, cfg.vocab_size, cfg.num_experts,
+                  cfg.experts_per_token)
+    d, dv = cfg.head_dim + cfg.rope_head_dim, cfg.v_hd
+    fa = attn_kernel.flash_attention
+    out = {}
+    sgen = torch.Generator(dev).manual_seed(12)
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        say(f"[deepseek] {what} at +{time.perf_counter() - t_phase:.1f} s")
+
+    def synth(b, s, h, kv, dq, dvv, dtype=torch.bfloat16):
+        return [torch.randn(shape, generator=sgen, device=dev).to(dtype)
+                for shape in ((b, s, h, dq), (b, s, kv, dq), (b, s, kv, dvv))]
+
+    with torch.inference_mode():
+        # (a) the kernel against its plain version, before the weights
+        # take 31 GB: MLA's shape, StableLM's, and edge cases
+        _attn_check("synthetic, MLA's shape", *synth(Bsz, Slen, H, H, d, dv),
+                    tag="deepseek")
+        st = STABLELM_ATTN
+        sq, sk, sv = synth(st["batch"], st["seq"], st["heads"],
+                           st["kv_heads"], st["head_dim"], st["head_dim"])
+        out["stablelm_max_abs_err"] = _attn_check(
+            "StableLM-12B's full-width shape (dv 160: CUDA cores)", sq, sk,
+            sv, tc=False, tag="deepseek")
+        out["stablelm"] = _attn_times("deepseek", "StableLM-12B's shape", sq,
+                                      sk, sv, tc=False)
+        del sq, sk, sv
+        _attn_check("d 192, Sq < 8", *synth(Bsz, 5, H, H, d, dv),
+                    tag="deepseek")
+        _attn_check("d 192, kv_len 3000 of 4095",
+                    *synth(2, Slen - 1, H, H, d, dv), kv_len=3000,
+                    tag="deepseek")
+        _attn_check(f"d 192, window 256, GQA {H} over {max(1, H // 4)}",
+                    *synth(2, 2048, H, max(1, H // 4), d, dv), window=256,
+                    tag="deepseek")
+        _attn_check("d 192, fp32 (CUDA cores)",
+                    *synth(2, 1024, H, H, d, dv, torch.float32), tc=False,
+                    tag="deepseek")
+        _attn_check("d 256, dv 256 (CUDA cores)",
+                    *synth(2, 1024, 8, 2, 256, 256), tc=False,
+                    tag="deepseek")
+        _attn_check("d 256, dv 256, fp32, rows with no valid key (window 2,"
+                    " kv_len 8)", *synth(1, 600, 4, 2, 256, 256,
+                                         torch.float32),
+                    window=2, kv_len=8, tc=False, tag="deepseek")
+
+        mark("(a) synthetic and edge cases done")
+        gen = torch.Generator(dev).manual_seed(DEEPSEEK["seed"])
+        t0 = time.perf_counter()
+        params = init_params(M.model_defs(cfg), gen, dev)
+        tokens = torch.randint(0, V, (Bsz, Slen), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        say(f"[deepseek] {cfg.name}: {M.count_model_params(cfg)} parameters "
+            f"(bf16, the routers fp32; {M.active_params(cfg)} active a "
+            f"token), {cfg.num_layers} layers (the first dense, d_ff "
+            f"{cfg.d_ff}), d_model {cfg.d_model}, MLA {H} heads, q/k {d} "
+            f"wide, v {dv}, kv latent {cfg.kv_lora_rank}; MoE {E} experts "
+            f"of {cfg.moe_d_ff} top-{K} + {cfg.num_shared_experts} shared, "
+            f"capacity {cfg.capacity_factor}; vocab {V}; random weights, "
+            f"seed {DEEPSEEK['seed']}; init {time.perf_counter() - t0:.2f} "
+            f"s, {torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
+        pos = torch.arange(Slen, device=dev)
+        x = M._embed(cfg, params, tokens)
+        lp0 = params["prefix"]["p0"]
+        q, k, v, _ = L.mla_qkv(cfg, lp0["mixer"],
+                               L.apply_norm(cfg, lp0["norm1"], x), pos)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out["max_abs_err"] = _attn_check("layer 0 of the prefill", q, k, v,
+                                         tag="deepseek")
+        out["mla"] = _attn_times("deepseek", "layer 0 of the prefill", q, k,
+                                 v, tc=True)
+        del x, q, k, v
+
+        mark("(a) done")
+        # (b) the main path: one prefill of Bsz x Slen tokens on the kernel
+        M.forward_prefill(cfg, params, tokens)        # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.launches_tc = 0
+        ssd_kernel.ssd_scan.launches = 0
+        arb_kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = M.forward_prefill(cfg, params, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"], out["launches_tc"] = fa.launches, fa.launches_tc
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(out["launches"] == out["launches_tc"] == cfg.num_layers,
+              f"prefill launched the attention kernel {out['launches']} "
+              f"times, {out['launches_tc']} of them on the tensor cores; "
+              f"expected one per layer ({cfg.num_layers}), all on them")
+        check(ssd_kernel.ssd_scan.launches == 0
+              and not any(arb_kernel.launch_counts().values()),
+              "the prefill launched an SSD or arbitration kernel")
+        check(logits.shape == (Bsz, cfg.padded_vocab())
+              and bool(torch.isfinite(logits).all())
+              and bool((logits[:, V:] == -1e9).all()),
+              "prefill logits: wrong shape, not finite or padding unmasked")
+        out["tokens_per_s"] = Bsz * Slen / wall
+        say(f"[deepseek] prefill {Bsz} x {Slen} tokens on the kernel: "
+            f"{wall * 1e3:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, peak "
+            f"memory {out['peak_gb']:.2f} GB; flash_attention launches "
+            f"{out['launches']}, on the tensor cores {out['launches_tc']}")
+        _, pwall, ev = _profiled(lambda: M.forward_prefill(cfg, params,
+                                                           tokens))
+        busy = sum(e[2] for e in ev)
+        hits = [e for e in ev if "flash_attention_tc_kernel" in e[0]]
+        check(len(hits) == 1 and hits[0][1] == cfg.num_layers
+              and not any("flash_attention_kernel" in e[0] for e in ev),
+              f"profiler: flash_attention_tc_kernel launched "
+              f"{[h[1] for h in hits]} times, expected {cfg.num_layers} "
+              f"and no CUDA-core attention kernel")
+        out["device_ms_per_launch"] = hits[0][2] / cfg.num_layers / 1e3
+        out["busy"] = busy / 1e6 / pwall
+        say(f"[deepseek] profiled prefill: {pwall * 1e3:.1f} ms wall, device "
+            f"busy {out['busy']:.4f}, {busy / 1e3:.2f} ms device time, "
+            f"{sum(e[1] for e in ev)} kernels; attention "
+            f"{out['device_ms_per_launch']:.4f} ms device time per launch")
+        out["shares"] = _kernel_shares(ev, busy, "deepseek")
+
+        mark("(b) prefill and its profile done")
+        fa.launches = 0
+        t0 = time.perf_counter()
+        plain, _ = M.forward_prefill(cfg, params, tokens, use_kernel=False)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+        check(fa.launches == 0, "the plain prefill launched the attention "
+                                "kernel")
+        err = _rel(logits[:, :V], plain[:, :V])
+        agree = float((logits[:, :V].argmax(-1)
+                       == plain[:, :V].argmax(-1)).float().mean())
+        out["plain_prefill_ms"] = pwall * 1e3
+        say(f"[deepseek] plain prefill (blockwise_attention, no attention "
+            f"launch): {pwall * 1e3:.1f} ms wall; last-token logits rel RMS "
+            f"{err:.4f} (tolerance {DEEPSEEK_TOL['logits']}), argmax "
+            f"agrees on {agree:.2f} of rows")
+        check(err <= DEEPSEEK_TOL["logits"], "kernel and plain prefill "
+                                             "logits differ beyond the "
+                                             "tolerance")
+        del plain
+
+        # layer by layer on the same inputs: kernel vs plain MLA, one
+        # absorbed decode step on the first S-1 latents vs the last
+        # prefill row, and the tokens whose top-K set the two paths'
+        # attention outputs change
+        x = M._embed(cfg, params, tokens)
+        worst = dict(layer=0.0, decode_layer=0.0)
+        flips = 0
+        for l in range(cfg.num_layers):
+            lp = _layer_params(cfg, params, l)
+            h = L.apply_norm(cfg, lp["norm1"], x)
+            yk, (ckv, kr) = L.mla_attention(cfg, lp["mixer"], h, pos)
+            yp, _ = L.mla_attention(cfg, lp["mixer"], h, pos,
+                                    use_kernel=False)
+            worst["layer"] = max(worst["layer"], _rel(yk, yp))
+            yd, _ = L.mla_attention_decode(
+                cfg, lp["mixer"], h[:, -1:], Slen - 1,
+                {"ckv": ckv[:, :-1], "kr": kr[:, :-1]})
+            worst["decode_layer"] = max(worst["decode_layer"],
+                                        _rel(yd, yk[:, -1:]))
+            if cfg.is_moe_layer(l):
+                sets = [L.moe_route(cfg, lp["ffn"]["router"],
+                                    L.apply_norm(cfg, lp["norm2"], x + y)
+                                    .reshape(-1, cfg.d_model))["idx"]
+                        .sort(-1).values for y in (yk, yp)]
+                flips += int((sets[0] != sets[1]).any(-1).sum())
+            x, _ = M._ffn(cfg, lp, x + yk, cfg.is_moe_layer(l))
+        out["flips"] = flips
+        del lp, lp0   # views of the stacked weights keep them alive
+        n_moe = sum(cfg.is_moe_layer(l) for l in range(cfg.num_layers))
+        say(f"[deepseek] layer by layer, same inputs: kernel vs plain MLA "
+            f"rel RMS <= {worst['layer']:.2e} (tolerance "
+            f"{DEEPSEEK_TOL['layer']}); absorbed decode at {Slen - 1} on the "
+            f"first {Slen - 1} latents vs the prefill's last row rel RMS <= "
+            f"{worst['decode_layer']:.2e} (tolerance "
+            f"{DEEPSEEK_TOL['decode_layer']}); top-{K} expert sets that "
+            f"differ between the two paths: {flips} of {n_moe} x "
+            f"{Bsz * Slen} token routings")
+        for key in ("layer", "decode_layer"):
+            check(worst[key] <= DEEPSEEK_TOL[key],
+                  f"layer by layer: {key} beyond the tolerance")
+        del x, h, yk, yp, yd, ckv, kr
+
+        mark("(b) done")
+        # (c) prefill(S-1) + one decode step, against the S-token prefill
+        # computed with the decode step's routing of the last tokens
+        # (_decode_reference: the same drops at C = 1)
+        _, caches = M.forward_prefill(cfg, params, tokens[:, :-1])
+        step, _ = M.forward_decode(cfg, params, tokens[:, -1:], Slen - 1,
+                                   caches)
+        del caches
+        ref = _decode_reference(cfg, params, tokens)
+        err = _rel(step[:, :V], ref[:, :V])
+        err_full = _rel(step[:, :V], logits[:, :V])
+        say(f"[deepseek] prefill({Slen - 1}) + forward_decode at {Slen - 1} "
+            f"(MoE at T = {Bsz}, C = {L.moe_capacity(cfg, Bsz)}) vs the "
+            f"{Slen}-token prefill with the last tokens routed as the "
+            f"decode step routes them: logits rel RMS {err:.4f} (tolerance "
+            f"{DEEPSEEK_TOL['decode_logits']}); vs the plain "
+            f"prefill({Slen}) (C = {L.moe_capacity(cfg, Bsz * Slen)}, no "
+            f"drop of those tokens): {err_full:.4f}")
+        check(bool(torch.isfinite(step).all())
+              and err <= DEEPSEEK_TOL["decode_logits"],
+              "prefill + decode differs from the prefill")
+        out["decode_vs_prefill"] = err_full
+        del step, logits, ref
+    mark("(c) done")
+    # 3 steps: the profiler's post-processing grows with the ~5600
+    # kernels a step (10 steps took 47 s of the phase)
+    out["decode"] = _decode_window(cfg, params, dev, "deepseek", n=3)
+    mark("the decode window done")
+    del params, tokens
+    torch.cuda.empty_cache()
+
+    # (d) the serving loop at full width (it draws its own weights)
+    torch.cuda.synchronize()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", DEEPSEEK["arch"], *DEEPSEEK_SERVE_ARGV,
+                      "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    got = {k: res[k] for k in DEEPSEEK_SERVE_EXPECTED}
+    check(got == DEEPSEEK_SERVE_EXPECTED,
+          f"serve statistics {got} != the JAX package's "
+          f"{DEEPSEEK_SERVE_EXPECTED}")
+    out["decode_steps_per_s"] = res["steps"] / wall
+    say(f"[deepseek] serve {DEEPSEEK['arch']} {' '.join(DEEPSEEK_SERVE_ARGV)}"
+        f": {got} == the JAX package's; {wall:.2f} s wall (parameter init "
+        f"included), {out['decode_steps_per_s']:.1f} decode steps/s at "
+        f"batch {DEEPSEEK_SERVE_ARGV[-1]}; flash_attention launches "
+        f"{fa.launches} (decode attends in the latent space: "
+        f"mla_attention_decode)")
+    torch.cuda.empty_cache()
+    mark("(d) done")
+    return out
+
+
 # ---------------------------------------------------------------- main -----
 
 PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model",
-          "llama", "faults", "host", "train")
+          "llama", "faults", "host", "train", "deepseek")
 
 
 def main(argv=None) -> int:
@@ -3043,6 +3468,8 @@ def main(argv=None) -> int:
         _close_pool()                # no later phase uses it
         if "train" in phases:
             res["train"] = run("train", phase_train)
+        if "deepseek" in phases:
+            res["deepseek"] = run("deepseek", phase_deepseek)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3113,6 +3540,14 @@ def main(argv=None) -> int:
         f"{tr['ms_per_step']:.1f} ms/step, {tr['tokens_per_s']:.0f} "
         f"tokens/s, peak {tr['peak_gb']:.2f} GB, busy {tr['busy']:.4f}; "
         f"homa sync {tr['dp']['homa']['chunks']} chunk collectives a step")
+    ds = res["deepseek"]
+    say(f"[summary] deepseek-v2-lite-16b: prefill {ds['tokens_per_s']:.0f} "
+        f"tokens/s (4 x 4096), peak {ds['peak_gb']:.2f} GB, busy "
+        f"{ds['busy']:.4f}; serve {ds['decode_steps_per_s']:.1f} decode "
+        f"steps/s (batch 4); attention at MLA's (192, 128) "
+        f"{ds['mla']['ms']:.4f} ms vs bound {ds['mla']['bound_ms']:.4f} ms, "
+        f"StableLM's (160, 160) {ds['stablelm']['ms']:.4f} ms vs "
+        f"{ds['stablelm']['bound_ms']:.4f} ms")
     src = "src/repro_torch/kernels/arbiter/csrc/arbiter.cu"
     rows = {
         # name: (replaces, launches on its path, device ms per launch)
@@ -3200,7 +3635,18 @@ def main(argv=None) -> int:
          "library_ms": llama["library_ms"],
          "device_ms_per_launch": llama["device_ms_per_launch"],
          "launches_tc": llama["launches_tc"],
-         "cuda_core_ms": llama["cuda_core_ms"]})
+         "cuda_core_ms": llama["cuda_core_ms"],
+         # phase 12's path: DeepSeek-V2-Lite's prefill at MLA's (192, 128)
+         # on the tensor cores; StableLM's (160, 160) on the CUDA cores is
+         # timed and checked only (no path of the script runs that model,
+         # so it has no launches)
+         "mla": {"launches": ds["launches"],
+                 "launches_tc": ds["launches_tc"],
+                 "max_abs_err": ds["max_abs_err"],
+                 "device_ms_per_launch": ds["device_ms_per_launch"],
+                 **ds["mla"]},
+         "stablelm": {"max_abs_err": ds["stablelm_max_abs_err"],
+                      **ds["stablelm"]}})
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

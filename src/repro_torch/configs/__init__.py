@@ -1,18 +1,29 @@
 """Config registry: one module per architecture the port runs.
 
-``mamba2-130m`` (ssm) and ``llama3.2-3b`` (dense GQA attention) so far;
-the JAX package's other architectures need MLA, MoE, cross-attention or
-encoder code the port does not have yet (ROADMAP A11).
+Every decoder-only architecture of the JAX package's zoo, registered in
+its order: ssm (``mamba2-130m``), dense GQA attention (``stablelm-12b``,
+``llama3.2-3b``, ``llama3-405b``, ``qwen2-7b``), MoE (``mixtral-8x7b``),
+MLA + MoE (``deepseek-v2-lite-16b``) and the SSM/attention/MoE hybrid
+(``jamba-1.5-large-398b``). ``whisper-small`` (an encoder) and
+``llama-3.2-vision-90b`` (cross-attention) are not ported yet (ROADMAP
+A11): ``get_config`` raises ``KeyError`` for them.
 """
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, get_config, register,
+    SKIPPED_CELLS, ModelConfig, all_configs, cell_is_skipped, get_config,
+    register,
 )
 
 _ARCH_MODULES = [
     "mamba2_130m",
+    "stablelm_12b",
     "llama3_2_3b",
+    "llama3_405b",
+    "qwen2_7b",
+    "mixtral_8x7b",
+    "deepseek_v2_lite_16b",
+    "jamba_1_5_large_398b",
 ]
 
 _loaded = False
@@ -27,4 +38,8 @@ def load_all() -> None:
         importlib.import_module(f"repro_torch.configs.{m}")
 
 
-ARCH_NAMES = ["mamba2-130m", "llama3.2-3b"]
+ARCH_NAMES = [
+    "mamba2-130m", "stablelm-12b", "llama3.2-3b", "llama3-405b",
+    "qwen2-7b", "mixtral-8x7b", "deepseek-v2-lite-16b",
+    "jamba-1.5-large-398b",
+]

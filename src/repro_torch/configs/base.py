@@ -145,3 +145,28 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; the port runs "
                        f"{sorted(_REGISTRY)} (the others: ROADMAP A11)")
     return _REGISTRY[name]
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    from repro_torch import configs as _pkg
+    _pkg.load_all()
+    return dict(_REGISTRY)
+
+
+# Shapes skipped per arch, as in the JAX package (its DESIGN.md
+# §Arch-applicability): long_500k requires sub-quadratic attention; run
+# only for ssm/hybrid/SWA. The entries of architectures the port does not
+# register yet are kept so the table reads the same in both packages.
+SKIPPED_CELLS: dict[tuple[str, str], str] = {
+    ("whisper-small", "long_500k"): "full attention enc-dec; no sub-quadratic path",
+    ("stablelm-12b", "long_500k"): "pure full attention",
+    ("llama3.2-3b", "long_500k"): "pure full attention",
+    ("llama3-405b", "long_500k"): "pure full attention",
+    ("qwen2-7b", "long_500k"): "pure full attention",
+    ("deepseek-v2-lite-16b", "long_500k"): "MLA is full attention over latents",
+    ("llama-3.2-vision-90b", "long_500k"): "pure full attention",
+}
+
+
+def cell_is_skipped(arch: str, shape: str) -> str | None:
+    return SKIPPED_CELLS.get((arch, shape))

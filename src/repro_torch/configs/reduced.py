@@ -28,6 +28,14 @@ def reduced_config(name: str) -> ModelConfig:
         encoder_seq=24 if cfg.is_encoder_decoder else cfg.encoder_seq,
         num_image_tokens=16 if cfg.num_image_tokens else 0,
     )
+    if cfg.use_mla:
+        kw.update(kv_lora_rank=32, rope_head_dim=8, head_dim=16, v_head_dim=16,
+                  num_kv_heads=4)
+    if cfg.num_experts:
+        # capacity_factor = E/K makes routing dropless, so prefill+decode is
+        # bitwise-consistent with the full forward regardless of token count.
+        kw.update(num_experts=4, experts_per_token=2, moe_d_ff=64,
+                  capacity_factor=2.0)
     if cfg.ssm_state_dim:
         kw.update(ssm_state_dim=16, ssm_head_dim=8, ssm_chunk=8)
     if cfg.sliding_window:

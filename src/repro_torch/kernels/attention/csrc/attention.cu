@@ -20,7 +20,9 @@
 // rule:
 //
 // * flash_attention_tc_kernel, for bf16 operands whose rows TMA can load
-//   (d and dv multiples of 8, 16-byte aligned): both products on the bf16
+//   (d and dv multiples of 8, 16-byte aligned) with d <= 192 and
+//   dv <= 128 (MLA's 192-wide q.k and 128-wide v among them): both
+//   products on the bf16
 //   tensor cores (wgmma), K and V through a TMA + mbarrier ring. p is
 //   fp32; it splits exactly into p_hi = bf16(p) and p_lo = bf16(p - p_hi)
 //   (p - p_hi is exact in fp32, and p_lo leaves at most 2^-17 p), so
@@ -30,7 +32,10 @@
 //   function; tests/test_torch_attention.py models both).
 // * flash_attention_kernel, the first design, on the fp32 CUDA cores: for
 //   fp32 inputs (held to attention_ref within 2e-5) and bf16 shapes the
-//   tensor-core kernel does not take.
+//   tensor-core kernel does not take (dv above 128: StableLM's 160).
+//
+// Both take d and dv up to 256, every head width of the registered
+// configurations.
 //
 // Bound at Llama-3.2-3B's prefill shape (B 4, S 4096, H 24, KV 8, d 128,
 // causal, bf16): 206.2 GFLOP of q.k and 206.2 GFLOP of p.v over the
@@ -89,7 +94,7 @@ constexpr int kThreads = 256;
 constexpr int BQ = 64;           // query rows per block
 constexpr int BK = 64;           // keys per tile
 constexpr int SP = BK + 4;       // row stride of the p tile (floats)
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;     // widest q/k and v rows either kernel takes
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -155,10 +160,13 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 
 // Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty + 16 i
 // (i < 4), score columns tx + 16 j (j < 4) and output columns
-// 64 jj + 4 tx + e (jj < 2, e < 4). The 16 threads of a row are one half
-// of a warp, so row reductions are half-warp shuffles.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
+// 64 jj + 4 tx + e (jj < nj, e < 4), nj = ceil(dv / 64) <= NJ. The 16
+// threads of a row are one half of a warp, so row reductions are
+// half-warp shuffles. NJ = 2 (dv <= 128) keeps two blocks an SM; NJ = 4
+// (dv up to 256) holds 64 accumulators a thread and takes one.
+template <typename T, int NJ>
+__global__ void __launch_bounds__(kThreads, NJ <= 2 ? 2 : 1)
+flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv, int H,
     int KV, int d, int dv, int causal, int has_window, int window,
@@ -167,7 +175,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
   float* smem = reinterpret_cast<float*>(smem4);
   const int dq = (d + 3) & ~3;              // q/k columns, zero-padded
   const int sq = dq + 4;                    // q/k row stride
-  const int nj = dv <= 64 ? 1 : 2;          // 64-column halves of v
+  const int nj = (dv + 63) / 64;            // 64-column panels of v
   const int sv = 64 * nj + 4;               // v row stride
   float* Qs = smem;                         // BQ x sq
   float* Ks = Qs + BQ * sq;                 // BK x sq, then p: BQ x SP
@@ -189,13 +197,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
   const T* vb = v + (int64_t)b * Skv * v_stride + (int64_t)kvh * dv;
   load_tile(Qs, sq, dq, qb, q_stride, min(BQ, Sq - q0), BQ, d, vec4);
 
-  float m[4], l[4], acc[4][8];
+  float m[4], l[4], acc[4][4 * NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * NJ; ++c) acc[i][c] = 0.f;
   }
 
   // tiles that can hold a valid key for some row of this q tile
@@ -278,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
       l[i] = l[i] * corr + half_warp_sum(ps);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= corr;
+      for (int c = 0; c < 4 * NJ; ++c) acc[i][c] *= corr;
     }
 
     __syncthreads();  // every thread is done reading K: p goes over it
@@ -294,7 +302,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
       for (int i = 0; i < 4; ++i)
         pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * SP + j);
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
+      for (int jj = 0; jj < NJ; ++jj) {
         if (jj >= nj) break;
         const float* vr = Vs + j * sv + 64 * jj + 4 * tx;
         const float4 v0 = *reinterpret_cast<const float4*>(vr);
@@ -324,7 +332,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
     const float li = fmaxf(l[i], 1e-30f);
     T* orow = o + ((int64_t)b * Sq + qpos) * H * dv + (int64_t)h * dv;
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj)
+    for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 64 * jj + 4 * tx + e;
@@ -333,13 +341,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int NJ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Skv, int H, int KV, int d, int dv,
                    int causal, int has_window, int window, int kv_len,
                    float scale, cudaStream_t stream) {
   const int dq = (d + 3) & ~3, sq = dq + 4;
-  const int sv = (dv <= 64 ? 64 : 128) + 4;
+  const int sv = 64 * ((dv + 63) / 64) + 4;
   const size_t k_floats = (size_t)(BK * sq > BQ * SP ? BK * sq : BQ * SP);
   const size_t smem = ((size_t)BQ * sq + k_floats + (size_t)BK * sv) *
                       sizeof(float);
@@ -349,11 +357,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                   (reinterpret_cast<uintptr_t>(k) % align) == 0 &&
                   (reinterpret_cast<uintptr_t>(v) % align) == 0;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_attention_kernel<T, NJ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KV, d, dv,
       causal, has_window, window, kv_len, scale, vec);
@@ -374,6 +382,14 @@ constexpr int kThreads = 384;       // producer + two consumer warpgroups
 constexpr int PANEL = 64;           // bf16 columns in a 128-byte row
 constexpr uint32_t TILE = 128 * 128;  // bytes of one 128-row panel
 constexpr uint32_t ROW_BYTES = 128;
+// Widest q/k (3 panels) and v (2 panels) rows. O holds 32 DVP fp32
+// registers a thread beside S's 64 and p_hi/p_lo's 64: at DVP 3 that is
+// past the 232 a consumer thread gets, so wider v goes to the CUDA-core
+// kernel. Shared memory at <3, 2>: 1 KB of alignment, the q tile and two
+// K/V stages, (3 + 2 (3 + 2)) 16 KB, and the barriers, ~209 KB of the
+// 227 KB a block may take.
+constexpr int kTcMaxD = 192;
+constexpr int kTcMaxDv = 128;
 
 // The key tiles [start, end) a block visits (see the header comment).
 // Every warp of the block computes it alike.
@@ -401,7 +417,8 @@ __device__ TileRange key_tiles(int q0, int Sq, int Skv, int causal,
   return {start, (kv_hi + BK - 1) / BK};
 }
 
-// DP, DVP: 64-column panels of q/k (d <= 64 DP) and of v (dv <= 64 DVP).
+// DP, DVP: 64-column panels of q/k (d <= 64 DP) and of v (dv <= 64 DVP);
+// DP up to 3 (S takes 4 DP k16 steps), DVP up to 2.
 template <int DP, int DVP>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap tm_q,
@@ -661,7 +678,7 @@ using hopper::kNoEncoder;
 extern "C" {
 
 // The CUDA-core kernel. dtype: 0 fp32, 1 bf16 (q, k, v and o all of it).
-// All tensors contiguous; 1 <= d, dv <= 128; H % KV == 0. Returns a
+// All tensors contiguous; 1 <= d, dv <= 256; H % KV == 0. Returns a
 // cudaError_t.
 int attention_launch(const void* q, const void* k, const void* v, void* o,
                      int dtype, int B, int Sq, int Skv, int H, int KV, int d,
@@ -671,17 +688,26 @@ int attention_launch(const void* q, const void* k, const void* v, void* o,
       d > kMaxD || dv < 1 || dv > kMaxD || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = dv > 128;
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, o, B, Sq, Skv, H, KV, d, dv, causal,
-                              has_window, window, kv_len, scale, s);
-  return (int)launch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, KV, d, dv,
-                                    causal, has_window, window, kv_len, scale,
-                                    s);
+    return (int)(wide ? launch<float, 4>(q, k, v, o, B, Sq, Skv, H, KV, d, dv,
+                                         causal, has_window, window, kv_len,
+                                         scale, s)
+                      : launch<float, 2>(q, k, v, o, B, Sq, Skv, H, KV, d, dv,
+                                         causal, has_window, window, kv_len,
+                                         scale, s));
+  return (int)(wide ? launch<__nv_bfloat16, 4>(q, k, v, o, B, Sq, Skv, H, KV,
+                                               d, dv, causal, has_window,
+                                               window, kv_len, scale, s)
+                    : launch<__nv_bfloat16, 2>(q, k, v, o, B, Sq, Skv, H, KV,
+                                               d, dv, causal, has_window,
+                                               window, kv_len, scale, s));
 }
 
 // The tensor-core kernel: bf16 q, k, v and o, contiguous, each 16-byte
-// aligned; d and dv multiples of 8 in [8, 128]; H % KV == 0. Returns a
-// cudaError_t, or kNoEncoder / kMapRefused.
+// aligned; d a multiple of 8 in [8, 192], dv one in [8, 128] (kTcMaxD,
+// kTcMaxDv); H % KV == 0. Returns a cudaError_t, or kNoEncoder /
+// kMapRefused.
 int attention_tc_launch(const void* q, const void* k, const void* v, void* o,
                         int B, int Sq, int Skv, int H, int KV, int d, int dv,
                         int causal, int has_window, int window, int kv_len,
@@ -690,7 +716,8 @@ int attention_tc_launch(const void* q, const void* k, const void* v, void* o,
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || d < 8 ||
-      d > kMaxD || d % 8 != 0 || dv < 8 || dv > kMaxD || dv % 8 != 0 ||
+      d > tc::kTcMaxD || d % 8 != 0 || dv < 8 || dv > tc::kTcMaxDv ||
+      dv % 8 != 0 ||
       !aligned(q) || !aligned(k) || !aligned(v) || !aligned(o))
     return (int)cudaErrorInvalidValue;
   const tc::EncodeTiled fn = tc::encode_tiled();
@@ -701,7 +728,13 @@ int attention_tc_launch(const void* q, const void* k, const void* v, void* o,
       !tc::encode_map(fn, &mv, v, dv, KV, Skv, B))
     return kMapRefused;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dp = d > 64 ? 2 : 1, dvp = dv > 64 ? 2 : 1;
+  const int dp = (d + 63) / 64, dvp = (dv + 63) / 64;
+  if (dp == 3 && dvp == 2)
+    return (int)tc::launch<3, 2>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
+                                 has_window, window, kv_len, scale, s);
+  if (dp == 3)
+    return (int)tc::launch<3, 1>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
+                                 has_window, window, kv_len, scale, s);
   if (dp == 2 && dvp == 2)
     return (int)tc::launch<2, 2>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
                                  has_window, window, kv_len, scale, s);

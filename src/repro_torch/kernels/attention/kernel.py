@@ -13,11 +13,17 @@ never falls back.
 Which kernel a CUDA call launches (:func:`takes_tensor_cores`):
 
 * the tensor-core kernel (``flash_attention_tc_kernel``: wgmma, TMA)
-  when q, k and v are bfloat16, d and dv are multiples of 8 and every
-  operand starts on a 16-byte boundary — what TMA needs to load rows;
+  when q, k and v are bfloat16, d and dv are multiples of 8, d is at
+  most 192 and dv at most 128 (``TC_MAX_D``, ``TC_MAX_DV``), and every
+  operand starts on a 16-byte boundary — what TMA needs to load rows,
+  and what fits a consumer thread's registers (MLA's (192, 128) runs
+  here);
 * the CUDA-core kernel (``flash_attention_kernel``, fp32 arithmetic)
   otherwise: every float32 call, and bf16 calls with d or dv not a
-  multiple of 8 or an operand off a 16-byte boundary.
+  multiple of 8, d above 192 or dv above 128 (StableLM's (160, 160)), or
+  an operand off a 16-byte boundary.
+
+Both take d and dv up to ``MAX_HEAD_DIM`` (256); wider heads raise.
 
 Both compute the same function (``csrc/attention.cu`` says how the
 tensor-core kernel keeps p·V fp32-exact). Each call launches one kernel
@@ -40,7 +46,9 @@ import torch
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.build import COMMON, CudaLibrary
 
-MAX_HEAD_DIM = 128    # the kernel's register tiles hold 128 columns of v
+MAX_HEAD_DIM = 256    # the CUDA-core kernel's tiles hold 256 columns
+TC_MAX_D = 192        # the tensor-core kernel: three 64-column q/k panels
+TC_MAX_DV = 128       # and two of v (O's registers; csrc/attention.cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -61,9 +69,8 @@ LIBRARY = CudaLibrary("attention", Path(__file__).resolve().parent / "csrc",
 
 
 def _check(q, k, v):
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: expected CUDA or CPU tensors, "
-                         f"got {q.device}")
+    """Raise unless the kernels take these operands (dtypes, devices,
+    shapes, head widths up to MAX_HEAD_DIM); reads shapes only."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: q must be float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -95,11 +102,12 @@ def _check(q, k, v):
 
 def takes_tensor_cores(q, k, v) -> bool:
     """The wrapper's rule: a CUDA call runs the tensor-core kernel iff
-    q, k and v are bfloat16, d and dv are multiples of 8 and each
-    operand's data starts on a 16-byte boundary; otherwise the CUDA-core
-    kernel."""
-    return (q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
-            and v.shape[-1] % 8 == 0
+    q, k and v are bfloat16, d and dv are multiples of 8, d <= 192,
+    dv <= 128 and each operand's data starts on a 16-byte boundary;
+    otherwise the CUDA-core kernel."""
+    d, dv = q.shape[-1], v.shape[-1]
+    return (q.dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0
+            and d <= TC_MAX_D and dv <= TC_MAX_DV
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
@@ -107,7 +115,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None,
                     kv_len: int | None = None):
     """q: (B, Sq, H, d); k/v: (B, Skv, KV, d/dv), all float32 or all
-    bfloat16, contiguous, H % KV == 0, d and dv at most 128 on a card.
+    bfloat16, contiguous, H % KV == 0, d and dv at most 256 on a card.
     Keys at positions >= ``kv_len`` (default Skv) are masked. Returns
     (B, Sq, H, dv) in q's dtype."""
     if q.device.type == "cpu":
@@ -117,6 +125,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise RuntimeError("flash_attention: an input requires grad and the "
                            "kernel has no backward; take the plain path "
                            "(use_kernel=False) to differentiate")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: expected CUDA or CPU tensors, "
+                         f"got {q.device}")
     _check(q, k, v)
     B, Sq, H, d = q.shape
     _, Skv, KV, dv = v.shape
@@ -147,5 +158,5 @@ def flash_attention(q, k, v, *, causal: bool = True,
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 
-__all__ = ["MAX_HEAD_DIM", "LIBRARY", "flash_attention",
-           "takes_tensor_cores"]
+__all__ = ["MAX_HEAD_DIM", "LIBRARY", "TC_MAX_D", "TC_MAX_DV",
+           "flash_attention", "takes_tensor_cores"]

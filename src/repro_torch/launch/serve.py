@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         [--smoke] --requests 64 --batch-size 4 [--no-srpt] [--device cpu]
 
-(``--arch llama3.2-3b`` serves the dense attention model.) Reports
+(``--arch`` takes any registered architecture: ``llama3.2-3b`` the dense
+attention model, ``deepseek-v2-lite-16b`` MLA and MoE.) Reports
 per-request slowdown (paper's metric: completion time / ideal time) for
 the SRPT scheduler; ``--no-srpt`` runs the FIFO ("Basic") ablation. The
 port of the JAX package's ``launch/serve.py`` with the same flags and the
@@ -11,8 +12,9 @@ same returned dict; ``--device`` (default ``cuda``) picks the card or,
 for tests, the CPU. Decode runs eagerly, one ``forward_decode`` per step
 at position 4, as the JAX driver runs it: the first step reads bf16
 caches of ``cache_shapes(cfg, batch, 8)``, and each step's caches are the
-previous step's deltas (for attention, a one-slot k/v cache), which
-replace the caches rather than being written into them.
+previous step's deltas (for attention, a one-slot k/v cache; for MLA a
+one-slot latent and rope key), which replace the caches rather than
+being written into them.
 """
 from __future__ import annotations
 

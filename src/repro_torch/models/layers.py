@@ -1,6 +1,8 @@
-"""The JAX package's ``models/layers.py`` for dense models: norms, rope,
-GQA self-attention (prefill and decode) and the MLP. MLA, cross-attention
-and MoE are not ported yet (ROADMAP A11).
+"""The JAX package's ``models/layers.py`` for decoder-only models: norms,
+rope, GQA self-attention (prefill and decode), MLA (DeepSeek's latent
+attention, prefill and the absorbed decode), the MLP and the MoE with
+sort-based capacity dispatch. Cross-attention is not ported yet (ROADMAP
+A11).
 
 The casts follow the JAX package op for op:
 - a norm runs in fp32, is rounded to the input's dtype, and only then
@@ -16,8 +18,15 @@ The casts follow the JAX package op for op:
 Prefill attention has two paths that compute the same function up to
 one rounding: ``blockwise_attention`` (the JAX package's model path,
 which rounds p to v's dtype before p·V) and the flash-attention kernel
-(``kernels.attention``, p·V in fp32), which ``self_attention`` runs on a
-CUDA tensor.
+(``kernels.attention``, p·V in fp32), which ``self_attention`` and
+``mla_attention`` run on a CUDA tensor.
+
+The MoE's routing follows the JAX package's order exactly: top-K ties go
+to the lowest expert (a stable descending sort, as ``lax.top_k``), a
+token's place in its expert's buffer comes from a stable argsort, and a
+token's K contributions are added onto zeros in k order (JAX's
+scatter-add; ``index_add_`` would add them in a run-dependent order on a
+card).
 """
 from __future__ import annotations
 
@@ -246,20 +255,30 @@ def self_attention(cfg: ModelConfig, p, x, positions, *, window=None,
     if use_kernel is None:
         use_kernel = x.device.type == "cuda"
     if use_kernel:
-        consecutive = (positions.diff() == 1).all()
-        out = attn_ops.attention(q, k, v, causal=True, window=window)
-        # read after the launch: the host then waits while the kernel
-        # runs, and the device does not idle for the check
-        if not bool(consecutive):
-            raise ValueError("self_attention: the attention kernel masks by "
-                             "sequence index and needs consecutive "
-                             "positions; pass use_kernel=False for others")
+        out = _kernel_attention("self_attention", q, k, v, positions,
+                                window)
     else:
         out = blockwise_attention(q, k, v, causal=True, window=window,
                                   q_positions=positions,
                                   kv_positions=positions, block_kv=block_kv)
     out = _proj("bshk,hkd->bsd", out, p["wo"])
     return out.to(x.dtype), (k, v)
+
+
+def _kernel_attention(who: str, q, k, v, positions, window=None):
+    """Causal prefill attention on the kernel's call site
+    (``ops.attention``, at the kernel's default scale 1/sqrt(d)). The
+    kernel masks by sequence index: with consecutive positions that is
+    the positions' mask; other positions raise."""
+    consecutive = (positions.diff() == 1).all()
+    out = attn_ops.attention(q, k, v, causal=True, window=window)
+    # read after the launch: the host then waits while the kernel runs,
+    # and the device does not idle for the check
+    if not bool(consecutive):
+        raise ValueError(f"{who}: the attention kernel masks by sequence "
+                         f"index and needs consecutive positions; pass "
+                         f"use_kernel=False for others")
+    return out
 
 
 def self_attention_decode(cfg: ModelConfig, p, x, pos: int, cache, *,
@@ -282,6 +301,117 @@ def self_attention_decode(cfg: ModelConfig, p, x, pos: int, cache, *,
                            cache_positions=cache_positions)
     out = _proj("bshk,hkd->bsd", out, p["wo"])
     return out.to(x.dtype), (k_new, v_new)
+
+
+# ------------------------------------------------------------------ MLA ----
+
+def mla_defs(cfg: ModelConfig):
+    D, H = cfg.d_model, cfg.num_heads
+    nope, rope_d, dv, R = cfg.head_dim, cfg.rope_head_dim, cfg.v_hd, cfg.kv_lora_rank
+    return {
+        "wq": ParamDef((D, H, nope + rope_d), ("fsdp", "tp", None), init="scaled", fan_in=D),
+        "w_dkv": ParamDef((D, R), ("fsdp", None), init="scaled", fan_in=D),
+        "w_kr": ParamDef((D, rope_d), ("fsdp", None), init="scaled", fan_in=D),
+        "w_uk": ParamDef((H, R, nope), ("tp", None, None), init="scaled", fan_in=R),
+        "w_uv": ParamDef((H, R, dv), ("tp", None, None), init="scaled", fan_in=R),
+        "wo": ParamDef((H, dv, D), ("tp", None, "fsdp"), init="scaled", fan_in=H * dv),
+        "kv_norm": ParamDef((R,), (None,), init="ones"),
+    }
+
+
+def _mla_q(cfg, p, x, positions):
+    """(q_nope, q_rope): the per-head query, its rope part roped."""
+    nope, rope_d = cfg.head_dim, cfg.rope_head_dim
+    q = _proj("bsd,dhk->bshk", x, p["wq"]).to(x.dtype)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    cos, sin = rope_cos_sin(positions, rope_d, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_ckv(cfg, p, x, positions):
+    """(ckv, kr): the normed kv latent (B, S, R) and the shared roped key
+    (B, S, rope_d) — what the cache keeps."""
+    ckv = rmsnorm(_proj("bsd,dr->bsr", x, p["w_dkv"]).to(x.dtype),
+                  p["kv_norm"])
+    kr = _proj("bsd,dk->bsk", x, p["w_kr"]).to(x.dtype)
+    cos, sin = rope_cos_sin(positions, cfg.rope_head_dim, cfg.rope_theta)
+    kr = apply_rope(kr[:, :, None, :], cos, sin)[:, :, 0, :]
+    return ckv, kr
+
+
+def mla_qkv(cfg: ModelConfig, p, x, positions):
+    """Prefill MLA's attention operands and cache: q and k ``nope +
+    rope_d`` wide (the shared roped key broadcast over the heads), v
+    ``v_hd`` wide, k_nope and v expanded from the latent and rounded to
+    x's dtype. Returns (q, k, v, (ckv, kr))."""
+    rope_d = cfg.rope_head_dim
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    ckv, kr = _mla_ckv(cfg, p, x, positions)
+    k_nope = _proj("bsr,hrk->bshk", ckv, p["w_uk"]).to(x.dtype)
+    v = _proj("bsr,hrk->bshk", ckv, p["w_uv"]).to(x.dtype)
+    B, S, H = x.shape[0], x.shape[1], cfg.num_heads
+    k_rope_b = kr[:, :, None, :].expand(B, S, H, rope_d)
+    qc = torch.cat([q_nope, q_rope], -1)
+    kc = torch.cat([k_nope, k_rope_b], -1)
+    return qc, kc, v, (ckv, kr)
+
+
+def mla_attention(cfg: ModelConfig, p, x, positions, *, block_kv: int = 512,
+                  use_kernel: bool | None = None):
+    """Prefill MLA: per-head K/V expanded from the latent, q and k
+    ``nope + rope_d`` wide (DeepSeek-V2-Lite: 192), v ``v_hd`` wide (128).
+    Returns (out, (ckv, kr)), the cache. ``use_kernel`` as in
+    ``self_attention``: on a card one flash-attention launch, whose
+    default scale 1/sqrt(d) is MLA's 1/sqrt(nope + rope_d)."""
+    nope, rope_d = cfg.head_dim, cfg.rope_head_dim
+    qc, kc, v, (ckv, kr) = mla_qkv(cfg, p, x, positions)
+    if use_kernel is None:
+        use_kernel = x.device.type == "cuda"
+    if use_kernel:
+        assert qc.shape[-1] == nope + rope_d   # the kernel's default scale
+        out = _kernel_attention("mla_attention", qc, kc, v, positions)
+    else:
+        out = blockwise_attention(qc, kc, v, causal=True,
+                                  q_positions=positions,
+                                  kv_positions=positions, block_kv=block_kv,
+                                  scale=1.0 / math.sqrt(nope + rope_d))
+    out = _proj("bshk,hkd->bsd", out, p["wo"])
+    return out.to(x.dtype), (ckv, kr)
+
+
+def mla_attention_decode(cfg: ModelConfig, p, x, pos: int, cache):
+    """Absorbed-form MLA decode, in fp32 as the JAX package computes it:
+    scores and values in the latent space, W_uk folded into q and W_uv
+    applied after. cache: {'ckv': (B, S, R), 'kr': (B, S, rope_d)}, slots
+    ``< pos`` valid; the new token is attended separately. Returns (out,
+    (ckv_new, kr_new))."""
+    nope, rope_d = cfg.head_dim, cfg.rope_head_dim
+    dev = x.device
+    posv = torch.arange(pos, pos + 1, device=dev)   # no host-to-device copy
+    q_nope, q_rope = _mla_q(cfg, p, x, posv)
+    ckv_new, kr_new = _mla_ckv(cfg, p, x, posv)
+    q_lat = _proj("bshk,hrk->bhr", q_nope, p["w_uk"])
+    qr = q_rope.to(F32)
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    ckv_c = cache["ckv"].to(F32)
+    s_c = (torch.einsum("bhr,bsr->bhs", q_lat, ckv_c)
+           + torch.einsum("bshk,btk->bht", qr, cache["kr"].to(F32))) * scale
+    S = ckv_c.shape[1]
+    mask = torch.arange(S, device=dev) < pos
+    s_c = torch.where(mask[None, None, :], s_c,
+                      torch.full((), NEG_INF, dtype=F32, device=dev))
+    s_n = (torch.einsum("bhr,bsr->bh", q_lat, ckv_new.to(F32))
+           + torch.einsum("bshk,bsk->bh", qr, kr_new.to(F32))) * scale
+    m = torch.maximum(s_c.amax(-1), s_n)
+    p_c = torch.exp(s_c - m[..., None])
+    p_n = torch.exp(s_n - m)
+    l = p_c.sum(-1) + p_n
+    ctx = torch.einsum("bhs,bsr->bhr", p_c, ckv_c)
+    ctx = (ctx + p_n[..., None] * ckv_new[:, 0, None, :].to(F32)) \
+        / l[..., None]
+    v = torch.einsum("bhr,hrk->bhk", ctx, p["w_uv"].to(F32))
+    out = torch.einsum("bhk,hkd->bd", v, p["wo"].to(F32))
+    return out[:, None, :].to(x.dtype), (ckv_new, kr_new)
 
 
 # ------------------------------------------------------------------ MLP ----
@@ -309,3 +439,116 @@ def mlp(cfg: ModelConfig, p, x):
     h = F.gelu(h, approximate="tanh").to(x.dtype)
     return (_proj("bsf,fd->bsd", h, p["w2"])
             + p["b2"].to(F32)).to(x.dtype)
+
+
+# ------------------------------------------------------------------ MoE ----
+
+def moe_defs(cfg: ModelConfig):
+    D, E, F_ = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    d = {
+        "router": ParamDef((D, E), (None, None), init="scaled", fan_in=D,
+                           dtype=torch.float32),
+        "wg": ParamDef((E, D, F_), ("ep", "fsdp", "tp"), init="scaled", fan_in=D),
+        "wu": ParamDef((E, D, F_), ("ep", "fsdp", "tp"), init="scaled", fan_in=D),
+        "wd": ParamDef((E, F_, D), ("ep", "tp", "fsdp"), init="scaled", fan_in=F_),
+    }
+    if cfg.num_shared_experts:
+        d["shared"] = mlp_defs(cfg, d_ff=F_ * cfg.num_shared_experts)
+    return d
+
+
+def moe_capacity(cfg: ModelConfig, T: int) -> int:
+    """Slots per expert for T tokens, with the JAX package's Python
+    float arithmetic."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    return max(int(math.ceil(T * K * cfg.capacity_factor / E)), 1)
+
+
+def _expert_counts(flat_e, E: int):
+    """``bincount(flat_e, length=E)`` by a scatter-add: torch's CUDA
+    bincount reads the input's maximum back to the host, a sync in every
+    MoE layer."""
+    return torch.zeros(E, dtype=flat_e.dtype, device=flat_e.device) \
+        .scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+
+def moe_route(cfg: ModelConfig, router, xt):
+    """Routing of T tokens ``xt`` (T, D): returns a dict of the router's
+    ``probs`` (T, E) fp32, the normalised top-K weights ``w`` (T, K) and
+    experts ``idx`` (T, K) — descending, ties to the lowest expert, as
+    ``lax.top_k`` — and, per (token, k) entry in that order, ``keep``
+    (it has a place within capacity C) and ``slot`` (its row of the
+    (E * C + 1, D) dispatch buffer: ``idx * C + place``, or the spare row
+    E * C when dropped), with ``C``, ``flat_e`` and each expert's entry
+    ``counts`` (E,)."""
+    T = xt.shape[0]
+    E, K = cfg.num_experts, cfg.experts_per_token
+    logits = xt.to(F32) @ router.to(F32)                      # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = vals[:, :K], order[:, :K]
+    w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+    C = moe_capacity(cfg, T)
+    flat_e = idx.reshape(-1)                                  # (T*K,)
+    # each entry's place within its expert, by stable sort
+    srt = torch.argsort(flat_e, stable=True)
+    ranks = torch.empty_like(srt)
+    ranks[srt] = torch.arange(T * K, device=xt.device)
+    counts = _expert_counts(flat_e, E)
+    offsets = torch.cumsum(counts, 0) - counts
+    pos_in_e = ranks - offsets[flat_e]
+    keep = pos_in_e < C
+    slot = torch.where(keep, flat_e * C + pos_in_e,
+                       torch.full((), E * C, dtype=flat_e.dtype,
+                                  device=xt.device))
+    return dict(probs=probs, w=w, idx=idx, flat_e=flat_e, keep=keep,
+                slot=slot, C=C, counts=counts)
+
+
+def moe_combine(contrib, K: int):
+    """Sum each token's K fp32 contributions (rows t K .. t K + K - 1 of
+    ``contrib``, (T K, D)) onto zeros in k order: JAX's
+    ``zeros.at[repeat(arange(T), K)].add(contrib)``, whose adds run in
+    that order, bit for bit. Returns (T, D)."""
+    T = contrib.shape[0] // K
+    c = contrib.reshape(T, K, -1)
+    out = torch.zeros_like(c[:, 0])
+    for k in range(K):
+        out = out + c[:, k]
+    return out
+
+
+def moe(cfg: ModelConfig, p, x):
+    """Top-K MoE with sort-based capacity dispatch (drop on overflow), the
+    JAX package's ``moe``. x: (B, S, D). Tokens are routed
+    (``moe_route``), packed by expert into an (E, C, D) buffer, run
+    through the experts as batched products, and combined with their
+    router weights; an entry past its expert's capacity contributes 0.
+    Returns out (B, S, D) in x's dtype and the Switch-style
+    load-balancing loss ``E * sum(mean probs * load)`` (the JAX package's
+    ``return_aux=True``)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    xt = x.reshape(T, D)
+    r = moe_route(cfg, p["router"], xt)
+    C, keep, slot = r["C"], r["keep"], r["slot"]
+    tok_ids = torch.arange(T, device=x.device)[:, None].expand(T, K) \
+        .reshape(-1)
+    # dropped entries all land on the spare row E * C, which is cut off
+    # (the drop-scatter convention of core/scatter.py)
+    buf = x.new_zeros((E * C + 1, D)).index_put((slot,), xt[tok_ids])
+    xe = buf[:E * C].reshape(E, C, D)
+    g = _proj("ecd,edf->ecf", xe, p["wg"])
+    u = _proj("ecd,edf->ecf", xe, p["wu"])
+    h = (F.silu(g) * u).to(x.dtype)
+    ye = _proj("ecf,efd->ecd", h, p["wd"])                   # (E, C, D) f32
+    flat_y = ye.reshape(E * C, D)
+    gathered = torch.where(keep[:, None],
+                           flat_y[torch.clamp_max(slot, E * C - 1)], 0.0)
+    out = moe_combine(gathered * r["w"].reshape(-1)[:, None], K)
+    if cfg.num_shared_experts:
+        out = out + mlp(cfg, p["shared"], x).reshape(T, D).to(F32)
+    out = out.reshape(B, S, D).to(x.dtype)
+    load = r["counts"].to(F32) / (T * K)
+    return out, E * torch.sum(r["probs"].mean(0) * load)

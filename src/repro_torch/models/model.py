@@ -1,7 +1,7 @@
 """Model assembly for decoder-only models whose layers are ``ssm``
-(Mamba2) or ``attn`` (GQA self-attention) mixers with an optional dense
-MLP: the part of the JAX package's ``models/model.py`` that training and
-inference of such a model run.
+(Mamba2) or ``attn`` (GQA self-attention or MLA) mixers with an optional
+dense MLP or MoE: the part of the JAX package's ``models/model.py`` that
+training and inference of such a model run.
 
 Entrypoints
 -----------
@@ -11,21 +11,22 @@ Entrypoints
 - ``forward_decode(...)``    -> (logits, new caches) for one token
 - ``loss_fn(...)``           -> (scalar LM loss, its parts)
 - ``cache_shapes(cfg, ...)`` -> tree of cache shapes for decode
-- ``count_model_params(cfg)``
+- ``count_model_params(cfg)``/``active_params(cfg)``
 
 Parameters and caches keep the JAX package's stacked layout: every leaf
 under ``blocks`` carries a leading block axis ``nb`` (``blocks/s0/...``).
 Where JAX runs ``lax.scan`` over that axis, the port loops over the
 blocks in Python, so a tree carried across from JAX
-(:func:`repro_torch.convert.params_from_jax`) is used as it is. MLA,
-cross-attention, MoE and encoder layers raise ``NotImplementedError``
-naming ROADMAP A11.
+(:func:`repro_torch.convert.params_from_jax`) is used as it is.
+Cross-attention and encoder layers raise ``NotImplementedError`` naming
+ROADMAP A11.
 
 Training differentiates the plain path with ``torch.autograd``, as the
 JAX package differentiates its plain path with ``jax.value_and_grad``:
-``forward_train`` runs both mixers with ``use_kernel=False``, since the
+``forward_train`` runs every mixer with ``use_kernel=False``, since the
 hand-written kernels have no backward (ROADMAP C2) and JAX's training
-path calls neither Pallas kernel.
+path calls neither Pallas kernel. Its aux loss is the sum of the MoE
+layers' load-balancing losses, as in JAX.
 """
 from __future__ import annotations
 
@@ -44,9 +45,9 @@ F32 = torch.float32
 
 def _unported(what: str):
     return NotImplementedError(
-        f"{what}: the port runs ssm and GQA attention layers with dense "
-        f"MLPs; MLA, cross-attention, MoE and encoder layers are ROADMAP "
-        f"A11")
+        f"{what}: the port runs ssm, GQA and MLA attention layers with "
+        f"dense MLPs or MoEs; cross-attention and encoder layers are "
+        f"ROADMAP A11")
 
 
 def _check_ported(cfg: ModelConfig, l: int) -> str:
@@ -54,12 +55,8 @@ def _check_ported(cfg: ModelConfig, l: int) -> str:
     kind = cfg.layer_kind(l)
     if kind not in ("attn", "ssm"):
         raise _unported(f"layer {l} of {cfg.name} is {kind!r}")
-    if kind == "attn" and cfg.use_mla:
-        raise _unported(f"layer {l} of {cfg.name} is MLA")
     if cfg.is_encoder_decoder:
         raise _unported(f"{cfg.name} is an encoder-decoder")
-    if cfg.is_moe_layer(l):
-        raise _unported(f"layer {l} of {cfg.name} is MoE")
     return kind
 
 
@@ -68,10 +65,13 @@ def _check_ported(cfg: ModelConfig, l: int) -> str:
 def layer_defs(cfg: ModelConfig, l: int):
     kind = _check_ported(cfg, l)
     d: dict[str, Any] = {"norm1": L.norm_defs(cfg)}
-    d["mixer"] = L.attn_defs(cfg) if kind == "attn" else S.ssm_defs(cfg)
-    if cfg.d_ff > 0:
+    if kind == "attn":
+        d["mixer"] = L.mla_defs(cfg) if cfg.use_mla else L.attn_defs(cfg)
+    else:
+        d["mixer"] = S.ssm_defs(cfg)
+    if cfg.d_ff > 0 or cfg.is_moe_layer(l):
         d["norm2"] = L.norm_defs(cfg)
-        d["ffn"] = L.mlp_defs(cfg)
+        d["ffn"] = L.moe_defs(cfg) if cfg.is_moe_layer(l) else L.mlp_defs(cfg)
     return d
 
 
@@ -128,19 +128,27 @@ def _stack(trees: list):
 
 # --------------------------------------------------------- layer forward ---
 
-def _ffn(cfg, lp, x):
+def _ffn(cfg, lp, x, moe_layer: bool = False):
+    """The layer's FFN with its residual: (x, aux), aux the MoE's
+    load-balancing loss (a zero fp32 scalar for a dense MLP)."""
     h = L.apply_norm(cfg, lp["norm2"], x)
-    return x + L.mlp(cfg, lp["ffn"], h)
+    if moe_layer:
+        y, aux = L.moe(cfg, lp["ffn"], h)
+        return x + y, aux
+    return (x + L.mlp(cfg, lp["ffn"], h),
+            torch.zeros((), dtype=F32, device=x.device))
 
 
 def layer_forward(cfg: ModelConfig, lp, x, l: int, *, mode: str = "prefill",
                   use_kernel: bool | None = None):
-    """One layer, full sequence from position 0. Returns (x, new_cache).
+    """One layer, full sequence from position 0. Returns (x, new_cache,
+    aux), aux the layer's MoE load-balancing loss (0 without one).
 
     ``mode="prefill"`` keeps the layer's cache and passes ``use_kernel``
-    to the mixer (``self_attention`` or ``mamba_block``);
-    ``mode="train"`` keeps none ({}) and runs the mixer's plain path,
-    which autograd can differentiate (the kernels have no backward)."""
+    to the mixer (``self_attention``, ``mla_attention`` or
+    ``mamba_block``); ``mode="train"`` keeps none ({}) and runs the
+    mixer's plain path, which autograd can differentiate (the kernels
+    have no backward)."""
     kind = _check_ported(cfg, l)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -152,7 +160,14 @@ def layer_forward(cfg: ModelConfig, lp, x, l: int, *, mode: str = "prefill",
         use_kernel = False
     h = L.apply_norm(cfg, lp["norm1"], x)
     new_cache = {}
-    if kind == "attn":
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if kind == "attn" and cfg.use_mla:
+        positions = torch.arange(x.shape[1], device=x.device)
+        y, (ckv, kr) = L.mla_attention(cfg, lp["mixer"], h, positions,
+                                       use_kernel=use_kernel)
+        if not train:
+            new_cache = {"ckv": ckv, "kr": kr}
+    elif kind == "attn":
         positions = torch.arange(x.shape[1], device=x.device)
         y, (k, v) = L.self_attention(cfg, lp["mixer"], h, positions,
                                      window=cfg.sliding_window,
@@ -170,15 +185,19 @@ def layer_forward(cfg: ModelConfig, lp, x, l: int, *, mode: str = "prefill",
                          "conv": conv_tail.to(x.dtype)}
     x = x + y
     if "ffn" in lp:
-        x = _ffn(cfg, lp, x)
-    return x, new_cache
+        x, aux = _ffn(cfg, lp, x, cfg.is_moe_layer(l))
+    return x, new_cache, aux
 
 
 def layer_decode(cfg: ModelConfig, lp, x, l: int, *, pos, cache):
     """One layer, one token. Returns (x, cache_delta)."""
     kind = _check_ported(cfg, l)
     h = L.apply_norm(cfg, lp["norm1"], x)
-    if kind == "attn":
+    if kind == "attn" and cfg.use_mla:
+        y, (ckv, kr) = L.mla_attention_decode(cfg, lp["mixer"], h, pos,
+                                              cache)
+        delta = {"ckv": ckv, "kr": kr}
+    elif kind == "attn":
         y, (kn, vn) = L.self_attention_decode(
             cfg, lp["mixer"], h, pos, cache, window=cfg.sliding_window)
         delta = {"k": kn, "v": vn}
@@ -186,7 +205,7 @@ def layer_decode(cfg: ModelConfig, lp, x, l: int, *, pos, cache):
         y, delta = S.mamba_block_decode(cfg, lp["mixer"], h, cache)
     x = x + y
     if "ffn" in lp:
-        x = _ffn(cfg, lp, x)
+        x, _ = _ffn(cfg, lp, x, cfg.is_moe_layer(l))
     return x, delta
 
 
@@ -215,26 +234,30 @@ def forward_train(cfg: ModelConfig, params, tokens, *, remat: bool = True):
     Every layer runs in ``mode="train"`` (plain mixers, no caches).
     ``remat=True`` recomputes each stacked block in the backward pass
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``),
-    so only the blocks' inputs are kept. ``aux`` is a zero fp32 scalar:
-    the port has no MoE layer, the only source of an aux loss."""
+    so only the blocks' inputs are kept. ``aux`` is the fp32 sum of the
+    MoE layers' load-balancing losses, prefix first and then block by
+    block, in JAX's order (zero without MoE layers)."""
     x = _embed(cfg, params, tokens)
+    aux = torch.zeros((), dtype=F32, device=x.device)
     for i in range(cfg.first_dense_layers):
-        x, _ = layer_forward(cfg, params["prefix"][f"p{i}"], x, i,
-                             mode="train")
+        x, _, a = layer_forward(cfg, params["prefix"][f"p{i}"], x, i,
+                                mode="train")
+        aux = aux + a
     npfx, period = cfg.first_dense_layers, cfg.block_period
 
-    def block_fn(x, bp, bi):
+    def block_fn(x, aux, bp, bi):
         for i in range(period):
-            x, _ = layer_forward(cfg, bp[f"s{i}"], x,
-                                 npfx + bi * period + i, mode="train")
-        return x
+            x, _, a = layer_forward(cfg, bp[f"s{i}"], x,
+                                    npfx + bi * period + i, mode="train")
+            aux = aux + a
+        return x, aux
 
     for bi, bp in enumerate(_unstack(params["blocks"], n_scan_blocks(cfg))):
         if remat:
-            x = checkpoint(block_fn, x, bp, bi, use_reentrant=False)
+            x, aux = checkpoint(block_fn, x, aux, bp, bi,
+                                use_reentrant=False)
         else:
-            x = block_fn(x, bp, bi)
-    aux = torch.zeros((), dtype=F32, device=x.device)
+            x, aux = block_fn(x, aux, bp, bi)
     return _logits(cfg, params, x), aux
 
 
@@ -248,8 +271,8 @@ def forward_prefill(cfg: ModelConfig, params, tokens, *,
     x = _embed(cfg, params, tokens)
     prefix_caches = {}
     for i in range(cfg.first_dense_layers):
-        x, c = layer_forward(cfg, params["prefix"][f"p{i}"], x, i,
-                             use_kernel=use_kernel)
+        x, c, _ = layer_forward(cfg, params["prefix"][f"p{i}"], x, i,
+                                use_kernel=use_kernel)
         prefix_caches[f"p{i}"] = c
     npfx = cfg.first_dense_layers
     per_block = []
@@ -258,8 +281,8 @@ def forward_prefill(cfg: ModelConfig, params, tokens, *,
         caches = {}
         for i in range(cfg.block_period):
             l = npfx + bi * cfg.block_period + i
-            x, caches[f"s{i}"] = layer_forward(cfg, bp[f"s{i}"], x, l,
-                                               use_kernel=use_kernel)
+            x, caches[f"s{i}"], _ = layer_forward(cfg, bp[f"s{i}"], x, l,
+                                                  use_kernel=use_kernel)
         per_block.append(caches)
     logits = _logits(cfg, params, x[:, -1:, :])[:, 0]
     return logits, {"prefix": prefix_caches, "blocks": _stack(per_block)}
@@ -318,6 +341,9 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
 
 def _layer_cache_shape(cfg: ModelConfig, l: int, batch: int, seq: int):
     kind = _check_ported(cfg, l)
+    if kind == "attn" and cfg.use_mla:
+        return {"ckv": (batch, seq, cfg.kv_lora_rank),
+                "kr": (batch, seq, cfg.rope_head_dim)}
     if kind == "attn":
         KV, hd = cfg.num_kv_heads, cfg.head_dim
         s = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
@@ -349,3 +375,14 @@ def zeros_caches(shapes, dtype=torch.bfloat16, device=None):
 
 def count_model_params(cfg: ModelConfig) -> int:
     return count_params(model_defs(cfg))
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: only the top-K experts)."""
+    total = count_model_params(cfg)
+    if not cfg.num_experts:
+        return total
+    E, K = cfg.num_experts, cfg.experts_per_token
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    n_moe_layers = sum(cfg.is_moe_layer(l) for l in range(cfg.num_layers))
+    return total - n_moe_layers * per_expert * (E - K)

@@ -283,15 +283,41 @@ def test_tc_tile_range_matches_the_oracle(causal, window, kv_len):
     ((128, 128), torch.float32, 0, False),
     ((20, 20), torch.bfloat16, 0, False),
     ((64, 12), torch.bfloat16, 0, False),
-    ((128, 128), torch.bfloat16, 1, False)])
+    ((128, 128), torch.bfloat16, 1, False),
+    ((192, 128), torch.bfloat16, 0, True),       # MLA
+    ((192, 64), torch.bfloat16, 0, True),
+    ((160, 128), torch.bfloat16, 0, True),
+    ((192, 128), torch.float32, 0, False),
+    ((160, 160), torch.bfloat16, 0, False),      # StableLM: dv > 128
+    ((128, 136), torch.bfloat16, 0, False),
+    ((200, 128), torch.bfloat16, 0, False),      # d > 192
+    ((256, 256), torch.bfloat16, 0, False)])
 def test_routing_rule(shape, dtype, offset, tc):
-    """``takes_tensor_cores``: bf16, d and dv multiples of 8, every
-    operand on a 16-byte boundary; anything else goes to the CUDA-core
-    kernel (the rule reads shapes, dtypes and addresses only, so it is
-    checked here on CPU tensors)."""
+    """``takes_tensor_cores``: bf16, d and dv multiples of 8, d <= 192,
+    dv <= 128, every operand on a 16-byte boundary; anything else goes
+    to the CUDA-core kernel (the rule reads shapes, dtypes and addresses
+    only, so it is checked here on CPU tensors)."""
     d, dv = shape
     q = torch.zeros((1, 8, 4, d), dtype=dtype)
     k = torch.zeros((1, 8, 2, d), dtype=dtype)
     buf = torch.zeros(1 * 8 * 2 * dv + 8, dtype=dtype)
     v = buf[offset:offset + 16 * dv].view(1, 8, 2, dv)
     assert attn_kernel.takes_tensor_cores(q, k, v) == tc
+
+
+@pytest.mark.parametrize("d,dv,ok", [(256, 256, True), (192, 128, True),
+                                     (160, 160, True), (264, 128, False),
+                                     (128, 264, False), (264, 264, False)])
+def test_check_takes_heads_up_to_256(d, dv, ok):
+    """The wrapper's checks accept every head width up to MAX_HEAD_DIM
+    (256) and refuse wider ones before any launch; they read shapes only,
+    so meta tensors stand in for a card's."""
+    assert attn_kernel.MAX_HEAD_DIM == 256
+    q = torch.empty((1, 8, 4, d), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((1, 8, 2, d), dtype=torch.bfloat16, device="meta")
+    v = torch.empty((1, 8, 2, dv), dtype=torch.bfloat16, device="meta")
+    if ok:
+        attn_kernel._check(q, k, v)
+    else:
+        with pytest.raises(ValueError, match="at most 256"):
+            attn_kernel._check(q, k, v)

@@ -6,9 +6,11 @@ inputs that require grad), the lossy fabric on the card (each backend
 against ``tests/golden/faults_enabled.json``, and a full-width fault
 window with no host sync), and the host stage with telemetry (both
 kernel backends against ``tests/golden/host_trace_enabled.json``, and
-the ideal host with capture off against both fabric goldens), and the
+the ideal host with capture off against both fabric goldens), the
 training step (the card's against the CPU's, no kernel launched) and the
-data-parallel step on a NCCL world of one.
+data-parallel step on a NCCL world of one, and the MLA and MoE models at
+reduced size (DeepSeek, Mixtral and Jamba prefill and decode against the
+CPU, DeepSeek's serve).
 
 These tests need a CUDA card and skip without one (marker ``gpu``); run
 them there with ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py``.
@@ -811,9 +813,9 @@ def test_attention_kernel_refuses_inputs_that_require_grad(cuda, dtype):
 @pytest.mark.gpu
 def test_attention_kernel_rejects_bad_inputs(cuda):
     from repro_torch.kernels.attention.kernel import flash_attention
-    q, k, v = _attn_tensors(_attn_inputs(1, 16, 16, 2, 1, 256, 0), "bf16",
+    q, k, v = _attn_tensors(_attn_inputs(1, 16, 16, 2, 1, 264, 0), "bf16",
                             cuda)
-    with pytest.raises(ValueError, match="at most 128"):
+    with pytest.raises(ValueError, match="at most 256"):
         flash_attention(q, k, v)
     q, k, v = _attn_tensors(_attn_inputs(1, 16, 16, 2, 1, 32, 0), "bf16",
                             cuda)
@@ -854,6 +856,130 @@ def test_self_attention_runs_the_kernel_on_a_card(cuda):
                                rtol=2e-2)
 
 
+# -------------------------------------------------- MLA and MoE models ----
+
+def _to(tree, device, dtype=None):
+    if isinstance(tree, dict):
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype or tree.dtype)
+
+
+def _normwise(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,n_attn", [
+    ("deepseek-v2-lite-16b", 3), ("mixtral-8x7b", 2),
+    ("jamba-1.5-large-398b", 0)])
+def test_reduced_moe_archs_on_the_card_match_the_cpu(cuda, arch, n_attn):
+    """Reduced DeepSeek (MLA + MoE), Mixtral (windowed GQA + MoE) and
+    Jamba (SSM + attention + MoE) in fp32: the card's prefill (one
+    attention launch per attention layer, on the CUDA-core kernel; Jamba
+    on the plain path, since the SSD kernel takes bf16 only) and a decode
+    step from its caches against the CPU's, normwise within 1e-3 (fp32
+    sum order; the CPU measured Jamba's 16 layers moving fp32 noise to
+    4e-4 of the caches against JAX, tests/test_torch_archs.py)."""
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.kernels.ssd.kernel import ssd_scan
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    cfg = reduced_config(arch)
+    params = _to(init_params(M.model_defs(cfg),
+                             torch.Generator().manual_seed(0), "cpu"),
+                 "cpu", torch.float32)
+    tok = torch.randint(0, cfg.vocab_size, (2, 40),
+                        generator=torch.Generator().manual_seed(1))
+    nxt = tok[:, -1:]
+    use_kernel = None if n_attn else False
+    n, n_ssd = flash_attention.launches, ssd_scan.launches
+    lg, caches = M.forward_prefill(cfg, _to(params, cuda),
+                                   tok[:, :-1].to(cuda),
+                                   use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - n == n_attn
+    assert ssd_scan.launches == n_ssd
+    lc, caches_c = M.forward_prefill(cfg, params, tok[:, :-1])
+    V = cfg.vocab_size
+    assert _normwise(lg[:, :V], lc[:, :V]) <= 1e-3
+    step, _ = M.forward_decode(cfg, _to(params, cuda), nxt.to(cuda), 39,
+                               caches)
+    step_c, _ = M.forward_decode(cfg, params, nxt, 39, caches_c)
+    assert _normwise(step[:, :V], step_c[:, :V]) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_jamba_runs_both_kernels_on_the_card(cuda):
+    """Reduced Jamba in bf16 on the card: its prefill launches the
+    attention kernel for each of its 2 attention layers and the SSD scan
+    for each of its 14 SSM layers, and a decode step follows from its
+    caches. Against the card's plain path end to end, within chip_smoke's
+    MODEL_TOL logits bound (0.35: the SSD kernel's fp32 sums and the
+    attention kernel's fp32 p.V flip bf16 roundings that 16 layers and the
+    MoE routing carry on; gross faults only)."""
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.kernels.ssd.kernel import ssd_scan
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    cfg = reduced_config("jamba-1.5-large-398b")
+    params = init_params(M.model_defs(cfg),
+                         torch.Generator(cuda).manual_seed(4), cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(5))
+    n, n_ssd = flash_attention.launches, ssd_scan.launches
+    lk, caches = M.forward_prefill(cfg, params, tok[:, :-1])
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - n, ssd_scan.launches - n_ssd) \
+        == (2, 14)
+    lp, _ = M.forward_prefill(cfg, params, tok[:, :-1], use_kernel=False)
+    V = cfg.vocab_size
+    assert bool(torch.isfinite(lk).all())
+    rel = float((lk[:, :V] - lp[:, :V]).float().norm()
+                / lp[:, :V].float().norm())
+    assert rel <= _chip_smoke().MODEL_TOL["logits"]
+    step, _ = M.forward_decode(cfg, params, tok[:, -1:], 39, caches)
+    assert bool(torch.isfinite(step).all())
+
+
+@pytest.mark.gpu
+def test_deepseek_mla_prefill_runs_the_tensor_cores(cuda):
+    """Reduced DeepSeek in bf16: each MLA layer's prefill attention (q/k
+    24 wide, v 16) is one tensor-core launch, and the kernel path stays
+    within the bf16 rounding of p of the plain path."""
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    cfg = reduced_config("deepseek-v2-lite-16b")
+    params = init_params(M.model_defs(cfg),
+                         torch.Generator(cuda).manual_seed(2), cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(3))
+    n, n_tc = flash_attention.launches, flash_attention.launches_tc
+    lk, _ = M.forward_prefill(cfg, params, tok)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - n,
+            flash_attention.launches_tc - n_tc) == (3, 3)
+    lp, _ = M.forward_prefill(cfg, params, tok, use_kernel=False)
+    assert flash_attention.launches - n == 3
+    V = cfg.vocab_size
+    assert _normwise(lk[:, :V], lp[:, :V]) <= 5e-2
+
+
+@pytest.mark.gpu
+def test_deepseek_serve_on_the_card(cuda):
+    """``serve --arch deepseek-v2-lite-16b --smoke`` on the card gives the
+    JAX package's statistics (``chip_smoke.SERVE_EXPECTED``)."""
+    from repro_torch.launch import serve
+    smoke = _chip_smoke()
+    res = serve.main(["--arch", "deepseek-v2-lite-16b", "--smoke",
+                      *smoke.SERVE_ARGV, "--device", "cuda"])
+    assert {k: res[k] for k in smoke.SERVE_EXPECTED} == smoke.SERVE_EXPECTED
+
+
 # ----------------------------------------------- tensor-core attention ----
 
 ATTN_TC_CASES = [
@@ -874,6 +1000,26 @@ ATTN_TC_CASES = [
     (1, 130, 130, 2, 1, 96, 96, True, None, None),      # d 1.5 panels
     (1, 140, 140, 4, 2, 128, 64, True, None, None),     # dv < d
     (1, 140, 140, 4, 2, 64, 128, False, 50, None),      # dv > d
+    (2, 300, 300, 4, 4, 192, 128, True, None, None),    # MLA: 3 q/k panels
+    (1, 5, 5, 4, 4, 192, 128, True, None, None),        # Sq < 8 at d 192
+    (1, 260, 260, 4, 4, 192, 128, True, None, 150),     # kv_len < Skv
+    (1, 200, 200, 4, 2, 192, 128, True, 2, 8),          # starved rows
+    (1, 257, 257, 4, 2, 192, 128, False, 100, None),    # window, non-causal
+    (1, 140, 140, 4, 2, 192, 64, True, None, None),     # <3, 1>
+    (1, 140, 140, 4, 2, 160, 128, True, None, None),    # 2.5 q/k panels
+]
+
+ATTN_WIDE_CASES = [
+    # (B, Sq, Skv, H, KV, d, dv, causal, window, kv_len, dtype): heads the
+    # tensor-core kernel does not take (dv > 128, or fp32), on the
+    # CUDA-core kernel up to 256
+    (2, 200, 200, 8, 2, 160, 160, True, None, None, "bf16"),  # StableLM
+    (1, 130, 130, 4, 1, 256, 256, True, None, None, "bf16"),
+    (1, 150, 150, 4, 2, 192, 256, False, 40, None, "bf16"),
+    (1, 5, 5, 4, 4, 192, 128, True, None, None, "f32"),       # Sq < 8
+    (1, 260, 260, 4, 4, 192, 128, True, None, 150, "f32"),    # MLA, fp32
+    (1, 100, 100, 2, 2, 256, 256, True, 2, 8, "f32"),         # starved rows
+    (1, 90, 90, 2, 1, 250, 136, True, None, None, "bf16"),    # d not /8
 ]
 
 
@@ -929,6 +1075,35 @@ def test_attention_tc_kernel_matches_plain(cuda, case):
     _assert_attention_close(out, ref)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ATTN_WIDE_CASES)
+def test_attention_wide_heads_on_cuda_cores(cuda, case):
+    """Head widths past the tensor-core kernel's (dv above 128, d up to
+    256) and fp32 at MLA's (192, 128) run the CUDA-core kernel — one
+    launch, none on the tensor cores — and match ``attention_ref``."""
+    from repro_torch.kernels.attention.kernel import (flash_attention,
+                                                      takes_tensor_cores)
+    from repro_torch.kernels.attention.ref import attention_ref
+    B, Sq, Skv, H, KV, d, dv, causal, window, kv_len, dtype = case
+    q, k, v = _tc_inputs(B, Sq, Skv, H, KV, d, dv, 23, cuda)
+    if dtype == "f32":
+        q, k, v = q.float(), k.float(), v.float()
+    assert not takes_tensor_cores(q, k, v)
+    n, n_tc = flash_attention.launches, flash_attention.launches_tc
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - n,
+            flash_attention.launches_tc - n_tc) == (1, 0)
+    ref = attention_ref(q, k, v, causal=causal, window=window,
+                        kv_len=kv_len)
+    assert out.dtype == q.dtype and out.shape == ref.shape
+    if dtype == "f32":
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    else:
+        _assert_attention_close(out, ref)
+
+
 def _misaligned(t):
     """A contiguous copy of t whose data starts 2 bytes past a 16-byte
     boundary."""
@@ -941,7 +1116,8 @@ def _misaligned(t):
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", ["bf16 d 128", "bf16 d 64", "fp32",
                                    "bf16 d 20", "bf16 dv 12",
-                                   "bf16 misaligned"])
+                                   "bf16 misaligned", "bf16 d 192 dv 128",
+                                   "bf16 d 160 dv 160", "bf16 d 200"])
 def test_attention_routing_rule(cuda, route):
     """``takes_tensor_cores`` decides, and the counters show it: bf16 with
     d and dv multiples of 8 on 16-byte boundaries runs the tensor-core
@@ -951,14 +1127,16 @@ def test_attention_routing_rule(cuda, route):
                                                       takes_tensor_cores)
     from repro_torch.kernels.attention.ref import attention_ref
     d, dv = {"bf16 d 64": (64, 64), "bf16 d 20": (20, 20),
-             "bf16 dv 12": (64, 12)}.get(route, (128, 128))
+             "bf16 dv 12": (64, 12), "bf16 d 192 dv 128": (192, 128),
+             "bf16 d 160 dv 160": (160, 160),
+             "bf16 d 200": (200, 128)}.get(route, (128, 128))
     q, k, v = _tc_inputs(2, 70, 70, 4, 2, d, dv, 5, cuda)
     if route == "fp32":
         q, k, v = q.float(), k.float(), v.float()
     if route == "bf16 misaligned":
         q = _misaligned(q)
         assert q.data_ptr() % 16 == 2
-    tc = route in ("bf16 d 128", "bf16 d 64")
+    tc = route in ("bf16 d 128", "bf16 d 64", "bf16 d 192 dv 128")
     assert takes_tensor_cores(q, k, v) == tc
     n, n_tc = flash_attention.launches, flash_attention.launches_tc
     out = flash_attention(q, k, v, causal=True)

@@ -110,6 +110,19 @@ def test_llama_serve_matches_jax():
     assert _stats(got) == _stats(want) == _chip_smoke().SERVE_EXPECTED
 
 
+def test_deepseek_serve_matches_jax():
+    """The DeepSeek (MLA + MoE) smoke serve gives the JAX package's
+    statistics, the committed ones ``chip_smoke.py`` phase 12 holds the
+    full-width serve to (``DEEPSEEK_SERVE_ARGV``, 16 requests:
+    ``DEEPSEEK_SERVE_EXPECTED``)."""
+    smoke = _chip_smoke()
+    argv = ["--arch", "deepseek-v2-lite-16b", "--smoke"] \
+        + smoke.DEEPSEEK_SERVE_ARGV
+    got = serve.main(argv + ["--device", "cpu"])
+    want = jserve.main(argv)
+    assert _stats(got) == _stats(want) == smoke.DEEPSEEK_SERVE_EXPECTED
+
+
 def test_llama_serve_caches_take_the_delta_shape(monkeypatch):
     """As in the JAX driver, the first step's caches are
     ``cache_shapes(cfg, C, 8)`` and every later step attends to the

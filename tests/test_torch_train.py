@@ -271,7 +271,7 @@ def test_forward_train_never_reaches_a_kernel(monkeypatch):
         x = torch.zeros((1, 8, cfg.d_model), dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="no backward"):
             M.layer_forward(cfg, lp, x, 0, mode="train", use_kernel=True)
-        y, cache = M.layer_forward(cfg, lp, x, 0, mode="train")
+        y, cache, _ = M.layer_forward(cfg, lp, x, 0, mode="train")
         assert cache == {} and y.shape == x.shape
 
 
