@@ -195,9 +195,31 @@ result line:
            of 16 requests, whose statistics must equal the JAX package's
            (``DEEPSEEK_SERVE_EXPECTED``)
 
+13. xattn the encoder-decoder and cross-attention architectures, their
+           attention on the kernel non-causal at full width: (a) the
+           flash-attention kernel against ``attention_ref`` at the five
+           calls of their prefills (Whisper's encoder 4 x 1500 over
+           itself, decoder self 4 x 448 causal, cross 448 over 1500
+           frames; Vision's self 2 x 4096 causal and cross 4096 over 6400
+           image tokens with 64 heads over 8), every call on the tensor
+           cores, each timed beside ``attention_ref``, one
+           ``scaled_dot_product_attention`` call and the bound; (b)
+           Whisper-small whole (12 encoder and 12 decoder layers; random
+           bf16 weights and frame embeddings from a seed):
+           ``forward_prefill`` of 4 x 448 tokens over 4 x 1500 frames on
+           the kernel (36 launches, counted by shape and seen by the
+           profiler; tokens/s, peak memory, busy share, device time by
+           kind) against ``use_kernel=False`` layer by layer on the same
+           inputs (every attention output, the encoder's output) and end
+           to end, prefill of 447 tokens plus one ``forward_decode``
+           against the 448-token prefill, a profiled window of 3 decode
+           steps; (c) the same for Llama-3.2-Vision-90B at full width cut
+           to one block (5 layers, layer 4 cross), 2 x 4096 tokens over 2
+           x 6400 image embeddings (5 launches a prefill)
+
 ``--phases card,deepseek`` (any comma-separated subset of card, kernels,
 goldens, full, window, sweep, model, llama, faults, host, train,
-deepseek) runs only those phases and prints no result lines; with no
+deepseek, xattn) runs only those phases and prints no result lines; with no
 arguments every phase runs.
 
 Then one JSON line with each kernel's numbers, and last
@@ -3038,19 +3060,20 @@ def phase_train():
 
 # ------------------------------------------------------------ phase 12 -----
 
-def _attn_bound(q, k, v):
-    """The attention's bound at a causal call (``_attn_work``): q.k,
-    p_hi.v and p_lo.v on the bf16 tensor cores against the bytes."""
-    nbytes, qk, pv = _attn_work(q, k, v, True)
+def _attn_bound(q, k, v, causal=True):
+    """The attention's bound (``_attn_work``: over the causal half when
+    causal): q.k, p_hi.v and p_lo.v on the bf16 tensor cores against the
+    bytes."""
+    nbytes, qk, pv = _attn_work(q, k, v, causal)
     ops_s = (qk + 2 * pv) / TC_BF16_FLOP_PER_S
     by_s = nbytes / HBM_BYTES_PER_S
     return (max(ops_s, by_s) * 1e3, "operations" if ops_s > by_s
             else "bytes", qk + pv, nbytes)
 
 
-def _attn_times(tag, name, q, k, v, tc):
-    """One causal call's times by CUDA events: the kernel (its design
-    checked by the counters), its plain version ``attention_ref`` and one
+def _attn_times(tag, name, q, k, v, tc, causal=True):
+    """One call's times by CUDA events: the kernel (its design checked by
+    the counters), its plain version ``attention_ref`` and one
     ``scaled_dot_product_attention`` call (the yardstick; the port never
     calls it), beside the bound."""
     import torch
@@ -3059,16 +3082,17 @@ def _attn_times(tag, name, q, k, v, tc):
     from repro_torch.kernels.attention.ref import attention_ref
     fa = attn_kernel.flash_attention
     n, n_tc = fa.launches, fa.launches_tc
-    out = dict(ms=time_ms(lambda: fa(q, k, v), batch=5, reps=5, warmup=2))
+    out = dict(ms=time_ms(lambda: fa(q, k, v, causal=causal), batch=5,
+                          reps=5, warmup=2))
     check(fa.launches_tc - n_tc == (fa.launches - n) * int(tc),
           f"{name}: the timed calls ran on the "
           f"{'CUDA' if tc else 'tensor'} cores")
-    out["plain_ms"] = time_ms(lambda: attention_ref(q, k, v), batch=1,
-                              reps=3, warmup=1)
+    out["plain_ms"] = time_ms(lambda: attention_ref(q, k, v, causal=causal),
+                              batch=1, reps=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
     try:
         lib_out = sdpa()
@@ -3076,14 +3100,18 @@ def _attn_times(tag, name, q, k, v, tc):
         say(f"[{tag}] scaled_dot_product_attention refused {name}: {e}")
         out["library_ms"] = None
     else:
-        check(_rel(lib_out.transpose(1, 2), attention_ref(q, k, v)) < 1e-2,
+        check(_rel(lib_out.transpose(1, 2),
+                   attention_ref(q, k, v, causal=causal)) < 1e-2,
               "scaled_dot_product_attention computes another function")
+        del lib_out
         out["library_ms"] = time_ms(sdpa, batch=5, reps=5, warmup=2)
-    out["bound_ms"], out["bound_by"], flops, nbytes = _attn_bound(q, k, v)
+    out["bound_ms"], out["bound_by"], flops, nbytes = _attn_bound(q, k, v,
+                                                                  causal)
     lib = (f"{out['library_ms']:.4f} ms" if out["library_ms"] is not None
            else "refused")
     say(f"[{tag}] attention {name} q {tuple(q.shape)}, k {tuple(k.shape)}, "
-        f"v {tuple(v.shape)} bf16, causal, {'tensor' if tc else 'CUDA'} "
+        f"v {tuple(v.shape)} bf16, {'causal' if causal else 'non-causal'}, "
+        f"{'tensor' if tc else 'CUDA'} "
         f"cores: {out['ms']:.4f} ms a call ({out['bound_ms'] / out['ms']:.3f}"
         f" of the bound); scaled_dot_product_attention {lib}; plain "
         f"attention_ref {out['plain_ms']:.3f} ms; {flops / 1e9:.1f} GFLOP "
@@ -3402,10 +3430,360 @@ def phase_deepseek():
     return out
 
 
+# ------------------------------------------------------------ phase 13 -----
+
+# (a)'s five calls: (name, q shape, k/v shape, causal, launches of the
+# call in one prefill of 13b or 13c)
+XATTN_SHAPES = (
+    ("Whisper encoder", (4, 1500, 12, 64), (4, 1500, 12, 64), False, 12),
+    ("Whisper decoder self", (4, 448, 12, 64), (4, 448, 12, 64), True, 12),
+    ("Whisper cross", (4, 448, 12, 64), (4, 1500, 12, 64), False, 12),
+    ("Vision self", (2, 4096, 64, 128), (2, 4096, 8, 128), True, 4),
+    ("Vision cross", (2, 4096, 64, 128), (2, 6400, 8, 128), False, 1),
+)
+WHISPER = dict(arch="whisper-small", batch=4, seq=448, seed=0)
+# Llama-3.2-Vision cut to one scan block (layers 0-3 self, layer 4
+# cross): the 100 layers' 175 GB do not fit a card
+VISION = dict(arch="llama-3.2-vision-90b", batch=2, seq=4096, seed=0,
+              layers=5)
+# relative RMS of the kernel path against the plain path (which rounds p
+# to bf16 before p.V), measured on the CPU with the kernel's plain
+# version by ``python tests/test_torch_encdec.py --deep``
+# (``deep_config``: each model's chip depth, heads and sequence lengths
+# at d_model 256; 2 x 448 tokens over 1500 frames, 2 x 512 over 6400
+# image tokens; 3 seeds): Whisper's attention outputs layer by layer
+# 2.85e-3, the encoder's output 9.0e-3, last-token logits 9.5e-3,
+# prefill(447) + decode against the 448-token prefill 8.9e-3;
+# Vision's 2.8e-3, 1.38e-2 and 1.28e-2. Each bound ~4x its measurement
+WHISPER_TOL = dict(layer=1e-2, encoder=4e-2, logits=4e-2, decode_logits=4e-2)
+VISION_TOL = dict(layer=1e-2, encoder=None, logits=6e-2, decode_logits=6e-2)
+
+
+def _xattn_layers(cfg, params, tokens, emb, use_kernel=None):
+    """The kernel path (``use_kernel``) against the plain path of an
+    encoder-decoder or cross-attention model, layer by layer on the same
+    inputs (each layer's input from the kernel path): the relative RMS
+    distance of every attention output — the encoder's self-attention,
+    the decoder's self-attention, every cross-attention — their maximum
+    ("layer") and that over the cross-attentions ("cross"), and, for an
+    encoder-decoder, of the whole encoder's output ("encoder")."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    worst = dict(layer=0.0, cross=0.0)
+
+    def note(yk, yp, cross=False):
+        e = _rel(yk, yp)
+        worst["layer"] = max(worst["layer"], e)
+        if cross:
+            worst["cross"] = max(worst["cross"], e)
+
+    enc = None
+    if cfg.is_encoder_decoder:
+        x = emb
+        pos = torch.arange(x.shape[1], device=x.device)
+        cos, sin = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+        for i in range(cfg.encoder_layers):
+            bp = M._index(params["encoder"]["blocks"], i)
+            h = L.apply_norm(cfg, bp["norm1"], x)
+            q, k, v = L._qkv(cfg, bp["mixer"], h)
+            q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+            yk = L.full_attention(q, k, v, use_kernel=use_kernel)
+            note(yk, L.full_attention(q, k, v, use_kernel=False))
+            x = x + L._proj("bshk,hkd->bsd", yk,
+                            bp["mixer"]["wo"]).to(x.dtype)
+            x = x + L.mlp(cfg, bp["ffn"], L.apply_norm(cfg, bp["norm2"], x))
+        enc = L.apply_norm(cfg, params["encoder"]["final_norm"], x)
+        worst["encoder"] = _rel(enc, M.encoder_forward(cfg, params, emb,
+                                                       use_kernel=False))
+    x = M._embed(cfg, params, tokens)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    for l in range(cfg.num_layers):
+        lp = _layer_params(cfg, params, l)
+        h = L.apply_norm(cfg, lp["norm1"], x)
+        if cfg.layer_kind(l) == "cross":
+            kv = L.cross_kv(cfg, lp["mixer"], emb)
+            yk = L.cross_attention(cfg, lp["mixer"], h, kv,
+                                   use_kernel=use_kernel)
+            note(yk, L.cross_attention(cfg, lp["mixer"], h, kv,
+                                       use_kernel=False), cross=True)
+        else:
+            yk, _ = L.self_attention(cfg, lp["mixer"], h, pos,
+                                     use_kernel=use_kernel)
+            note(yk, L.self_attention(cfg, lp["mixer"], h, pos,
+                                      use_kernel=False)[0])
+        x = x + yk
+        if cfg.is_encoder_decoder:
+            hx = L.apply_norm(cfg, lp["norm_x"], x)
+            kv = L.cross_kv(cfg, lp["xattn"], enc)
+            yk = L.cross_attention(cfg, lp["xattn"], hx, kv,
+                                   use_kernel=use_kernel)
+            note(yk, L.cross_attention(cfg, lp["xattn"], hx, kv,
+                                       use_kernel=False), cross=True)
+            x = x + yk
+        x, _ = M._ffn(cfg, lp, x)
+    return worst
+
+
+def _xattn_model(tag, cfg, run, tol):
+    """13b / 13c: ``cfg`` at full width on the card (random bf16 weights
+    and embeddings from ``run["seed"]``): the prefill on the kernel
+    (launches counted by shape and by design, seen by the profiler;
+    tokens/s, peak memory, busy share, device time by kind), against
+    the plain path layer by layer and end to end, prefill + decode
+    against the prefill, and a profiled window of 3 decode steps."""
+    import torch
+    from repro_torch.kernels.arbiter import kernel as arb_kernel
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    dev = torch.device(DEVICE)
+    fa = attn_kernel.flash_attention
+    Bsz, Slen, V = run["batch"], run["seq"], cfg.vocab_size
+    key, n_emb = (("enc_embeds", cfg.encoder_seq) if cfg.is_encoder_decoder
+                  else ("img_embeds", cfg.num_image_tokens))
+    calls = (cfg.encoder_layers + 2 * cfg.num_layers
+             if cfg.is_encoder_decoder else cfg.num_layers)
+    out = {}
+    t_phase = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(run["seed"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(M.model_defs(cfg), gen, dev)
+    tokens = torch.randint(0, V, (Bsz, Slen), generator=gen, device=dev)
+    kw = {key: torch.randn((Bsz, n_emb, cfg.d_model), generator=gen,
+                           device=dev).bfloat16()}
+    torch.cuda.synchronize()
+    out["weights_gb"] = torch.cuda.memory_allocated() / 1e9
+    say(f"[{tag}] {cfg.name}: {M.count_model_params(cfg)} parameters "
+        f"(bf16), {cfg.num_layers} decoder layers"
+        + (f" + {cfg.encoder_layers} encoder layers over {n_emb} frames"
+           if cfg.is_encoder_decoder else
+           f" (cross at {[l for l in range(cfg.num_layers) if cfg.layer_kind(l) == 'cross']}) over {n_emb} image embeddings")
+        + f", d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{V} ({cfg.padded_vocab()} padded); random weights and {key}, "
+        f"seed {run['seed']}; init {time.perf_counter() - t0:.2f} s, "
+        f"{out['weights_gb']:.2f} GB on the card")
+    with torch.inference_mode():
+        M.forward_prefill(cfg, params, tokens, **kw)    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.launches_tc = 0
+        ssd_kernel.ssd_scan.launches = 0
+        arb_kernel.reset_launch_counts()
+        # the call sites' shapes, tallied around the counted prefill
+        tally, site = {}, attn_ops.attention
+
+        def counting(q, k, v, *, causal=True, **a):
+            s = (tuple(q.shape), tuple(k.shape), causal)
+            tally[s] = tally.get(s, 0) + 1
+            return site(q, k, v, causal=causal, **a)
+        attn_ops.attention = counting
+        try:
+            t0 = time.perf_counter()
+            logits, _ = M.forward_prefill(cfg, params, tokens, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            attn_ops.attention = site
+        out["launches"], out["launches_tc"] = fa.launches, fa.launches_tc
+        out["by_shape"] = {f"q {s[0]} kv {s[1]} "
+                           f"{'causal' if s[2] else 'non-causal'}": n
+                           for s, n in tally.items()}
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(out["launches"] == out["launches_tc"] == calls
+              == sum(tally.values()),
+              f"prefill launched the attention kernel {out['launches']} "
+              f"times, {out['launches_tc']} of them on the tensor cores, "
+              f"from {sum(tally.values())} calls; expected {calls}, all on "
+              f"them")
+        check(ssd_kernel.ssd_scan.launches == 0
+              and not any(arb_kernel.launch_counts().values()),
+              "the prefill launched an SSD or arbitration kernel")
+        check(logits.shape == (Bsz, cfg.padded_vocab())
+              and bool(torch.isfinite(logits).all())
+              and bool((logits[:, V:] == -1e9).all()),
+              "prefill logits: wrong shape, not finite or padding unmasked")
+        out["tokens_per_s"] = Bsz * Slen / wall
+        out["prefill_ms"] = wall * 1e3
+        say(f"[{tag}] prefill {Bsz} x {Slen} tokens over {Bsz} x {n_emb} "
+            f"{key} on the kernel: {wall * 1e3:.1f} ms, "
+            f"{out['tokens_per_s']:.0f} tokens/s, peak memory "
+            f"{out['peak_gb']:.2f} GB; flash_attention launches "
+            f"{out['launches']}, on the tensor cores {out['launches_tc']}; "
+            f"by call: {out['by_shape']}")
+        # a window must record every launch; the profiler now and then
+        # drops a kernel's record from a long window (once one of the 5
+        # launches of a 1.4 s Vision prefill), so a window that lost one
+        # is taken again, at most twice
+        for attempt in range(3):
+            _, pwall, ev = _profiled(lambda: M.forward_prefill(
+                cfg, params, tokens, **kw))
+            hits = [e for e in ev if "flash_attention_tc_kernel" in e[0]]
+            seen = sum(h[1] for h in hits)
+            if seen == calls:
+                break
+            say(f"[{tag}] profiler window {attempt + 1} recorded {seen} "
+                f"of the {calls} attention launches the counters saw")
+        busy = sum(e[2] for e in ev)
+        check(seen == calls
+              and not any("flash_attention_kernel" in e[0] for e in ev),
+              f"profiler: flash_attention_tc_kernel launched "
+              f"{[h[1] for h in hits]} times, expected {calls} and no "
+              f"CUDA-core attention kernel")
+        out["device_ms_per_launch"] = sum(h[2] for h in hits) / calls / 1e3
+        out["busy"] = busy / 1e6 / pwall
+        out["device_ms"] = busy / 1e3
+        say(f"[{tag}] profiled prefill: {pwall * 1e3:.1f} ms wall, device "
+            f"busy {out['busy']:.4f}, {busy / 1e3:.2f} ms device time, "
+            f"{sum(e[1] for e in ev)} kernels; attention "
+            f"{out['device_ms_per_launch']:.4f} ms device time per launch")
+        out["shares"] = _kernel_shares(ev, busy, tag)
+        say(f"[{tag}] (b) prefill and its profile done at "
+            f"+{time.perf_counter() - t_phase:.1f} s")
+
+        # against the plain path: layer by layer on the same inputs, then
+        # end to end and across prefill + decode
+        fa.launches = 0
+        t0 = time.perf_counter()
+        plain, _ = M.forward_prefill(cfg, params, tokens, use_kernel=False,
+                                     **kw)
+        torch.cuda.synchronize()
+        out["plain_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        check(fa.launches == 0, "the plain prefill launched the attention "
+                                "kernel")
+        err = _rel(logits[:, :V], plain[:, :V])
+        agree = float((logits[:, :V].argmax(-1)
+                       == plain[:, :V].argmax(-1)).float().mean())
+        say(f"[{tag}] plain prefill (blockwise_attention, no attention "
+            f"launch): {out['plain_prefill_ms']:.1f} ms wall; last-token "
+            f"logits rel RMS {err:.4f} (tolerance {tol['logits']}), argmax "
+            f"agrees on {agree:.2f} of rows")
+        check(err <= tol["logits"], "kernel and plain prefill logits differ "
+                                    "beyond the tolerance")
+        out["logits_rel"] = err
+        del plain
+        worst = _xattn_layers(cfg, params, tokens, kw[key])
+        out["layers"] = worst
+        say(f"[{tag}] layer by layer, same inputs: kernel vs plain "
+            f"attention outputs rel RMS <= {worst['layer']:.2e} (cross "
+            f"{worst['cross']:.2e}; tolerance {tol['layer']})"
+            + (f"; the encoder's output {worst['encoder']:.2e} (tolerance "
+               f"{tol['encoder']})" if "encoder" in worst else ""))
+        check(worst["layer"] <= tol["layer"], "layer by layer: beyond the "
+                                              "tolerance")
+        if "encoder" in worst:
+            check(worst["encoder"] <= tol["encoder"],
+                  "the encoder's output: beyond the tolerance")
+        _, caches = M.forward_prefill(cfg, params, tokens[:, :-1], **kw)
+        fa.launches = 0
+        step, deltas = M.forward_decode(cfg, params, tokens[:, -1:],
+                                        Slen - 1, caches)
+        torch.cuda.synchronize()
+        n_cross = (cfg.num_layers if cfg.is_encoder_decoder else
+                   sum(cfg.layer_kind(l) == "cross"
+                       for l in range(cfg.num_layers)))
+        check(fa.launches == n_cross, f"a decode step launched the kernel "
+                                      f"{fa.launches} times, expected one "
+                                      f"per cross-attention ({n_cross})")
+        err = _rel(step[:, :V], logits[:, :V])
+        say(f"[{tag}] prefill({Slen - 1}) + forward_decode at {Slen - 1} "
+            f"({fa.launches} cross-attention launches) vs the {Slen}-token "
+            f"prefill: logits rel RMS {err:.4f} (tolerance "
+            f"{tol['decode_logits']}); delta keys "
+            f"{sorted({k for d in deltas['blocks'].values() for k in d})}")
+        check(bool(torch.isfinite(step).all())
+              and err <= tol["decode_logits"],
+              "prefill + decode differs from the prefill")
+        out["decode_vs_prefill"] = err
+        del step, logits
+        say(f"[{tag}] (c) checks done at "
+            f"+{time.perf_counter() - t_phase:.1f} s")
+
+        # 3 profiled decode steps at position S-1 on the prefill's caches
+        tok = tokens[:, -1:]
+        n = 3
+
+        def steps():
+            t = tok
+            for _ in range(n):
+                lg, _ = M.forward_decode(cfg, params, t, Slen - 1, caches)
+                t = lg.argmax(-1)[:, None]
+        steps()
+        _, dwall, ev = _profiled(steps)
+        dbusy = sum(e[2] for e in ev)
+        out["decode"] = dict(ms_per_step=dwall / n * 1e3,
+                             busy=dbusy / 1e6 / dwall,
+                             device_ms_per_step=dbusy / n / 1e3,
+                             kernels_per_step=sum(e[1] for e in ev) / n)
+        say(f"[{tag}] decode window, batch {Bsz}, {n} steps: "
+            f"{out['decode']['ms_per_step']:.2f} ms/step wall, device busy "
+            f"{out['decode']['busy']:.4f}, "
+            f"{out['decode']['kernels_per_step']:.0f} kernels/step, "
+            f"{out['decode']['device_ms_per_step']:.3f} ms/step of device "
+            f"time")
+        _kernel_shares(ev, dbusy, tag, n=5)
+        del caches
+    del params, tokens, kw
+    torch.cuda.empty_cache()
+    say(f"[{tag}] done at +{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_xattn():
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    out = {"shapes": []}
+    t_phase = time.perf_counter()
+    sgen = torch.Generator(dev).manual_seed(13)
+    with torch.inference_mode():
+        # (a) the kernel against its plain version at the five full-width
+        # calls, before any weights are on the card
+        for name, qs, ks, causal, per in XATTN_SHAPES:
+            q = torch.randn(qs, generator=sgen, device=dev).bfloat16()
+            k, v = (torch.randn(ks, generator=sgen, device=dev).bfloat16()
+                    for _ in range(2))
+            err = _attn_check(name, q, k, v, causal=causal, tag="xattn")
+            row = dict(name=name, q=list(qs), kv=list(ks), causal=causal,
+                       launches_per_prefill=per, max_abs_err=err,
+                       **_attn_times("xattn", name, q, k, v, tc=True,
+                                     causal=causal))
+            out["shapes"].append(row)
+            del q, k, v
+            torch.cuda.empty_cache()
+    say(f"[xattn] (a) done at +{time.perf_counter() - t_phase:.1f} s")
+    out["whisper"] = _xattn_model("xattn whisper",
+                                  get_config(WHISPER["arch"]), WHISPER,
+                                  WHISPER_TOL)
+    full = get_config(VISION["arch"])
+    cut = dataclasses.replace(full, num_layers=VISION["layers"])
+    say(f"[xattn vision] depth cut: {full.num_layers} layers "
+        f"({full.num_layers // full.block_period} blocks) to "
+        f"{cut.num_layers} (one block, layer {full.cross_attn_offset} "
+        f"cross); widths as published")
+    out["vision"] = _xattn_model("xattn vision", cut, VISION, VISION_TOL)
+    # each call's launches in the main path's prefills, by shape
+    seen = {**out["whisper"]["by_shape"], **out["vision"]["by_shape"]}
+    for row in out["shapes"]:
+        k = (f"q {tuple(row['q'])} kv {tuple(row['kv'])} "
+             f"{'causal' if row['causal'] else 'non-causal'}")
+        row["launches"] = seen.get(k, 0)
+        check(row["launches"] == row["launches_per_prefill"],
+              f"{row['name']}: {row['launches']} launches in the prefill, "
+              f"expected {row['launches_per_prefill']}")
+    return out
+
 # ---------------------------------------------------------------- main -----
 
 PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model",
-          "llama", "faults", "host", "train", "deepseek")
+          "llama", "faults", "host", "train", "deepseek", "xattn")
 
 
 def main(argv=None) -> int:
@@ -3470,6 +3848,8 @@ def main(argv=None) -> int:
             res["train"] = run("train", phase_train)
         if "deepseek" in phases:
             res["deepseek"] = run("deepseek", phase_deepseek)
+        if "xattn" in phases:
+            res["xattn"] = run("xattn", phase_xattn)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3548,6 +3928,16 @@ def main(argv=None) -> int:
         f"{ds['mla']['ms']:.4f} ms vs bound {ds['mla']['bound_ms']:.4f} ms, "
         f"StableLM's (160, 160) {ds['stablelm']['ms']:.4f} ms vs "
         f"{ds['stablelm']['bound_ms']:.4f} ms")
+    xa = res["xattn"]
+    for tag in ("whisper", "vision"):
+        m = xa[tag]
+        say(f"[summary] {tag} (phase 13): prefill {m['tokens_per_s']:.0f} "
+            f"tokens/s ({m['prefill_ms']:.1f} ms), peak {m['peak_gb']:.2f} "
+            f"GB, busy {m['busy']:.4f}, {m['launches']} attention launches;"
+            f" decode {m['decode']['ms_per_step']:.2f} ms/step")
+    say("[summary] attention at phase 13's calls (ms vs bound): " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} vs {r['bound_ms']:.4f}"
+        for r in xa["shapes"]))
     src = "src/repro_torch/kernels/arbiter/csrc/arbiter.cu"
     rows = {
         # name: (replaces, launches on its path, device ms per launch)
@@ -3646,7 +4036,16 @@ def main(argv=None) -> int:
                  "device_ms_per_launch": ds["device_ms_per_launch"],
                  **ds["mla"]},
          "stablelm": {"max_abs_err": ds["stablelm_max_abs_err"],
-                      **ds["stablelm"]}})
+                      **ds["stablelm"]},
+         # phase 13's path: Whisper-small's and Llama-3.2-Vision's
+         # prefills, every call on the tensor cores; each call's
+         # launches per prefill counted by shape
+         "xattn": {"launches": {t: xa[t]["launches"]
+                                for t in ("whisper", "vision")},
+                   "device_ms_per_launch": {
+                       t: xa[t]["device_ms_per_launch"]
+                       for t in ("whisper", "vision")},
+                   "calls": xa["shapes"]}})
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,12 +1,12 @@
 """Config registry: one module per architecture the port runs.
 
-Every decoder-only architecture of the JAX package's zoo, registered in
-its order: ssm (``mamba2-130m``), dense GQA attention (``stablelm-12b``,
-``llama3.2-3b``, ``llama3-405b``, ``qwen2-7b``), MoE (``mixtral-8x7b``),
-MLA + MoE (``deepseek-v2-lite-16b``) and the SSM/attention/MoE hybrid
-(``jamba-1.5-large-398b``). ``whisper-small`` (an encoder) and
-``llama-3.2-vision-90b`` (cross-attention) are not ported yet (ROADMAP
-A11): ``get_config`` raises ``KeyError`` for them.
+Every architecture of the JAX package's zoo, registered in its order:
+ssm (``mamba2-130m``), the encoder-decoder (``whisper-small``), dense GQA
+attention (``stablelm-12b``, ``llama3.2-3b``, ``llama3-405b``,
+``qwen2-7b``), MoE (``mixtral-8x7b``), MLA + MoE
+(``deepseek-v2-lite-16b``), the SSM/attention/MoE hybrid
+(``jamba-1.5-large-398b``) and cross-attention to image embeddings
+(``llama-3.2-vision-90b``).
 """
 import importlib
 
@@ -17,6 +17,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _ARCH_MODULES = [
     "mamba2_130m",
+    "whisper_small",
     "stablelm_12b",
     "llama3_2_3b",
     "llama3_405b",
@@ -24,6 +25,7 @@ _ARCH_MODULES = [
     "mixtral_8x7b",
     "deepseek_v2_lite_16b",
     "jamba_1_5_large_398b",
+    "llama_3_2_vision_90b",
 ]
 
 _loaded = False
@@ -39,7 +41,7 @@ def load_all() -> None:
 
 
 ARCH_NAMES = [
-    "mamba2-130m", "stablelm-12b", "llama3.2-3b", "llama3-405b",
-    "qwen2-7b", "mixtral-8x7b", "deepseek-v2-lite-16b",
-    "jamba-1.5-large-398b",
+    "mamba2-130m", "whisper-small", "stablelm-12b", "llama3.2-3b",
+    "llama3-405b", "qwen2-7b", "mixtral-8x7b", "deepseek-v2-lite-16b",
+    "jamba-1.5-large-398b", "llama-3.2-vision-90b",
 ]

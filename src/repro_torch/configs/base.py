@@ -142,8 +142,7 @@ def get_config(name: str) -> ModelConfig:
     from repro_torch import configs as _pkg  # ensure arch modules imported
     _pkg.load_all()
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; the port runs "
-                       f"{sorted(_REGISTRY)} (the others: ROADMAP A11)")
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -155,8 +154,7 @@ def all_configs() -> dict[str, ModelConfig]:
 
 # Shapes skipped per arch, as in the JAX package (its DESIGN.md
 # §Arch-applicability): long_500k requires sub-quadratic attention; run
-# only for ssm/hybrid/SWA. The entries of architectures the port does not
-# register yet are kept so the table reads the same in both packages.
+# only for ssm/hybrid/SWA.
 SKIPPED_CELLS: dict[tuple[str, str], str] = {
     ("whisper-small", "long_500k"): "full attention enc-dec; no sub-quadratic path",
     ("stablelm-12b", "long_500k"): "pure full attention",

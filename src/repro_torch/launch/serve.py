@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         [--smoke] --requests 64 --batch-size 4 [--no-srpt] [--device cpu]
 
-(``--arch`` takes any registered architecture: ``llama3.2-3b`` the dense
-attention model, ``deepseek-v2-lite-16b`` MLA and MoE.) Reports
+(``--arch`` takes a registered decoder-only architecture: ``llama3.2-3b``
+the dense attention model, ``deepseek-v2-lite-16b`` MLA and MoE; an
+encoder-decoder or a model with cross-attention layers is refused, see
+:func:`check_servable`.) Reports
 per-request slowdown (paper's metric: completion time / ideal time) for
 the SRPT scheduler; ``--no-srpt`` runs the FIFO ("Basic") ablation. The
 port of the JAX package's ``launch/serve.py`` with the same flags and the
@@ -32,6 +34,23 @@ from repro_torch.serving.scheduler import (HomaScheduler, Request,
                                            SchedulerConfig)
 
 
+def check_servable(cfg) -> None:
+    """Raise ``ValueError`` for a model this loop cannot serve: it swaps
+    the caches for each step's decode deltas, which carry no encoder or
+    image K/V (``forward_decode`` returns none for them), so the next
+    step would find them missing. The JAX package's serve fails on these
+    models too, on the mismatch of its cache and delta trees."""
+    cross = any(cfg.layer_kind(l) == "cross" for l in range(cfg.num_layers))
+    if cfg.is_encoder_decoder or cross:
+        what = ("an encoder" if cfg.is_encoder_decoder
+                else "cross-attention layers")
+        raise ValueError(
+            f"serve: {cfg.name} has {what}; the serve replaces its caches "
+            f"with each decode step's deltas, which carry no encoder or "
+            f"image K/V, so it cannot decode a second step (the JAX "
+            f"package's serve fails on it too)")
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-130m")
@@ -49,6 +68,7 @@ def main(argv=None) -> dict:
         raise RuntimeError("no CUDA device; serve runs on a card unless "
                            "--device cpu is given")
     cfg = reduced_config(args.arch) if args.smoke else get_config(args.arch)
+    check_servable(cfg)
     gen = torch.Generator(device).manual_seed(args.seed)
     params = init_params(M.model_defs(cfg), gen, device)
     C = args.batch_size

@@ -1,8 +1,7 @@
-"""The JAX package's ``models/layers.py`` for decoder-only models: norms,
-rope, GQA self-attention (prefill and decode), MLA (DeepSeek's latent
-attention, prefill and the absorbed decode), the MLP and the MoE with
-sort-based capacity dispatch. Cross-attention is not ported yet (ROADMAP
-A11).
+"""The JAX package's ``models/layers.py``: norms, rope, GQA
+self-attention (prefill and decode), cross-attention to precomputed
+encoder or image K/V, MLA (DeepSeek's latent attention, prefill and the
+absorbed decode), the MLP and the MoE with sort-based capacity dispatch.
 
 The casts follow the JAX package op for op:
 - a norm runs in fp32, is rounded to the input's dtype, and only then
@@ -18,8 +17,9 @@ The casts follow the JAX package op for op:
 Prefill attention has two paths that compute the same function up to
 one rounding: ``blockwise_attention`` (the JAX package's model path,
 which rounds p to v's dtype before p·V) and the flash-attention kernel
-(``kernels.attention``, p·V in fp32), which ``self_attention`` and
-``mla_attention`` run on a CUDA tensor.
+(``kernels.attention``, p·V in fp32), which ``self_attention``,
+``mla_attention`` and the non-causal ``full_attention`` (an encoder's
+self-attention, ``cross_attention``) run on a CUDA tensor.
 
 The MoE's routing follows the JAX package's order exactly: top-K ties go
 to the lowest expert (a stable descending sort, as ``lax.top_k``), a
@@ -279,6 +279,50 @@ def _kernel_attention(who: str, q, k, v, positions, window=None):
                          f"index and needs consecutive positions; pass "
                          f"use_kernel=False for others")
     return out
+
+
+def full_attention(q, k, v, *, block_kv: int = 512,
+                   use_kernel: bool | None = None):
+    """Non-causal attention of every query over every key: an encoder's
+    self-attention and ``cross_attention``, where Sq may differ from Skv
+    and no position is masked (the JAX package's
+    ``blockwise_attention(q, k, v, causal=False)``). ``use_kernel`` as in
+    ``self_attention``: on a card one flash-attention launch
+    (``ops.attention(causal=False)``, which pads both sequence axes and
+    masks the padded keys by ``kv_len``)."""
+    if use_kernel is None:
+        use_kernel = q.device.type == "cuda"
+    if use_kernel:
+        # the kernel's default scale 1/sqrt(d) is blockwise_attention's
+        # default 1/sqrt(dk)
+        assert q.shape[-1] == k.shape[-1]
+        return attn_ops.attention(q, k, v, causal=False)
+    return blockwise_attention(q, k, v, causal=False, block_kv=block_kv)
+
+
+def cross_attn_defs(cfg: ModelConfig):
+    return attn_defs(cfg)
+
+
+def cross_kv(cfg: ModelConfig, p, x_enc):
+    """The K/V of encoder or image embeddings ``x_enc`` (B, Senc, D), each
+    (B, Senc, KV, hd) in x_enc's dtype: what a cross layer attends to and
+    its cache keeps."""
+    k = _proj("bsd,dhk->bshk", x_enc, p["wk"])
+    v = _proj("bsd,dhk->bshk", x_enc, p["wv"])
+    return {"k": k.to(x_enc.dtype), "v": v.to(x_enc.dtype)}
+
+
+def cross_attention(cfg: ModelConfig, p, x, kv_cache, *,
+                    use_kernel: bool | None = None):
+    """Cross-attention of x (B, S, D) to precomputed encoder or image K/V
+    ``kv_cache`` {"k", "v"}, each (B, Senc, KV, hd): q has no rope, and
+    nothing is masked (``full_attention``). Returns (B, S, D) in x's
+    dtype."""
+    q = _proj("bsd,dhk->bshk", x, p["wq"]).to(x.dtype)
+    out = full_attention(q, kv_cache["k"], kv_cache["v"],
+                         use_kernel=use_kernel)
+    return _proj("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
 
 
 def self_attention_decode(cfg: ModelConfig, p, x, pos: int, cache, *,

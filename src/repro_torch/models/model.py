@@ -1,7 +1,9 @@
-"""Model assembly for decoder-only models whose layers are ``ssm``
-(Mamba2) or ``attn`` (GQA self-attention or MLA) mixers with an optional
-dense MLP or MoE: the part of the JAX package's ``models/model.py`` that
-training and inference of such a model run.
+"""Model assembly: the JAX package's ``models/model.py``. A decoder's
+layers are ``ssm`` (Mamba2), ``attn`` (GQA self-attention or MLA) or
+``cross`` (cross-attention to image embeddings) mixers with an optional
+dense MLP or MoE; an encoder-decoder (Whisper) adds an encoder stack
+over precomputed frame embeddings and, in every decoder layer, a
+cross-attention to the encoder's output after the mixer.
 
 Entrypoints
 -----------
@@ -18,8 +20,14 @@ under ``blocks`` carries a leading block axis ``nb`` (``blocks/s0/...``).
 Where JAX runs ``lax.scan`` over that axis, the port loops over the
 blocks in Python, so a tree carried across from JAX
 (:func:`repro_torch.convert.params_from_jax`) is used as it is.
-Cross-attention and encoder layers raise ``NotImplementedError`` naming
-ROADMAP A11.
+
+The encoder's input (``enc_embeds``, (B, encoder_seq, D)) and the image
+embeddings (``img_embeds``, (B, num_image_tokens, D)) are given by the
+caller, as in the JAX package, whose conv front end and vision tower are
+stubs. The prefill keeps their K/V in the cache: ``{"k", "v"}`` of the
+image in a cross layer, ``"xk"``/``"xv"`` of the encoder's output in
+every decoder layer of an encoder-decoder. A decode step reads them and,
+as JAX's, returns no delta for them (``{}`` for a cross layer).
 
 Training differentiates the plain path with ``torch.autograd``, as the
 JAX package differentiates its plain path with ``jax.value_and_grad``:
@@ -43,36 +51,29 @@ from repro_torch.models.params import ParamDef, count_params, stack_defs
 F32 = torch.float32
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what}: the port runs ssm, GQA and MLA attention layers with "
-        f"dense MLPs or MoEs; cross-attention and encoder layers are "
-        f"ROADMAP A11")
-
-
-def _check_ported(cfg: ModelConfig, l: int) -> str:
-    """Layer ``l``'s mixer kind, raising for what the port lacks."""
-    kind = cfg.layer_kind(l)
-    if kind not in ("attn", "ssm"):
-        raise _unported(f"layer {l} of {cfg.name} is {kind!r}")
-    if cfg.is_encoder_decoder:
-        raise _unported(f"{cfg.name} is an encoder-decoder")
-    return kind
-
-
 # ------------------------------------------------------------- defs tree ---
 
 def layer_defs(cfg: ModelConfig, l: int):
-    kind = _check_ported(cfg, l)
+    kind = cfg.layer_kind(l)
     d: dict[str, Any] = {"norm1": L.norm_defs(cfg)}
     if kind == "attn":
         d["mixer"] = L.mla_defs(cfg) if cfg.use_mla else L.attn_defs(cfg)
-    else:
+    elif kind == "ssm":
         d["mixer"] = S.ssm_defs(cfg)
+    elif kind == "cross":
+        d["mixer"] = L.cross_attn_defs(cfg)
+    if cfg.is_encoder_decoder:
+        d["norm_x"] = L.norm_defs(cfg)
+        d["xattn"] = L.cross_attn_defs(cfg)
     if cfg.d_ff > 0 or cfg.is_moe_layer(l):
         d["norm2"] = L.norm_defs(cfg)
         d["ffn"] = L.moe_defs(cfg) if cfg.is_moe_layer(l) else L.mlp_defs(cfg)
     return d
+
+
+def encoder_layer_defs(cfg: ModelConfig):
+    return {"norm1": L.norm_defs(cfg), "mixer": L.attn_defs(cfg),
+            "norm2": L.norm_defs(cfg), "ffn": L.mlp_defs(cfg)}
 
 
 def model_defs(cfg: ModelConfig):
@@ -93,6 +94,11 @@ def model_defs(cfg: ModelConfig):
     block = {f"s{i}": layer_defs(cfg, npfx + i)
              for i in range(cfg.block_period)}
     defs["blocks"] = stack_defs(block, nb)
+    if cfg.is_encoder_decoder:
+        defs["encoder"] = {
+            "blocks": stack_defs(encoder_layer_defs(cfg), cfg.encoder_layers),
+            "final_norm": L.norm_defs(cfg),
+        }
     return defs
 
 
@@ -140,16 +146,19 @@ def _ffn(cfg, lp, x, moe_layer: bool = False):
 
 
 def layer_forward(cfg: ModelConfig, lp, x, l: int, *, mode: str = "prefill",
-                  use_kernel: bool | None = None):
+                  use_kernel: bool | None = None, enc_out=None,
+                  img_embeds=None):
     """One layer, full sequence from position 0. Returns (x, new_cache,
     aux), aux the layer's MoE load-balancing loss (0 without one).
 
     ``mode="prefill"`` keeps the layer's cache and passes ``use_kernel``
-    to the mixer (``self_attention``, ``mla_attention`` or
-    ``mamba_block``); ``mode="train"`` keeps none ({}) and runs the
-    mixer's plain path, which autograd can differentiate (the kernels
-    have no backward)."""
-    kind = _check_ported(cfg, l)
+    to the mixer (``self_attention``, ``mla_attention``,
+    ``cross_attention`` or ``mamba_block``) and to an encoder-decoder's
+    cross-attention; ``mode="train"`` keeps none ({}) and runs the
+    plain paths, which autograd can differentiate (the kernels have no
+    backward). A cross layer attends to ``img_embeds``' K/V; every layer
+    of an encoder-decoder attends, after its mixer, to ``enc_out``'s."""
+    kind = cfg.layer_kind(l)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
     train = mode == "train"
@@ -177,22 +186,39 @@ def layer_forward(cfg: ModelConfig, lp, x, l: int, *, mode: str = "prefill",
                 w = min(cfg.sliding_window, k.shape[1])
                 k, v = k[:, -w:], v[:, -w:]
             new_cache = {"k": k, "v": v}
-    else:
+    elif kind == "ssm":
         y, (final_state, conv_tail) = S.mamba_block(cfg, lp["mixer"], h,
                                                     use_kernel=use_kernel)
         if not train:
             new_cache = {"state": final_state.to(x.dtype),
                          "conv": conv_tail.to(x.dtype)}
+    else:
+        kv = L.cross_kv(cfg, lp["mixer"], img_embeds)
+        y = L.cross_attention(cfg, lp["mixer"], h, kv, use_kernel=use_kernel)
+        if not train:
+            new_cache = kv
     x = x + y
+    if cfg.is_encoder_decoder:
+        hx = L.apply_norm(cfg, lp["norm_x"], x)
+        kv = L.cross_kv(cfg, lp["xattn"], enc_out)
+        x = x + L.cross_attention(cfg, lp["xattn"], hx, kv,
+                                  use_kernel=use_kernel)
+        if not train:
+            new_cache["xk"], new_cache["xv"] = kv["k"], kv["v"]
     if "ffn" in lp:
         x, aux = _ffn(cfg, lp, x, cfg.is_moe_layer(l))
     return x, new_cache, aux
 
 
-def layer_decode(cfg: ModelConfig, lp, x, l: int, *, pos, cache):
-    """One layer, one token. Returns (x, cache_delta)."""
-    kind = _check_ported(cfg, l)
+def layer_decode(cfg: ModelConfig, lp, x, l: int, *, pos, cache,
+                 use_kernel: bool | None = None):
+    """One layer, one token. Returns (x, cache_delta): the new token's
+    K/V (or latent, or SSM state); ``{}`` for a cross layer, and no
+    ``xk``/``xv``, whose K/V do not change. ``use_kernel`` goes to the
+    cross-attention, the step's one kernel call site."""
+    kind = cfg.layer_kind(l)
     h = L.apply_norm(cfg, lp["norm1"], x)
+    delta = {}
     if kind == "attn" and cfg.use_mla:
         y, (ckv, kr) = L.mla_attention_decode(cfg, lp["mixer"], h, pos,
                                               cache)
@@ -201,9 +227,18 @@ def layer_decode(cfg: ModelConfig, lp, x, l: int, *, pos, cache):
         y, (kn, vn) = L.self_attention_decode(
             cfg, lp["mixer"], h, pos, cache, window=cfg.sliding_window)
         delta = {"k": kn, "v": vn}
-    else:
+    elif kind == "ssm":
         y, delta = S.mamba_block_decode(cfg, lp["mixer"], h, cache)
+    else:
+        y = L.cross_attention(cfg, lp["mixer"], h,
+                              {"k": cache["k"], "v": cache["v"]},
+                              use_kernel=use_kernel)
     x = x + y
+    if cfg.is_encoder_decoder:
+        hx = L.apply_norm(cfg, lp["norm_x"], x)
+        x = x + L.cross_attention(cfg, lp["xattn"], hx,
+                                  {"k": cache["xk"], "v": cache["xv"]},
+                                  use_kernel=use_kernel)
     if "ffn" in lp:
         x, _ = _ffn(cfg, lp, x, cfg.is_moe_layer(l))
     return x, delta
@@ -228,51 +263,97 @@ def _logits(cfg, params, x):
     return logits
 
 
-def forward_train(cfg: ModelConfig, params, tokens, *, remat: bool = True):
+def _check_inputs(cfg: ModelConfig, enc_embeds, img_embeds) -> None:
+    """Raise unless the model's encoder or image input is given."""
+    if cfg.is_encoder_decoder and enc_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                         f"enc_embeds (B, {cfg.encoder_seq}, {cfg.d_model})")
+    if img_embeds is None and any(cfg.layer_kind(l) == "cross"
+                                  for l in range(cfg.num_layers)):
+        raise ValueError(f"{cfg.name} cross-attends to images: pass "
+                         f"img_embeds (B, {cfg.num_image_tokens}, "
+                         f"{cfg.d_model})")
+
+
+def encoder_forward(cfg: ModelConfig, params, enc_embeds, *,
+                    use_kernel: bool | None = None):
+    """The encoder of an encoder-decoder over ``enc_embeds`` (B, Se, D):
+    each layer a pre-norm, rope'd self-attention over positions 0..Se-1
+    that masks nothing (``L.full_attention``: the kernel on a card unless
+    ``use_kernel=False``) and an MLP; then the encoder's final norm.
+    Returns (B, Se, D) in enc_embeds' dtype."""
+    ep = params["encoder"]
+    x = enc_embeds
+    pos = torch.arange(x.shape[1], device=x.device)
+    cos, sin = L.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+    for bp in _unstack(ep["blocks"], cfg.encoder_layers):
+        h = L.apply_norm(cfg, bp["norm1"], x)
+        q, k, v = L._qkv(cfg, bp["mixer"], h)
+        q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+        y = L.full_attention(q, k, v, use_kernel=use_kernel)
+        x = x + L._proj("bshk,hkd->bsd", y, bp["mixer"]["wo"]).to(x.dtype)
+        x = x + L.mlp(cfg, bp["ffn"], L.apply_norm(cfg, bp["norm2"], x))
+    return L.apply_norm(cfg, ep["final_norm"], x)
+
+
+def forward_train(cfg: ModelConfig, params, tokens, *, enc_embeds=None,
+                  img_embeds=None, remat: bool = True):
     """tokens: (B, S) -> (logits (B, S, Vp) fp32, aux loss).
 
-    Every layer runs in ``mode="train"`` (plain mixers, no caches).
-    ``remat=True`` recomputes each stacked block in the backward pass
-    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``),
-    so only the blocks' inputs are kept. ``aux`` is the fp32 sum of the
-    MoE layers' load-balancing losses, prefix first and then block by
-    block, in JAX's order (zero without MoE layers)."""
+    Every layer runs in ``mode="train"`` (plain paths, no caches), the
+    encoder too (``use_kernel=False``). ``remat=True`` recomputes each
+    stacked block in the backward pass (``torch.utils.checkpoint``, the
+    JAX package's ``jax.checkpoint``), so only the blocks' inputs are
+    kept; the encoder is not recomputed, as in JAX. ``aux`` is the fp32
+    sum of the MoE layers' load-balancing losses, prefix first and then
+    block by block, in JAX's order (zero without MoE layers)."""
+    _check_inputs(cfg, enc_embeds, img_embeds)
     x = _embed(cfg, params, tokens)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encoder_forward(cfg, params, enc_embeds, use_kernel=False)
     aux = torch.zeros((), dtype=F32, device=x.device)
     for i in range(cfg.first_dense_layers):
         x, _, a = layer_forward(cfg, params["prefix"][f"p{i}"], x, i,
-                                mode="train")
+                                mode="train", enc_out=enc_out,
+                                img_embeds=img_embeds)
         aux = aux + a
     npfx, period = cfg.first_dense_layers, cfg.block_period
 
-    def block_fn(x, aux, bp, bi):
+    def block_fn(x, aux, bp, bi, enc_out, img_embeds):
         for i in range(period):
             x, _, a = layer_forward(cfg, bp[f"s{i}"], x,
-                                    npfx + bi * period + i, mode="train")
+                                    npfx + bi * period + i, mode="train",
+                                    enc_out=enc_out, img_embeds=img_embeds)
             aux = aux + a
         return x, aux
 
     for bi, bp in enumerate(_unstack(params["blocks"], n_scan_blocks(cfg))):
         if remat:
-            x, aux = checkpoint(block_fn, x, aux, bp, bi,
-                                use_reentrant=False)
+            x, aux = checkpoint(block_fn, x, aux, bp, bi, enc_out,
+                                img_embeds, use_reentrant=False)
         else:
-            x, aux = block_fn(x, aux, bp, bi)
+            x, aux = block_fn(x, aux, bp, bi, enc_out, img_embeds)
     return _logits(cfg, params, x), aux
 
 
-def forward_prefill(cfg: ModelConfig, params, tokens, *,
-                    use_kernel: bool | None = None):
+def forward_prefill(cfg: ModelConfig, params, tokens, *, enc_embeds=None,
+                    img_embeds=None, use_kernel: bool | None = None):
     """tokens: (B, S) -> (logits for last position (B, Vp), caches tree).
 
     Cache leaves are stacked over blocks: (nb, B, ...). ``use_kernel``
-    goes to every layer's mixer (``None``: the SSD or flash-attention
-    kernel on a card)."""
+    goes to every layer's mixer and cross-attention and to the encoder
+    (``None``: the SSD or flash-attention kernel on a card)."""
+    _check_inputs(cfg, enc_embeds, img_embeds)
     x = _embed(cfg, params, tokens)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encoder_forward(cfg, params, enc_embeds,
+                                  use_kernel=use_kernel)
+    kw = dict(use_kernel=use_kernel, enc_out=enc_out, img_embeds=img_embeds)
     prefix_caches = {}
     for i in range(cfg.first_dense_layers):
-        x, c, _ = layer_forward(cfg, params["prefix"][f"p{i}"], x, i,
-                                use_kernel=use_kernel)
+        x, c, _ = layer_forward(cfg, params["prefix"][f"p{i}"], x, i, **kw)
         prefix_caches[f"p{i}"] = c
     npfx = cfg.first_dense_layers
     per_block = []
@@ -282,22 +363,27 @@ def forward_prefill(cfg: ModelConfig, params, tokens, *,
         for i in range(cfg.block_period):
             l = npfx + bi * cfg.block_period + i
             x, caches[f"s{i}"], _ = layer_forward(cfg, bp[f"s{i}"], x, l,
-                                                  use_kernel=use_kernel)
+                                                  **kw)
         per_block.append(caches)
     logits = _logits(cfg, params, x[:, -1:, :])[:, 0]
     return logits, {"prefix": prefix_caches, "blocks": _stack(per_block)}
 
 
-def forward_decode(cfg: ModelConfig, params, token, pos, caches):
+def forward_decode(cfg: ModelConfig, params, token, pos, caches, *,
+                   use_kernel: bool | None = None):
     """token: (B, 1) int; pos: int; caches from ``cache_shapes`` (or a
-    prefill). Returns (logits (B, Vp), new caches, stacked as given)."""
+    prefill). Returns (logits (B, Vp), cache deltas, stacked as given:
+    JAX's deltas, which carry no cross-attention K/V). ``use_kernel``
+    goes to the cross-attention (``None``: the kernel on a card); self
+    attention, MLA and SSM layers decode on their plain paths, as in
+    JAX."""
     x = _embed(cfg, params, token)
     npfx = cfg.first_dense_layers
     prefix_deltas = {}
     for i in range(npfx):
         x, prefix_deltas[f"p{i}"] = layer_decode(
             cfg, params["prefix"][f"p{i}"], x, i, pos=pos,
-            cache=caches["prefix"][f"p{i}"])
+            cache=caches["prefix"][f"p{i}"], use_kernel=use_kernel)
     per_block = []
     for bi in range(n_scan_blocks(cfg)):
         bp = _index(params["blocks"], bi)
@@ -306,7 +392,8 @@ def forward_decode(cfg: ModelConfig, params, token, pos, caches):
         for i in range(cfg.block_period):
             l = npfx + bi * cfg.block_period + i
             x, deltas[f"s{i}"] = layer_decode(cfg, bp[f"s{i}"], x, l,
-                                              pos=pos, cache=bc[f"s{i}"])
+                                              pos=pos, cache=bc[f"s{i}"],
+                                              use_kernel=use_kernel)
         per_block.append(deltas)
     logits = _logits(cfg, params, x)[:, 0]
     return logits, {"prefix": prefix_deltas, "blocks": _stack(per_block)}
@@ -324,7 +411,10 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
     JAX picks the label's logit by a one-hot masked sum over the vocab;
     one non-zero term plus zeros sums without rounding, so the gather
     here is the same number, and builds no (B, S, Vp) one-hot."""
-    logits, aux = forward_train(cfg, params, batch["tokens"], remat=remat)
+    logits, aux = forward_train(cfg, params, batch["tokens"],
+                                enc_embeds=batch.get("enc_embeds"),
+                                img_embeds=batch.get("img_embeds"),
+                                remat=remat)
     labels = batch["labels"]
     lse = torch.logsumexp(logits, dim=-1)
     mask = (labels >= 0).to(F32)
@@ -340,15 +430,23 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
 # ----------------------------------------------------------- cache decls ---
 
 def _layer_cache_shape(cfg: ModelConfig, l: int, batch: int, seq: int):
-    kind = _check_ported(cfg, l)
+    kind = cfg.layer_kind(l)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
     if kind == "attn" and cfg.use_mla:
-        return {"ckv": (batch, seq, cfg.kv_lora_rank),
-                "kr": (batch, seq, cfg.rope_head_dim)}
-    if kind == "attn":
-        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        c = {"ckv": (batch, seq, cfg.kv_lora_rank),
+             "kr": (batch, seq, cfg.rope_head_dim)}
+    elif kind == "attn":
         s = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
-        return {"k": (batch, s, KV, hd), "v": (batch, s, KV, hd)}
-    return S.ssm_cache_shape(cfg, batch)
+        c = {"k": (batch, s, KV, hd), "v": (batch, s, KV, hd)}
+    elif kind == "ssm":
+        c = S.ssm_cache_shape(cfg, batch)
+    else:
+        c = {"k": (batch, cfg.num_image_tokens, KV, hd),
+             "v": (batch, cfg.num_image_tokens, KV, hd)}
+    if cfg.is_encoder_decoder:
+        c["xk"] = (batch, cfg.encoder_seq, KV, hd)
+        c["xv"] = (batch, cfg.encoder_seq, KV, hd)
+    return c
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, seq: int):

@@ -113,10 +113,14 @@ def build_train_step(cfg: ModelConfig, oc: OptConfig, *,
 
 def build_prefill_step(cfg: ModelConfig):
     """(params, batch) -> (last-token logits, caches); the mixers take the
-    kernels on a card (``forward_prefill``'s default)."""
+    kernels on a card (``forward_prefill``'s default). The batch's
+    ``enc_embeds`` / ``img_embeds``, where it has them, go to the encoder
+    and the cross layers."""
 
     def prefill_step(params, batch):
-        return M.forward_prefill(cfg, params, batch["tokens"])
+        return M.forward_prefill(cfg, params, batch["tokens"],
+                                 enc_embeds=batch.get("enc_embeds"),
+                                 img_embeds=batch.get("img_embeds"))
 
     return prefill_step
 

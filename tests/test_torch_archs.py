@@ -1,6 +1,5 @@
-"""Every decoder-only architecture of the model zoo in the port against
-the JAX package on the CPU: the configs of all eight registered archs,
-and prefill and decode of the six that came with MLA and MoE
+"""Every architecture of the model zoo in the port against the JAX
+package on the CPU: the configs of all ten registered archs, and prefill and decode of the six that came with MLA and MoE
 (``stablelm-12b``, ``llama3-405b``, ``qwen2-7b``, ``mixtral-8x7b``,
 ``deepseek-v2-lite-16b``, ``jamba-1.5-large-398b``) at their
 ``reduced_config`` (d_model 64; DeepSeek with MLA, a dense first layer
@@ -56,7 +55,6 @@ torch.set_num_threads(1)
 
 NEW_ARCHS = ["stablelm-12b", "llama3-405b", "qwen2-7b", "mixtral-8x7b",
              "deepseek-v2-lite-16b", "jamba-1.5-large-398b"]
-UNPORTED = ["whisper-small", "llama-3.2-vision-90b"]
 DT = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16,
                                                      jnp.bfloat16)}
 S_PRE = 24
@@ -162,15 +160,17 @@ def _leaves(tree, prefix=""):
 
 # ----------------------------------------------------------- configs -------
 
-def test_registry_holds_the_decoder_only_archs():
-    """The port registers every JAX arch but the encoder (Whisper) and
-    the cross-attention model (Llama vision), in JAX's order; those two
-    raise ``KeyError`` naming A11."""
-    assert ARCH_NAMES == [a for a in JARCH_NAMES if a not in UNPORTED]
+def test_registry_holds_every_jax_arch():
+    """The port registers every JAX arch in JAX's order, the
+    encoder-decoder (Whisper) and the cross-attention model (Llama
+    vision) included; an unknown name raises ``KeyError`` listing them."""
+    assert ARCH_NAMES == JARCH_NAMES
     assert sorted(all_configs()) == sorted(ARCH_NAMES)
-    for arch in UNPORTED:
-        with pytest.raises(KeyError, match="A11"):
-            get_config(arch)
+    for arch in ("whisper-small", "llama-3.2-vision-90b"):
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch))
+    with pytest.raises(KeyError, match="whisper-small"):
+        get_config("no-such-arch")
     assert SKIPPED_CELLS == JSKIPPED
     assert cell_is_skipped("deepseek-v2-lite-16b", "long_500k") \
         == "MLA is full attention over latents"

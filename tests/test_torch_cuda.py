@@ -970,6 +970,88 @@ def test_deepseek_mla_prefill_runs_the_tensor_cores(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch,n_prefill,n_decode", [
+    ("whisper-small", 6, 2), ("llama-3.2-vision-90b", 10, 2)])
+def test_reduced_encdec_and_cross_archs_on_the_card_match_the_cpu(
+        cuda, arch, n_prefill, n_decode):
+    """Reduced Whisper (2 encoder layers, 2 decoder layers each with a
+    cross-attention) and Llama-3.2-Vision (layers 4 and 9 cross) in
+    fp32: the card's prefill (one launch per encoder layer, self layer
+    and cross-attention) and a decode step from its caches (one launch
+    per cross-attention) against the CPU's, normwise within 1e-3 (fp32
+    sum order)."""
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    cfg = reduced_config(arch)
+    params = _to(init_params(M.model_defs(cfg),
+                             torch.Generator().manual_seed(0), "cpu"),
+                 "cpu", torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 21), generator=gen)
+    n = cfg.encoder_seq if cfg.is_encoder_decoder else cfg.num_image_tokens
+    emb = torch.randn((2, n, cfg.d_model), generator=gen)
+    key = "enc_embeds" if cfg.is_encoder_decoder else "img_embeds"
+    nxt = tok[:, -1:]
+    before = flash_attention.launches
+    lg, caches = M.forward_prefill(cfg, _to(params, cuda),
+                                   tok[:, :-1].to(cuda),
+                                   **{key: emb.to(cuda)})
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == n_prefill
+    lc, caches_c = M.forward_prefill(cfg, params, tok[:, :-1],
+                                     **{key: emb})
+    V = cfg.vocab_size
+    assert _normwise(lg[:, :V], lc[:, :V]) <= 1e-3
+    before = flash_attention.launches
+    step, deltas = M.forward_decode(cfg, _to(params, cuda), nxt.to(cuda),
+                                    20, caches)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == n_decode
+    step_c, deltas_c = M.forward_decode(cfg, params, nxt, 20, caches_c)
+    assert _normwise(step[:, :V], step_c[:, :V]) <= 1e-3
+    assert {k: set(v) for k, v in deltas["blocks"].items()} == \
+        {k: set(v) for k, v in deltas_c["blocks"].items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
+def test_encdec_and_cross_prefill_run_the_tensor_cores(cuda, arch):
+    """The same reduced models in bf16 on the card: every attention call
+    of the prefill is a tensor-core launch, and the kernel path stays
+    within tests/test_torch_encdec.py's KERNEL_FRAC (rel RMS, last-token
+    logits) of the card's plain path."""
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    kernel_frac = {"whisper-small": 4e-2, "llama-3.2-vision-90b": 7e-2}
+    cfg = reduced_config(arch)
+    gen = torch.Generator(cuda).manual_seed(2)
+    params = init_params(M.model_defs(cfg), gen, cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+                        generator=gen)
+    n = cfg.encoder_seq if cfg.is_encoder_decoder else cfg.num_image_tokens
+    kw = {"enc_embeds" if cfg.is_encoder_decoder else "img_embeds":
+          torch.randn((2, n, cfg.d_model), device=cuda, generator=gen)
+          .bfloat16()}
+    calls = (cfg.encoder_layers + 2 * cfg.num_layers
+             if cfg.is_encoder_decoder else cfg.num_layers)
+    c, c_tc = flash_attention.launches, flash_attention.launches_tc
+    lk, _ = M.forward_prefill(cfg, params, tok, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - c,
+            flash_attention.launches_tc - c_tc) == (calls, calls)
+    lp, _ = M.forward_prefill(cfg, params, tok, use_kernel=False, **kw)
+    assert flash_attention.launches - c == calls
+    V = cfg.vocab_size
+    rel = float((lk[:, :V] - lp[:, :V]).float().norm()
+                / lp[:, :V].float().norm())
+    assert rel <= kernel_frac[arch]
+
+
+@pytest.mark.gpu
 def test_deepseek_serve_on_the_card(cuda):
     """``serve --arch deepseek-v2-lite-16b --smoke`` on the card gives the
     JAX package's statistics (``chip_smoke.SERVE_EXPECTED``)."""
@@ -1007,6 +1089,12 @@ ATTN_TC_CASES = [
     (1, 257, 257, 4, 2, 192, 128, False, 100, None),    # window, non-causal
     (1, 140, 140, 4, 2, 192, 64, True, None, None),     # <3, 1>
     (1, 140, 140, 4, 2, 160, 128, True, None, None),    # 2.5 q/k panels
+    # the encoder-decoder's and the cross-attention model's non-causal
+    # calls: Skv 1500 (Whisper's frames) against 448 decoder tokens and
+    # against itself, and 6400 image tokens with 64 heads over 8
+    (2, 448, 1500, 12, 12, 64, 64, False, None, None),
+    (1, 1500, 1500, 12, 12, 64, 64, False, None, None),
+    (1, 512, 6400, 64, 8, 128, 128, False, None, None),
 ]
 
 ATTN_WIDE_CASES = [

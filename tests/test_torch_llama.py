@@ -480,12 +480,24 @@ def test_prefill_then_decode_equals_prefill(cfgs, jparams, dtype,
     (dict(cross_attn_period=2, num_image_tokens=16), "cross"),
     (dict(is_encoder_decoder=True, encoder_layers=2), "encoder"),
 ])
-def test_unported_layers_raise(cfgs, change, what):
+def test_cross_and_encoder_layers_build(cfgs, change, what):
+    """Llama with cross-attention layers, or made an encoder-decoder,
+    builds JAX's parameter tree (keys and shapes) and JAX's cache
+    shapes: the image K/V in a cross layer, the encoder's xk/xv in every
+    layer of an encoder-decoder."""
     cfg = dataclasses.replace(cfgs[0], **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        M.model_defs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        M.cache_shapes(cfg, 2, 8)
+    jcfg = dataclasses.replace(cfgs[1], **change)
+    assert jax.tree.map(lambda d: d.shape, JM.model_defs(jcfg)) == \
+        jax.tree.map(lambda d: d.shape, M.model_defs(cfg),
+                     is_leaf=lambda d: not isinstance(d, dict))
+    shapes = M.cache_shapes(cfg, 2, 8)
+    assert shapes == JM.cache_shapes(jcfg, 2, 8)
+    s0 = shapes["blocks"]["s0"]
+    if what == "cross":
+        assert s0 == {"k": (2, 2, 16, 2, 16), "v": (2, 2, 16, 2, 16)}
+    else:
+        assert s0["xk"] == (2, 2, cfg.encoder_seq, 2, 16)
+        assert "encoder" in M.model_defs(cfg)
 
 
 # ------------------------------------------------- how the bounds were set --

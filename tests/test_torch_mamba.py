@@ -22,6 +22,8 @@ bf16 tolerances are normwise — ``max |port - jax| <= frac * max |jax|``
 neighbouring intermediate, which is large relative to small elements.
 Each ``frac`` is 2-4x the largest error measured over 12 seeds.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -122,8 +124,10 @@ def test_config_matches_jax(cfgs):
             full.ssm_head_dim, full.ssm_state_dim, full.ssm_chunk) == \
         (24, 768, 24, 64, 128, 256)
     assert M.count_model_params(cfg) == JM.count_model_params(jcfg)
-    with pytest.raises(KeyError, match="A11"):
-        get_config("whisper-small")
+    # the encoder-decoder is registered too, with JAX's config
+    from repro.configs import get_config as jget_config
+    assert dataclasses.asdict(get_config("whisper-small")) == \
+        dataclasses.asdict(jget_config("whisper-small"))
 
 
 def test_params_cross_bit_for_bit(jparams):
@@ -157,11 +161,11 @@ def test_init_params_follows_the_defs(cfgs):
         M.count_model_params(cfg)
 
 
-def test_unported_layer_kinds_raise():
+def test_hybrid_layer_kinds_build_and_match_jax():
     """A hybrid of Mamba and MoE layers builds and matches JAX (f32,
     prefill logits and caches within the f32 tolerances); with
-    cross-attention layers in it, it still raises naming A11."""
-    import dataclasses
+    cross-attention layers in it, it builds JAX's parameter and cache
+    trees and prefills to JAX's logits and caches."""
     change = dict(family="hybrid", num_heads=4, num_kv_heads=2, head_dim=16,
                   attn_layer_period=2, num_experts=4, experts_per_token=2,
                   moe_d_ff=64, capacity_factor=2.0, block_period=2)
@@ -184,12 +188,31 @@ def test_unported_layer_kinds_raise():
     for k, v in cj["blocks"]["s1"].items():
         np.testing.assert_allclose(ct["blocks"]["s1"][k].numpy(),
                                    np.asarray(v), **F32_TOL)
-    cross = dataclasses.replace(cfg, cross_attn_period=2,
-                                num_image_tokens=16, attn_layer_period=0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        M.model_defs(cross)
-    with pytest.raises(NotImplementedError, match="A11"):
-        M.cache_shapes(cross, 2, 8)
+    xchange = dict(cross_attn_period=2, num_image_tokens=16,
+                   attn_layer_period=0)
+    cross = dataclasses.replace(cfg, **xchange)
+    jcross = dataclasses.replace(jcfg, **xchange)
+    assert [cross.layer_kind(l) for l in range(2)] == ["cross", "attn"]
+    assert jax.tree.map(lambda d: (d.shape, d.init),
+                        JM.model_defs(jcross)) == \
+        jax.tree.map(lambda d: (d.shape, d.init), M.model_defs(cross),
+                     is_leaf=lambda d: not isinstance(d, dict))
+    assert M.cache_shapes(cross, 2, 8) == JM.cache_shapes(jcross, 2, 8)
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      jinit(JM.model_defs(jcross), jax.random.key(5)))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    img = np.random.default_rng(5).standard_normal((2, 16, 64)) \
+        .astype(np.float32)
+    lt, ct = M.forward_prefill(cross, tp, torch.from_numpy(tok),
+                               img_embeds=torch.from_numpy(img))
+    lj, cj = jax.jit(lambda p, t, e: JM.forward_prefill(
+        jcross, p, t, img_embeds=e))(jp, jnp.asarray(tok), jnp.asarray(img))
+    np.testing.assert_allclose(lt.numpy()[:, :256],
+                               np.asarray(lj)[:, :256], **F32_TOL)
+    for k, v in cj["blocks"]["s0"].items():
+        assert ct["blocks"]["s0"][k].shape == (1, 2, 16, 2, 16)
+        np.testing.assert_allclose(ct["blocks"]["s0"][k].numpy(),
+                                   np.asarray(v), **F32_TOL)
 
 
 def _layer0(tp, jp):
