@@ -216,11 +216,25 @@ result line:
            steps; (c) the same for Llama-3.2-Vision-90B at full width cut
            to one block (5 layers, layer 4 cross), 2 x 4096 tokens over 2
            x 6400 image embeddings (5 launches a prefill)
+14. dryrun the dry run (``repro_torch.launch.dryrun``; no kernel): (a)
+           ``whisper-small x decode_32k`` on the fake 16 x 16 and 2 x 16
+           x 16 meshes and ``llama3.2-3b x prefill_32k`` on 16 x 16,
+           one subprocess each, each ``ok`` with the JAX package's test
+           assertions, their per-device arguments, temp, peak, TFLOP and
+           collective bytes printed; (b) its memory model against the
+           card: Llama-3.2-3B's plain prefill of 4 x 4096 and Mamba2's
+           train step of 16 x 2048 (grad_accum 2, remat) predicted on a
+           (1, 1) fake mesh, then run on the card from random tensors of
+           the same shapes and dtypes in a fresh process: the predicted
+           argument bytes must equal the card's, and the predicted peak
+           lie within 10% of ``max_memory_allocated`` after
+           ``reset_peak_memory_stats``; (a)'s processes start before
+           phase 12 (they run nothing on the card), (b)'s together
 
 ``--phases card,deepseek`` (any comma-separated subset of card, kernels,
 goldens, full, window, sweep, model, llama, faults, host, train,
-deepseek, xattn) runs only those phases and prints no result lines; with no
-arguments every phase runs.
+deepseek, xattn, dryrun) runs only those phases and prints no result
+lines; with no arguments every phase runs.
 
 Then one JSON line with each kernel's numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1531,20 +1545,21 @@ def _ssd_cuda_core_ms(args, chunk):
     return time_ms(call, batch=5, reps=3, warmup=1)
 
 
-def _profiled(fn):
+def _profiled(fn, cpu: bool = True, idle: float = 0.05):
     """Run ``fn`` under the profiler; returns (its result, wall seconds,
-    [(kernel name, launches, device us)])."""
+    [(kernel name, launches, device us)]). ``cpu=False`` records device
+    activity only; ``idle`` seconds of idle trace go either side."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)     # idle trace around the launches, as in
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + ([ProfilerActivity.CPU] if cpu else [])) as prof:
+        time.sleep(idle)     # idle trace around the launches, as in
         t0 = time.perf_counter()    # _device_ms: windows lost launches
         r = fn()                    # without it (phase 8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        time.sleep(0.05)
+        time.sleep(idle)
     ev = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA]
     return r, wall, ev
@@ -3617,12 +3632,15 @@ def _xattn_model(tag, cfg, run, tol):
             f"{out['launches']}, on the tensor cores {out['launches_tc']}; "
             f"by call: {out['by_shape']}")
         # a window must record every launch; the profiler now and then
-        # drops a kernel's record from a long window (once one of the 5
-        # launches of a 1.4 s Vision prefill), so a window that lost one
-        # is taken again, at most twice
+        # drops a kernel's record from a long window (one of the 5
+        # launches of a 1.4 s Vision prefill: once in PR 23, in all three
+        # windows of one run in PR 24, with CPU activity recorded too),
+        # so the window records device activity only, with 0.5 s of idle
+        # trace either side, and a window that lost one is taken again,
+        # at most twice
         for attempt in range(3):
             _, pwall, ev = _profiled(lambda: M.forward_prefill(
-                cfg, params, tokens, **kw))
+                cfg, params, tokens, **kw), cpu=False, idle=0.5)
             hits = [e for e in ev if "flash_attention_tc_kernel" in e[0]]
             seen = sum(h[1] for h in hits)
             if seen == calls:
@@ -3780,10 +3798,172 @@ def phase_xattn():
               f"expected {row['launches_per_prefill']}")
     return out
 
+# phase 14: the dry run (launch.dryrun) on the fake production meshes, and
+# its memory model against what the card allocates
+DRYRUN_CELLS = (("whisper-small", "decode_32k", False),
+                ("whisper-small", "decode_32k", True),
+                ("llama3.2-3b", "prefill_32k", False))
+# 14b: two steps at the card's full width, predicted on a (1, 1) fake mesh
+# and run on the card from tensors of the same shapes and dtypes: Llama's
+# plain prefill at phase 8's 4 x 4096 and Mamba's train step at phase 11a's
+# 16 x 2048 (grad_accum 2, remat)
+DRYRUN_STEPS = {"llama_prefill": dict(arch="llama3.2-3b", kind="prefill",
+                                      seq=4096, batch=4, accum=None),
+                "mamba_train": dict(arch="mamba2-130m", kind="train",
+                                    seq=2048, batch=16, accum=2)}
+DRYRUN_PEAK_TOL = 0.10          # |predicted - measured| / measured peak
+
+
+def _dryrun_card(name: str) -> None:
+    """One of 14b's steps, in a process of its own (the card's allocator
+    starts empty): the dry run's prediction on a (1, 1) fake mesh, then
+    the same step on the card from random tensors of the inputs' shapes
+    and dtypes, with ``max_memory_allocated`` after
+    ``reset_peak_memory_stats``. Prints one JSON line."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.step import (build_prefill_step,
+                                           build_train_step)
+    from repro_torch.tree import flatten
+    c = DRYRUN_STEPS[name]
+    cfg = get_config(c["arch"])
+    shape = ShapeConfig(name, c["seq"], c["batch"], c["kind"])
+    t0 = time.perf_counter()
+    with fake_mesh((1, 1), device=DEVICE) as mesh:
+        pred = D.measure(cfg, shape, mesh, accum=c["accum"])
+    predict_s = time.perf_counter() - t0
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(0)
+    params = init_params(M.model_defs(cfg), gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    if c["kind"] == "train":
+        oc = OptConfig()
+        args = (params, init_opt_state(params, oc),
+                {"tokens": tokens, "labels": tokens.roll(-1, 1)})
+        step = build_train_step(cfg, oc, shape=shape, grad_accum=c["accum"],
+                                remat=True)
+    else:
+        args = (params, {"tokens": tokens})
+        step = build_prefill_step(cfg, use_kernel=False)
+    held = sum(t.nbytes for t in flatten(args))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.set_grad_enabled(c["kind"] == "train"):
+        out = step(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    print(json.dumps({
+        "name": name, "predicted": pred, "predict_s": predict_s,
+        "held_bytes": held, "peak_bytes": torch.cuda.max_memory_allocated(),
+        "step_s": step_s, "finite": bool(all(
+            torch.isfinite(t.float()).all() for t in flatten(out)
+            if t.is_floating_point()))}))
+
+
+def _dryrun_env() -> dict:
+    import os
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+
+def _start_dryrun_cells() -> dict:
+    """14a's cells, one subprocess each, their errors kept in a temporary
+    file (nothing reads a pipe while they run). They trace fake tensors
+    on the host and run nothing on the card, so ``main`` starts them
+    before phase 12, whose device-bound work they overlap."""
+    import tempfile
+    out = {}
+    for arch, shp, mp in DRYRUN_CELLS:
+        err = tempfile.TemporaryFile(mode="w+")
+        out[(arch, shp, mp)] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shp] + (["--multi-pod"] if mp else []),
+            cwd=ROOT, env=_dryrun_env(), stdout=subprocess.DEVNULL,
+            stderr=err, text=True), err)
+    return out
+
+
+def phase_dryrun(cells=None):
+    """(a) the dry run of three cells on the fake production meshes, one
+    subprocess each (``cells``, when ``main`` started them earlier); (b)
+    its memory model against the card: 14b's steps predicted and run in
+    a subprocess each, started together."""
+    env = _dryrun_env()
+    t_phase = time.perf_counter()
+    cells = cells or _start_dryrun_cells()
+    steps = {name: subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke, sys; "
+         f"chip_smoke._dryrun_card({name!r})"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in DRYRUN_STEPS}
+    outs = {k: p.communicate(timeout=600) + (p.returncode,)
+            for k, p in steps.items()}
+    for k, (p, err) in cells.items():
+        p.wait(timeout=600)
+        err.seek(0)
+        outs[k] = (None, err.read(), p.returncode)
+        err.close()
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.dryrun import cell_path
+    res = {"cells": [], "steps": {}}
+    for (arch, shp, mp) in DRYRUN_CELLS:
+        _, err, rc = outs[(arch, shp, mp)]
+        path = cell_path(arch, shp, mp)
+        check(rc == 0 and path.exists(),
+              f"dry run {arch} x {shp} (multi_pod={mp}) exited {rc}: "
+              f"{err[-2000:]}")
+        d = json.loads(path.read_text())
+        check(d["status"] == "ok", f"dry run {arch} x {shp}: {d}")
+        mem = d["memory"]
+        check(d["n_chips"] == (512 if mp else 256)
+              and d["cost"]["flops"] > 0
+              and 0 < mem["argument_size_in_bytes"] < 4e9,
+              f"dry run {arch} x {shp}: {d['n_chips']} chips, "
+              f"{d['cost']['flops']} flops, {mem}")
+        res["cells"].append(d)
+        say(f"[dryrun] (a) {arch} x {shp} x {d['mesh']}: per device "
+            f"arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+            f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, peak "
+            f"{d['peak_bytes'] / 1e9:.3f} GB, "
+            f"{d['cost']['flops'] / 1e12:.4f} TFLOP, collectives "
+            f"{d['collectives']['total_bytes'] / 1e9:.4f} GB; traced in "
+            f"{d['trace_s']:.1f} s ({d['device']})")
+    for name in DRYRUN_STEPS:
+        out, err, rc = outs[name]
+        check(rc == 0, f"14b {name} exited {rc}: {err[-3000:]}")
+        r = json.loads(out.strip().splitlines()[-1])
+        p = r["predicted"]
+        args = p["memory"]["argument_size_in_bytes"]
+        off = (p["peak_bytes"] - r["peak_bytes"]) / r["peak_bytes"]
+        say(f"[dryrun] (b) {name}: arguments predicted {args} B, held "
+            f"{r['held_bytes']} B; peak predicted {p['peak_bytes']} B "
+            f"(temp {p['memory']['temp_size_in_bytes']} B), "
+            f"max_memory_allocated {r['peak_bytes']} B ({off:+.2%}); "
+            f"predicted in {r['predict_s']:.1f} s, the card's step "
+            f"{r['step_s']:.2f} s")
+        check(r["finite"], f"14b {name}: non-finite outputs on the card")
+        check(args == r["held_bytes"], f"14b {name}: predicted argument "
+              f"bytes {args} != the card's {r['held_bytes']}")
+        check(abs(off) <= DRYRUN_PEAK_TOL, f"14b {name}: predicted peak "
+              f"{p['peak_bytes']} B is {off:+.2%} off the card's "
+              f"{r['peak_bytes']} B")
+        res["steps"][name] = r
+    say(f"[dryrun] done in {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 # ---------------------------------------------------------------- main -----
 
 PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model",
-          "llama", "faults", "host", "train", "deepseek", "xattn")
+          "llama", "faults", "host", "train", "deepseek", "xattn", "dryrun")
 
 
 def main(argv=None) -> int:
@@ -3814,6 +3994,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
     res = {}
+    early = {}
 
     def run(name, fn, *a):
         t0 = time.perf_counter()
@@ -3846,15 +4027,24 @@ def main(argv=None) -> int:
         _close_pool()                # no later phase uses it
         if "train" in phases:
             res["train"] = run("train", phase_train)
+        if "dryrun" in phases and {"deepseek", "xattn"} & set(phases):
+            early = _start_dryrun_cells()
         if "deepseek" in phases:
             res["deepseek"] = run("deepseek", phase_deepseek)
         if "xattn" in phases:
             res["xattn"] = run("xattn", phase_xattn)
+        if "dryrun" in phases:
+            res["dryrun"] = run("dryrun", phase_dryrun, early)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         _close_pool()
+        for p, err in early.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
     say(f"[summary] phases {','.join(phases)}: "
         f"{time.perf_counter() - t_start:.1f} s")
     if set(phases) != set(PHASES):
@@ -3935,6 +4125,15 @@ def main(argv=None) -> int:
             f"tokens/s ({m['prefill_ms']:.1f} ms), peak {m['peak_gb']:.2f} "
             f"GB, busy {m['busy']:.4f}, {m['launches']} attention launches;"
             f" decode {m['decode']['ms_per_step']:.2f} ms/step")
+    for d in res["dryrun"]["cells"]:
+        say(f"[summary] dry run {d['arch']} x {d['shape']} x {d['mesh']}: "
+            f"peak {d['peak_bytes'] / 1e9:.3f} GB a device, "
+            f"{d['cost']['flops'] / 1e12:.4f} TFLOP, collectives "
+            f"{d['collectives']['total_bytes'] / 1e9:.4f} GB")
+    for name, r in res["dryrun"]["steps"].items():
+        say(f"[summary] dry-run memory model, {name}: peak predicted "
+            f"{r['predicted']['peak_bytes'] / 1e9:.3f} GB, card "
+            f"{r['peak_bytes'] / 1e9:.3f} GB")
     say("[summary] attention at phase 13's calls (ms vs bound): " + "; ".join(
         f"{r['name']} {r['ms']:.4f} vs {r['bound_ms']:.4f}"
         for r in xa["shapes"]))

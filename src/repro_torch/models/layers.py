@@ -30,10 +30,12 @@ card).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.attention import ops as attn_ops
@@ -43,22 +45,63 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
+def einsum(eq: str, *ops):
+    """``torch.einsum``; over DTensors (the sharded dry run and its
+    test), ``distrib.sharding.local_einsum``, which runs it shard by
+    shard."""
+    if any(isinstance(o, DTensor) for o in ops):
+        from repro_torch.distrib.sharding import local_einsum
+        return local_einsum(eq, *ops)
+    return torch.einsum(eq, *ops)
+
+
+def reshape(x, shape):
+    """``x.reshape(shape)``; a DTensor through ``distrib.sharding.reshape``,
+    which keeps to layouts DTensor's rules accept."""
+    if isinstance(x, DTensor):
+        from repro_torch.distrib import sharding
+        return sharding.reshape(x, shape)
+    return x.reshape(shape)
+
+
 def _proj(eq: str, x, w):
     """``einsum`` of bf16 operands with an fp32 result, as JAX's
-    ``preferred_element_type=F32``: both operands are cast to fp32."""
+    ``preferred_element_type=F32``: both operands are cast to fp32 (over
+    DTensors after they are gathered, so the gathers move bf16)."""
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        from repro_torch.distrib.sharding import local_einsum
+        return local_einsum(eq, x, w, dtype=F32)
     return torch.einsum(eq, x.to(F32), w.to(F32))
+
+
+def spread(t) -> bool:
+    """Whether ``t`` is a DTensor over more than one rank (on one rank
+    the sharded path runs the single-device ops)."""
+    return isinstance(t, DTensor) and t.device_mesh.size() > 1
+
+
+def whole(t):
+    """``t``; a DTensor with its pending partial sums (or maxima) reduced
+    now, to a replicated layout: after a reduction over a sharded
+    dimension, DTensor would otherwise reduce them into whatever layout
+    the next op suggests (a reduce-scatter along the sequence, say), and
+    the layouts around it would be gathered to meet it."""
+    if isinstance(t, DTensor):
+        from repro_torch.distrib.sharding import settle
+        return settle(t)
+    return t
 
 
 def rmsnorm(x, w, eps: float = 1e-5):
     xf = x.to(F32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = whole(torch.mean(xf * xf, dim=-1, keepdim=True))
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
 def layernorm(x, w, b, eps: float = 1e-5):
     xf = x.to(F32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    mu = whole(torch.mean(xf, dim=-1, keepdim=True))
+    var = whole(torch.var(xf, dim=-1, keepdim=True, unbiased=False))
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
@@ -113,8 +156,19 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
     GQA handled by grouping q heads over KV heads. Positions default to
     arange; pass explicit positions for offset decode/prefill windows.
     As in the JAX package, p is rounded to v's dtype before p·V.
-    Returns (B, Sq, H, dv).
+    Returns (B, Sq, H, dv). Over DTensors it runs shard by shard
+    (``distrib.sharding.local_region``), independent across batch and
+    heads.
     """
+    if isinstance(q, DTensor):
+        from repro_torch.distrib.sharding import local_region
+        out, = local_region(
+            lambda q, k, v: (blockwise_attention(
+                q, k, v, causal=causal, window=window,
+                q_positions=q_positions, kv_positions=kv_positions,
+                block_kv=block_kv, scale=scale),),
+            ["bsHd", "btHd", "btHe"], ["bsHe"], q, k, v, parallel="bH")
+        return out
     B, Sq, H, dk = q.shape
     _, Skv, KV, dv = v.shape
     assert H % KV == 0
@@ -180,9 +234,9 @@ def decode_attention(q, k_cache, v_cache, k_new, v_new, *, kv_len: int,
     dv = v_cache.shape[-1]
     dev = q.device
     scale = scale if scale is not None else 1.0 / math.sqrt(dk)
-    qg = q.reshape(B, KV, G, dk).to(F32)
+    qg = reshape(q, (B, KV, G, dk)).to(F32)
 
-    s_c = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(F32)) * scale
+    s_c = einsum("bkgd,bskd->bkgs", qg, k_cache.to(F32)) * scale
     S = k_cache.shape[1]
     pos = (torch.arange(S, device=dev) if cache_positions is None
            else cache_positions)
@@ -191,17 +245,17 @@ def decode_attention(q, k_cache, v_cache, k_new, v_new, *, kv_len: int,
         mask = mask & (pos > kv_len - window)
     s_c = torch.where(mask[None, None, None, :], s_c,
                       torch.full((), NEG_INF, dtype=F32, device=dev))
-    s_n = torch.einsum("bkgd,bjkd->bkgj", qg, k_new.to(F32)) * scale
+    s_n = einsum("bkgd,bjkd->bkgj", qg, k_new.to(F32)) * scale
 
-    m = torch.maximum(s_c.amax(-1), s_n[..., 0])
+    m = torch.maximum(whole(s_c.amax(-1)), s_n[..., 0])
     p_c = torch.exp(s_c - m[..., None])
     p_n = torch.exp(s_n - m[..., None])
-    l = p_c.sum(-1) + p_n[..., 0]
-    ctx = torch.einsum("bkgs,bskd->bkgd", p_c.to(v_cache.dtype).to(F32),
-                       v_cache.to(F32))
-    ctx = ctx + p_n * v_new.reshape(B, KV, 1, dv).to(F32)
+    l = whole(p_c.sum(-1)) + p_n[..., 0]
+    ctx = einsum("bkgs,bskd->bkgd", p_c.to(v_cache.dtype).to(F32),
+                 v_cache.to(F32))
+    ctx = ctx + p_n * reshape(v_new, (B, KV, 1, dv)).to(F32)
     out = ctx / l[..., None]
-    return out.reshape(B, 1, H, dv).to(q.dtype)
+    return reshape(out, (B, 1, H, dv)).to(q.dtype)
 
 
 # --------------------------------------------------------- GQA attention ---
@@ -233,7 +287,8 @@ def _qkv(cfg, p, x):
 
 
 def self_attention(cfg: ModelConfig, p, x, positions, *, window=None,
-                   block_kv: int = 512, use_kernel: bool | None = None):
+                   block_kv: int = 512, use_kernel: bool | None = None,
+                   shardings=None):
     """Full-sequence causal self-attention (prefill). ``positions``: the
     tokens' positions, (S,). Returns (out, (k, v)) — caller decides
     whether to keep the cache.
@@ -247,8 +302,16 @@ def self_attention(cfg: ModelConfig, p, x, positions, *, window=None,
     ``positions``, so that mask equals the positions' mask whenever they
     are consecutive (``forward_prefill`` passes 0..S-1; an offset start
     shifts queries and keys alike). Other positions raise on the kernel
-    path rather than be masked wrongly."""
+    path rather than be masked wrongly.
+
+    An "attn_qkv" spec in ``shardings`` (batch over every mesh axis)
+    switches the region to pure data parallelism when the head count
+    does not divide the tensor axis, as in the JAX package."""
+    spec = shardings.get("attn_qkv") if shardings else None
     q, k, v = _qkv(cfg, p, x)
+    if spec is not None:
+        from repro_torch.distrib.sharding import constrain
+        q, k, v = (constrain(t, spec) for t in (q, k, v))
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -438,23 +501,23 @@ def mla_attention_decode(cfg: ModelConfig, p, x, pos: int, cache):
     qr = q_rope.to(F32)
     scale = 1.0 / math.sqrt(nope + rope_d)
     ckv_c = cache["ckv"].to(F32)
-    s_c = (torch.einsum("bhr,bsr->bhs", q_lat, ckv_c)
-           + torch.einsum("bshk,btk->bht", qr, cache["kr"].to(F32))) * scale
+    s_c = (einsum("bhr,bsr->bhs", q_lat, ckv_c)
+           + einsum("bshk,btk->bht", qr, cache["kr"].to(F32))) * scale
     S = ckv_c.shape[1]
     mask = torch.arange(S, device=dev) < pos
     s_c = torch.where(mask[None, None, :], s_c,
                       torch.full((), NEG_INF, dtype=F32, device=dev))
-    s_n = (torch.einsum("bhr,bsr->bh", q_lat, ckv_new.to(F32))
-           + torch.einsum("bshk,bsk->bh", qr, kr_new.to(F32))) * scale
-    m = torch.maximum(s_c.amax(-1), s_n)
+    s_n = (einsum("bhr,bsr->bh", q_lat, ckv_new.to(F32))
+           + einsum("bshk,bsk->bh", qr, kr_new.to(F32))) * scale
+    m = torch.maximum(whole(s_c.amax(-1)), s_n)
     p_c = torch.exp(s_c - m[..., None])
     p_n = torch.exp(s_n - m)
-    l = p_c.sum(-1) + p_n
-    ctx = torch.einsum("bhs,bsr->bhr", p_c, ckv_c)
+    l = whole(p_c.sum(-1)) + p_n
+    ctx = einsum("bhs,bsr->bhr", p_c, ckv_c)
     ctx = (ctx + p_n[..., None] * ckv_new[:, 0, None, :].to(F32)) \
         / l[..., None]
-    v = torch.einsum("bhr,hrk->bhk", ctx, p["w_uv"].to(F32))
-    out = torch.einsum("bhk,hkd->bd", v, p["wo"].to(F32))
+    v = einsum("bhr,hrk->bhk", ctx, p["w_uv"].to(F32))
+    out = einsum("bhk,hkd->bd", v, p["wo"].to(F32))
     return out[:, None, :].to(x.dtype), (ckv_new, kr_new)
 
 
@@ -562,7 +625,56 @@ def moe_combine(contrib, K: int):
     return out
 
 
-def moe(cfg: ModelConfig, p, x):
+def _replicated(fn, *args, outputs: int = 1):
+    """``fn(*args)``; over DTensors, on whole replicas
+    (``distrib.sharding.replicated``): the MoE's routing sorts and
+    scatters over every token, which DTensor has no rule for."""
+    if any(isinstance(a, DTensor) for a in args):
+        from repro_torch.distrib.sharding import replicated
+        return replicated(fn, *args, outputs=outputs)
+    return fn(*args)
+
+
+def _moe_route(cfg: ModelConfig, router, x):
+    """Routing of the B * S tokens of ``x`` (B, S, D) (``moe_route``):
+    (w, keep, slot, aux), aux the Switch-style load-balancing loss
+    ``E * sum(mean probs * load)``."""
+    B, S, D = x.shape
+    T = B * S
+    E, K = cfg.num_experts, cfg.experts_per_token
+    r = moe_route(cfg, router, x.reshape(T, D))
+    load = r["counts"].to(F32) / (T * K)
+    aux = E * torch.sum(r["probs"].mean(0) * load)
+    return r["w"], r["keep"], r["slot"], aux
+
+
+def _moe_dispatch(E: int, C: int, x, slot):
+    """The (E, C, D) buffer of the tokens of ``x`` (B, S, D) packed by
+    expert: entry j (token j // K) at row ``slot[j]``."""
+    D = x.shape[-1]
+    xt = x.reshape(-1, D)
+    T = xt.shape[0]
+    K = slot.shape[0] // T
+    tok_ids = torch.arange(T, device=x.device)[:, None].expand(T, K) \
+        .reshape(-1)
+    # dropped entries all land on the spare row E * C, which is cut off
+    # (the drop-scatter convention of core/scatter.py)
+    buf = x.new_zeros((E * C + 1, D)).index_put((slot,), xt[tok_ids])
+    return buf[:E * C].reshape(E, C, D)
+
+
+def _moe_gather(K: int, shape, ye, w, keep, slot):
+    """Each token's K expert outputs from ``ye`` (E, C, D) fp32, weighted
+    and summed in k order (0 for a dropped entry), as an fp32 tensor of
+    the tokens' ``shape`` (B, S, D)."""
+    E, C, D = ye.shape
+    flat_y = ye.reshape(E * C, D)
+    gathered = torch.where(keep[:, None],
+                           flat_y[torch.clamp_max(slot, E * C - 1)], 0.0)
+    return moe_combine(gathered * w.reshape(-1)[:, None], K).reshape(shape)
+
+
+def moe(cfg: ModelConfig, p, x, *, dispatch_spec=None):
     """Top-K MoE with sort-based capacity dispatch (drop on overflow), the
     JAX package's ``moe``. x: (B, S, D). Tokens are routed
     (``moe_route``), packed by expert into an (E, C, D) buffer, run
@@ -570,29 +682,36 @@ def moe(cfg: ModelConfig, p, x):
     router weights; an entry past its expert's capacity contributes 0.
     Returns out (B, S, D) in x's dtype and the Switch-style
     load-balancing loss ``E * sum(mean probs * load)`` (the JAX package's
-    ``return_aux=True``)."""
+    ``return_aux=True``). ``dispatch_spec`` pins the (E, C, D) buffer and
+    the experts' outputs to the expert-parallel layout, as JAX's; over
+    DTensors each rank then builds and reads only its block of it
+    (``distrib.sharding.expert_dispatch``/``expert_combine``)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
-    T = B * S
-    xt = x.reshape(T, D)
-    r = moe_route(cfg, p["router"], xt)
-    C, keep, slot = r["C"], r["keep"], r["slot"]
-    tok_ids = torch.arange(T, device=x.device)[:, None].expand(T, K) \
-        .reshape(-1)
-    # dropped entries all land on the spare row E * C, which is cut off
-    # (the drop-scatter convention of core/scatter.py)
-    buf = x.new_zeros((E * C + 1, D)).index_put((slot,), xt[tok_ids])
-    xe = buf[:E * C].reshape(E, C, D)
+    C = moe_capacity(cfg, B * S)
+    xr = x
+    if isinstance(x, DTensor):
+        # the routing ranks every token: gather them once, for it and
+        # for the dispatch
+        xr = x.redistribute(x.device_mesh, x.device_mesh.ndim
+                            * [torch.distributed.tensor.Replicate()])
+    w, keep, slot, aux = _replicated(
+        functools.partial(_moe_route, cfg), p["router"], xr, outputs=4)
+    sharded = spread(x) and dispatch_spec is not None
+    if sharded:
+        from repro_torch.distrib import sharding as SH
+        xe = SH.expert_dispatch(xr, slot, E, C, dispatch_spec)
+    else:
+        xe = _replicated(functools.partial(_moe_dispatch, E, C), xr, slot)
     g = _proj("ecd,edf->ecf", xe, p["wg"])
     u = _proj("ecd,edf->ecf", xe, p["wu"])
     h = (F.silu(g) * u).to(x.dtype)
     ye = _proj("ecf,efd->ecd", h, p["wd"])                   # (E, C, D) f32
-    flat_y = ye.reshape(E * C, D)
-    gathered = torch.where(keep[:, None],
-                           flat_y[torch.clamp_max(slot, E * C - 1)], 0.0)
-    out = moe_combine(gathered * r["w"].reshape(-1)[:, None], K)
+    if sharded:
+        out = SH.expert_combine(SH.constrain(ye, dispatch_spec), w, slot, x)
+    else:
+        out = _replicated(functools.partial(_moe_gather, K, x.shape), ye, w,
+                          keep, slot)
     if cfg.num_shared_experts:
-        out = out + mlp(cfg, p["shared"], x).reshape(T, D).to(F32)
-    out = out.reshape(B, S, D).to(x.dtype)
-    load = r["counts"].to(F32) / (T * K)
-    return out, E * torch.sum(r["probs"].mean(0) * load)
+        out = out + mlp(cfg, p["shared"], x).to(F32)
+    return out.to(x.dtype), aux

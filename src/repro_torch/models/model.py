@@ -41,6 +41,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -49,6 +50,17 @@ from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamDef, count_params, stack_defs
 
 F32 = torch.float32
+
+
+def cst(x, shardings, key):
+    """The JAX package's ``with_sharding_constraint`` hook: ``x``
+    redistributed to the spec for ``key`` when one was given and ``x`` is
+    a DTensor; otherwise ``x`` itself."""
+    spec = shardings.get(key) if shardings else None
+    if spec is None:
+        return x
+    from repro_torch.distrib.sharding import constrain
+    return constrain(x, spec)
 
 
 # ------------------------------------------------------------- defs tree ---
@@ -134,12 +146,13 @@ def _stack(trees: list):
 
 # --------------------------------------------------------- layer forward ---
 
-def _ffn(cfg, lp, x, moe_layer: bool = False):
+def _ffn(cfg, lp, x, moe_layer: bool = False, shardings=None):
     """The layer's FFN with its residual: (x, aux), aux the MoE's
     load-balancing loss (a zero fp32 scalar for a dense MLP)."""
     h = L.apply_norm(cfg, lp["norm2"], x)
     if moe_layer:
-        y, aux = L.moe(cfg, lp["ffn"], h)
+        spec = shardings.get("moe_dispatch") if shardings else None
+        y, aux = L.moe(cfg, lp["ffn"], h, dispatch_spec=spec)
         return x + y, aux
     return (x + L.mlp(cfg, lp["ffn"], h),
             torch.zeros((), dtype=F32, device=x.device))
@@ -147,7 +160,7 @@ def _ffn(cfg, lp, x, moe_layer: bool = False):
 
 def layer_forward(cfg: ModelConfig, lp, x, l: int, *, mode: str = "prefill",
                   use_kernel: bool | None = None, enc_out=None,
-                  img_embeds=None):
+                  img_embeds=None, shardings=None):
     """One layer, full sequence from position 0. Returns (x, new_cache,
     aux), aux the layer's MoE load-balancing loss (0 without one).
 
@@ -157,7 +170,11 @@ def layer_forward(cfg: ModelConfig, lp, x, l: int, *, mode: str = "prefill",
     cross-attention; ``mode="train"`` keeps none ({}) and runs the
     plain paths, which autograd can differentiate (the kernels have no
     backward). A cross layer attends to ``img_embeds``' K/V; every layer
-    of an encoder-decoder attends, after its mixer, to ``enc_out``'s."""
+    of an encoder-decoder attends, after its mixer, to ``enc_out``'s.
+    ``shardings`` (``distrib.sharding.activation_shardings``) pins the
+    residual, the K/V cache, the attention's q/k/v and the MoE's
+    dispatch buffer where the JAX package does; None leaves every tensor
+    as it is."""
     kind = cfg.layer_kind(l)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -180,12 +197,14 @@ def layer_forward(cfg: ModelConfig, lp, x, l: int, *, mode: str = "prefill",
         positions = torch.arange(x.shape[1], device=x.device)
         y, (k, v) = L.self_attention(cfg, lp["mixer"], h, positions,
                                      window=cfg.sliding_window,
-                                     use_kernel=use_kernel)
+                                     use_kernel=use_kernel,
+                                     shardings=shardings)
         if not train:
             if cfg.sliding_window:   # ring cache: keep last `window`
                 w = min(cfg.sliding_window, k.shape[1])
                 k, v = k[:, -w:], v[:, -w:]
-            new_cache = {"k": k, "v": v}
+            new_cache = {"k": cst(k, shardings, "kv_cache"),
+                         "v": cst(v, shardings, "kv_cache")}
     elif kind == "ssm":
         y, (final_state, conv_tail) = S.mamba_block(cfg, lp["mixer"], h,
                                                     use_kernel=use_kernel)
@@ -206,12 +225,12 @@ def layer_forward(cfg: ModelConfig, lp, x, l: int, *, mode: str = "prefill",
         if not train:
             new_cache["xk"], new_cache["xv"] = kv["k"], kv["v"]
     if "ffn" in lp:
-        x, aux = _ffn(cfg, lp, x, cfg.is_moe_layer(l))
-    return x, new_cache, aux
+        x, aux = _ffn(cfg, lp, x, cfg.is_moe_layer(l), shardings)
+    return cst(x, shardings, "residual"), new_cache, aux
 
 
 def layer_decode(cfg: ModelConfig, lp, x, l: int, *, pos, cache,
-                 use_kernel: bool | None = None):
+                 use_kernel: bool | None = None, shardings=None):
     """One layer, one token. Returns (x, cache_delta): the new token's
     K/V (or latent, or SSM state); ``{}`` for a cross layer, and no
     ``xk``/``xv``, whose K/V do not change. ``use_kernel`` goes to the
@@ -240,20 +259,29 @@ def layer_decode(cfg: ModelConfig, lp, x, l: int, *, pos, cache,
                                   {"k": cache["xk"], "v": cache["xv"]},
                                   use_kernel=use_kernel)
     if "ffn" in lp:
-        x, _ = _ffn(cfg, lp, x, cfg.is_moe_layer(l))
+        x, _ = _ffn(cfg, lp, x, cfg.is_moe_layer(l), shardings)
     return x, delta
 
 
 # ----------------------------------------------------------- full stacks ---
 
-def _embed(cfg, params, tokens):
-    return params["embed"][tokens]
+def _embed(cfg, params, tokens, shardings=None):
+    w = params["embed"]
+    if isinstance(w, DTensor):
+        # DTensor's rule for an embedding lookup gathers from a
+        # vocab-sharded table locally (masked partial sums, the same values
+        # as indexing), which are summed here, before their first use
+        from repro_torch.distrib.sharding import settle
+        x = torch.nn.functional.embedding(tokens, w)
+        return cst(settle(x), shardings, "residual")
+    return w[tokens]
 
 
-def _logits(cfg, params, x):
+def _logits(cfg, params, x, shardings=None):
     x = L.apply_norm(cfg, params["final_norm"], x)
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = torch.einsum("bsd,dv->bsv", x.to(F32), w.to(F32))
+    logits = L._proj("bsd,dv->bsv", x, w)
+    logits = cst(logits, shardings, "logits")
     # mask padded vocab entries
     Vp = cfg.padded_vocab()
     if Vp != cfg.vocab_size:
@@ -276,7 +304,7 @@ def _check_inputs(cfg: ModelConfig, enc_embeds, img_embeds) -> None:
 
 
 def encoder_forward(cfg: ModelConfig, params, enc_embeds, *,
-                    use_kernel: bool | None = None):
+                    use_kernel: bool | None = None, shardings=None):
     """The encoder of an encoder-decoder over ``enc_embeds`` (B, Se, D):
     each layer a pre-norm, rope'd self-attention over positions 0..Se-1
     that masks nothing (``L.full_attention``: the kernel on a card unless
@@ -293,11 +321,12 @@ def encoder_forward(cfg: ModelConfig, params, enc_embeds, *,
         y = L.full_attention(q, k, v, use_kernel=use_kernel)
         x = x + L._proj("bshk,hkd->bsd", y, bp["mixer"]["wo"]).to(x.dtype)
         x = x + L.mlp(cfg, bp["ffn"], L.apply_norm(cfg, bp["norm2"], x))
+        x = cst(x, shardings, "residual")
     return L.apply_norm(cfg, ep["final_norm"], x)
 
 
 def forward_train(cfg: ModelConfig, params, tokens, *, enc_embeds=None,
-                  img_embeds=None, remat: bool = True):
+                  img_embeds=None, remat: bool = True, shardings=None):
     """tokens: (B, S) -> (logits (B, S, Vp) fp32, aux loss).
 
     Every layer runs in ``mode="train"`` (plain paths, no caches), the
@@ -306,17 +335,19 @@ def forward_train(cfg: ModelConfig, params, tokens, *, enc_embeds=None,
     JAX package's ``jax.checkpoint``), so only the blocks' inputs are
     kept; the encoder is not recomputed, as in JAX. ``aux`` is the fp32
     sum of the MoE layers' load-balancing losses, prefix first and then
-    block by block, in JAX's order (zero without MoE layers)."""
+    block by block, in JAX's order (zero without MoE layers).
+    ``shardings`` as in ``layer_forward``."""
     _check_inputs(cfg, enc_embeds, img_embeds)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, shardings)
     enc_out = None
     if cfg.is_encoder_decoder:
-        enc_out = encoder_forward(cfg, params, enc_embeds, use_kernel=False)
+        enc_out = encoder_forward(cfg, params, enc_embeds, use_kernel=False,
+                                  shardings=shardings)
     aux = torch.zeros((), dtype=F32, device=x.device)
     for i in range(cfg.first_dense_layers):
         x, _, a = layer_forward(cfg, params["prefix"][f"p{i}"], x, i,
                                 mode="train", enc_out=enc_out,
-                                img_embeds=img_embeds)
+                                img_embeds=img_embeds, shardings=shardings)
         aux = aux + a
     npfx, period = cfg.first_dense_layers, cfg.block_period
 
@@ -324,7 +355,8 @@ def forward_train(cfg: ModelConfig, params, tokens, *, enc_embeds=None,
         for i in range(period):
             x, _, a = layer_forward(cfg, bp[f"s{i}"], x,
                                     npfx + bi * period + i, mode="train",
-                                    enc_out=enc_out, img_embeds=img_embeds)
+                                    enc_out=enc_out, img_embeds=img_embeds,
+                                    shardings=shardings)
             aux = aux + a
         return x, aux
 
@@ -334,23 +366,26 @@ def forward_train(cfg: ModelConfig, params, tokens, *, enc_embeds=None,
                                 img_embeds, use_reentrant=False)
         else:
             x, aux = block_fn(x, aux, bp, bi, enc_out, img_embeds)
-    return _logits(cfg, params, x), aux
+    return _logits(cfg, params, x, shardings), aux
 
 
 def forward_prefill(cfg: ModelConfig, params, tokens, *, enc_embeds=None,
-                    img_embeds=None, use_kernel: bool | None = None):
+                    img_embeds=None, use_kernel: bool | None = None,
+                    shardings=None):
     """tokens: (B, S) -> (logits for last position (B, Vp), caches tree).
 
     Cache leaves are stacked over blocks: (nb, B, ...). ``use_kernel``
     goes to every layer's mixer and cross-attention and to the encoder
-    (``None``: the SSD or flash-attention kernel on a card)."""
+    (``None``: the SSD or flash-attention kernel on a card).
+    ``shardings`` as in ``layer_forward``."""
     _check_inputs(cfg, enc_embeds, img_embeds)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, shardings)
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = encoder_forward(cfg, params, enc_embeds,
-                                  use_kernel=use_kernel)
-    kw = dict(use_kernel=use_kernel, enc_out=enc_out, img_embeds=img_embeds)
+                                  use_kernel=use_kernel, shardings=shardings)
+    kw = dict(use_kernel=use_kernel, enc_out=enc_out, img_embeds=img_embeds,
+              shardings=shardings)
     prefix_caches = {}
     for i in range(cfg.first_dense_layers):
         x, c, _ = layer_forward(cfg, params["prefix"][f"p{i}"], x, i, **kw)
@@ -365,25 +400,26 @@ def forward_prefill(cfg: ModelConfig, params, tokens, *, enc_embeds=None,
             x, caches[f"s{i}"], _ = layer_forward(cfg, bp[f"s{i}"], x, l,
                                                   **kw)
         per_block.append(caches)
-    logits = _logits(cfg, params, x[:, -1:, :])[:, 0]
+    logits = _logits(cfg, params, x[:, -1:, :], shardings)[:, 0]
     return logits, {"prefix": prefix_caches, "blocks": _stack(per_block)}
 
 
 def forward_decode(cfg: ModelConfig, params, token, pos, caches, *,
-                   use_kernel: bool | None = None):
+                   use_kernel: bool | None = None, shardings=None):
     """token: (B, 1) int; pos: int; caches from ``cache_shapes`` (or a
     prefill). Returns (logits (B, Vp), cache deltas, stacked as given:
     JAX's deltas, which carry no cross-attention K/V). ``use_kernel``
     goes to the cross-attention (``None``: the kernel on a card); self
     attention, MLA and SSM layers decode on their plain paths, as in
-    JAX."""
-    x = _embed(cfg, params, token)
+    JAX. ``shardings`` as in ``layer_forward``."""
+    x = _embed(cfg, params, token, shardings)
     npfx = cfg.first_dense_layers
     prefix_deltas = {}
     for i in range(npfx):
         x, prefix_deltas[f"p{i}"] = layer_decode(
             cfg, params["prefix"][f"p{i}"], x, i, pos=pos,
-            cache=caches["prefix"][f"p{i}"], use_kernel=use_kernel)
+            cache=caches["prefix"][f"p{i}"], use_kernel=use_kernel,
+            shardings=shardings)
     per_block = []
     for bi in range(n_scan_blocks(cfg)):
         bp = _index(params["blocks"], bi)
@@ -393,16 +429,33 @@ def forward_decode(cfg: ModelConfig, params, token, pos, caches, *,
             l = npfx + bi * cfg.block_period + i
             x, deltas[f"s{i}"] = layer_decode(cfg, bp[f"s{i}"], x, l,
                                               pos=pos, cache=bc[f"s{i}"],
-                                              use_kernel=use_kernel)
+                                              use_kernel=use_kernel,
+                                              shardings=shardings)
         per_block.append(deltas)
-    logits = _logits(cfg, params, x)[:, 0]
+    logits = _logits(cfg, params, x, shardings)[:, 0]
     return logits, {"prefix": prefix_deltas, "blocks": _stack(per_block)}
 
 
 # ----------------------------------------------------------------- loss ----
 
+def _vocab_terms(logits: DTensor, labels):
+    """(logsumexp, the label's logit) over the last dimension of sharded
+    logits, as JAX writes them: a max-shifted sum of exponentials and a
+    one-hot masked sum, which reduce shard by shard over a vocab-sharded
+    tensor (partial sums, then an all-reduce), where ``logsumexp`` would
+    first gather the whole vocabulary, and ``gather``'s backward builds
+    its zeros replicated, at the logits' global shape on every rank."""
+    m = L.whole(logits.detach().amax(-1, keepdim=True))
+    lse = torch.log(L.whole(torch.sum(torch.exp(logits - m), -1))) + m[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=labels.device)
+    ll = L.whole(torch.sum(torch.where(vocab == labels[..., None], logits,
+                                       0.0), -1))
+    return lse, ll
+
+
 def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
-            aux_weight: float = 0.01, z_weight: float = 1e-4):
+            aux_weight: float = 0.01, z_weight: float = 1e-4,
+            shardings=None):
     """The JAX package's LM loss: mean next-token NLL over labels >= 0,
     plus ``z_weight`` times the mean squared log-partition (z-loss) and
     ``aux_weight`` times the aux loss. Returns (loss, {"nll", "aux",
@@ -414,12 +467,15 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
     logits, aux = forward_train(cfg, params, batch["tokens"],
                                 enc_embeds=batch.get("enc_embeds"),
                                 img_embeds=batch.get("img_embeds"),
-                                remat=remat)
+                                remat=remat, shardings=shardings)
     labels = batch["labels"]
-    lse = torch.logsumexp(logits, dim=-1)
     mask = (labels >= 0).to(F32)
     labels = torch.clamp_min(labels, 0).long()
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if L.spread(logits):
+        lse, ll = _vocab_terms(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     count = torch.clamp_min(mask.sum(), 1.0)
     nll = torch.sum((lse - ll) * mask) / count
     zloss = torch.sum((lse ** 2) * mask) / count

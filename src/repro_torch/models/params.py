@@ -2,10 +2,14 @@
 
 A model is described as a tree (nested dicts) of ``ParamDef`` leaves, as
 in the JAX package. From that tree the port derives materialized
-parameters (``init_params``) and parameter counts (``count_params``).
-The logical sharding axes are kept on each definition so the trees read
-the same in both packages; the port runs on one card and does not read
-them (``param_specs``/``param_shapes`` serve TPU meshes: ROADMAP A11).
+parameters (``init_params``), parameter counts (``count_params``), the
+matching ``PartitionSpec`` tree (``param_specs``) and stand-ins that hold
+no memory for dry runs (``param_shapes``).
+
+Sharding axes are *logical* names resolved against the physical mesh at spec
+build time. A dimension is sharded only when divisible by the product of the
+mapped mesh axes; otherwise it silently falls back to replication for that
+dimension (small models on big meshes).
 """
 from __future__ import annotations
 
@@ -58,6 +62,47 @@ def stack_defs(tree: Tree, n: int) -> Tree:
         return dataclasses.replace(d, shape=(n,) + d.shape,
                                    axes=("stack",) + d.axes)
     return tree_map_defs(add, tree)
+
+
+def _resolve_axis(logical: str | None, dim: int, rules: dict[str, tuple[str, ...]],
+                  mesh_sizes: dict[str, int]):
+    """Map a logical axis to mesh axes, dropping it if not divisible."""
+    if logical is None:
+        return None
+    mesh_axes = rules.get(logical, ())
+    if not mesh_axes:
+        return None
+    size = math.prod(mesh_sizes[a] for a in mesh_axes)
+    if size <= 1 or dim % size != 0:
+        return None
+    return mesh_axes if len(mesh_axes) > 1 else mesh_axes[0]
+
+
+def param_specs(tree: Tree, rules: dict[str, tuple[str, ...]],
+                mesh_sizes: dict[str, int]) -> Tree:
+    """The ``PartitionSpec`` of every def (``distrib.sharding``'s type)."""
+    from repro_torch.distrib.sharding import PartitionSpec as P
+
+    def spec(d: ParamDef):
+        used: set[str] = set()
+        out = []
+        for a, s in zip(d.axes, d.shape):
+            r = _resolve_axis(a, s, rules, mesh_sizes)
+            names = (r,) if isinstance(r, str) else (r or ())
+            if r is None or any(n in used for n in names):
+                out.append(None)  # a mesh axis may appear at most once per spec
+            else:
+                used.update(names)
+                out.append(r)
+        return P(*out)
+    return tree_map_defs(spec, tree)
+
+
+def param_shapes(tree: Tree, device="meta") -> Tree:
+    """Empty tensors of each def's shape and dtype on ``device``: "meta",
+    or any device inside a ``FakeTensorMode``; neither allocates."""
+    return tree_map_defs(
+        lambda d: torch.empty(d.shape, dtype=d.dtype, device=device), tree)
 
 
 def count_params(tree: Tree) -> int:

@@ -20,10 +20,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.models.layers import _proj, rmsnorm
+from repro_torch.models.layers import _proj, einsum, reshape, rmsnorm
 from repro_torch.models.params import ParamDef
 
 F32 = torch.float32
@@ -51,7 +52,16 @@ def ssm_defs(cfg: ModelConfig):
 
 
 def _causal_conv(x, kernel):
-    """Depthwise causal conv. x: (B, S, C...), kernel: (W, C...)."""
+    """Depthwise causal conv. x: (B, S, C...), kernel: (W, C...). Over
+    DTensors it runs shard by shard (``distrib.sharding.local_region``),
+    independent across batch and channels."""
+    if isinstance(x, DTensor):
+        from repro_torch.distrib.sharding import local_region
+        ch = "cdef"[:x.dim() - 2]
+        y, = local_region(lambda x, k: (_causal_conv(x, k),),
+                          ["bs" + ch, "w" + ch], ["bs" + ch], x, kernel,
+                          parallel="b" + ch)
+        return y
     W, S = kernel.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0) * (x.dim() - 2) + (W - 1, 0))
     return sum(xp[:, i:i + S] * kernel[i] for i in range(W))
@@ -70,7 +80,15 @@ def segsum_decay(dA):
 
 def ssd_chunked(x, dt, A, B, C, chunk: int):
     """SSD forward. x: (b,s,h,p) dt: (b,s,h) A: (h,) B,C: (b,s,n).
-    Returns y: (b,s,h,p) f32 and final state (b,h,p,n)."""
+    Returns y: (b,s,h,p) f32 and final state (b,h,p,n). Over DTensors it
+    runs shard by shard (``distrib.sharding.local_region``), independent
+    across batch, heads and head dims."""
+    if isinstance(x, DTensor):
+        from repro_torch.distrib.sharding import local_region
+        return local_region(
+            lambda *ts: ssd_chunked(*ts, chunk),
+            ["bshp", "bsh", "h", "bsn", "bsn"], ["bshp", "bhpn"],
+            x, dt, A, B, C, parallel="bhp")
     b, s, h, p = x.shape
     n = B.shape[-1]
     pad = (-s) % chunk
@@ -120,10 +138,10 @@ def ssd_decode_step(state, x, dt, A, B, C):
     """One-token SSD update. state: (b,h,p,n); x: (b,h,p); dt: (b,h);
     B,C: (b,n). Returns (y (b,h,p), new_state)."""
     dA = torch.exp(dt.to(F32) * A.to(F32))                    # (b,h)
-    dBx = torch.einsum("bn,bhp->bhpn", B.to(F32),
-                       x.to(F32) * dt.to(F32)[..., None])
+    dBx = einsum("bn,bhp->bhpn", B.to(F32),
+                 x.to(F32) * dt.to(F32)[..., None])
     new_state = state * dA[..., None, None] + dBx
-    y = torch.einsum("bhpn,bn->bhp", new_state, C.to(F32))
+    y = einsum("bhpn,bn->bhp", new_state, C.to(F32))
     return y, new_state
 
 
@@ -145,9 +163,10 @@ def ssd_inputs(cfg: ModelConfig, p, x):
     # log(1 + exp(x)) differs from x by less than fp32 resolves
     dt = F.softplus(dt + p["dt_bias"].to(F32))
 
-    pre = torch.cat([xin.reshape(Bsz, S, H * P), Bv, Cv], -1)
-    conv_tail = pre[:, -(W - 1):] if S >= W - 1 else F.pad(
-        pre, (0, 0, W - 1 - S, 0))
+    # the last W-1 rows (all of them when S < W-1, padded in front)
+    tail = torch.cat([reshape(xin[:, -(W - 1):], (Bsz, -1, H * P)),
+                      Bv[:, -(W - 1):], Cv[:, -(W - 1):]], -1)
+    conv_tail = tail if S >= W - 1 else F.pad(tail, (0, 0, W - 1 - S, 0))
 
     xin = F.silu(_causal_conv(xin, p["conv_x"]).to(F32)).to(x.dtype)
     Bv = F.silu(_causal_conv(Bv, p["conv_B"]).to(F32)).to(x.dtype)
@@ -195,15 +214,15 @@ def mamba_block_decode(cfg: ModelConfig, p, x, cache):
     dt = F.softplus(dt + p["dt_bias"].to(F32))
 
     # conv ring: cache['conv'] holds the last W-1 pre-conv features
-    feat = torch.cat([xin.reshape(Bsz, H * P), Bv, Cv], -1)       # (B, HP+2N)
+    feat = torch.cat([reshape(xin, (Bsz, H * P)), Bv, Cv], -1)    # (B, HP+2N)
     hist = torch.cat([cache["conv"].to(F32), feat[:, None, :]], 1)  # (B, W, .)
-    kx = p["conv_x"].reshape(W, H * P).to(F32)
+    kx = reshape(p["conv_x"], (W, H * P)).to(F32)
     kB = p["conv_B"].to(F32)
     kC = p["conv_C"].to(F32)
-    xc = torch.einsum("bwc,wc->bc", hist[..., :H * P], kx)
-    Bc = torch.einsum("bwc,wc->bc", hist[..., H * P:H * P + N], kB)
-    Cc = torch.einsum("bwc,wc->bc", hist[..., H * P + N:], kC)
-    xc = F.silu(xc).reshape(Bsz, H, P)
+    xc = einsum("bwc,wc->bc", hist[..., :H * P], kx)
+    Bc = einsum("bwc,wc->bc", hist[..., H * P:H * P + N], kB)
+    Cc = einsum("bwc,wc->bc", hist[..., H * P + N:], kC)
+    xc = reshape(F.silu(xc), (Bsz, H, P))
     Bc, Cc = F.silu(Bc), F.silu(Cc)
 
     A = -torch.exp(p["A_log"].to(F32))

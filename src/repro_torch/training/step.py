@@ -8,36 +8,31 @@ plain path (``models.model.loss_fn``), as JAX's come from
 ``jax.value_and_grad``. The step runs eagerly and reads nothing back to
 the host.
 
-The step runs in one process on one device: where JAX takes a mesh to
-choose the microbatch count, the builder takes only the shape, and
-``choose_grad_accum`` sees one device, ``{"data": 1}``. The
+Without a mesh the step runs in one process on one device and
+``choose_grad_accum`` sees one device, ``{"data": 1}``; the
 data-parallel step is ``distrib.homa_collectives.build_dp_train_step``.
+With a mesh and a shape (the dry run, ``launch.dryrun``), as in JAX,
+``choose_grad_accum`` sees the mesh's sizes and the model gets
+``activation_shardings`` for its ``cst`` hooks: the step then runs on
+DTensors placed by ``distrib.sharding``'s plan. ``attn_dp=False`` drops
+the plan's data-parallel attention region ("attn_qkv"), the JAX
+package's ``REPRO_ATTN_DP=0``.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distrib import sharding as SH
+from repro_torch.distrib.sharding import batch_axes
 from repro_torch.models import model as M
 from repro_torch.training.optimizer import OptConfig, adamw_update
 from repro_torch.tree import flatten, tree_map, unflatten
 
 F32 = torch.float32
-
-
-def batch_axes(sizes: dict[str, int], global_batch: int):
-    """Mesh axes to shard the batch over (largest divisible prefix of
-    (pod, data)); the JAX package's ``distrib/sharding.py`` rule."""
-    axes = [a for a in ("pod", "data") if a in sizes]
-    total = 1
-    used = []
-    for a in axes:
-        if global_batch % (total * sizes[a]) == 0:
-            used.append(a)
-            total *= sizes[a]
-    return tuple(used)
 
 
 def choose_grad_accum(cfg: ModelConfig, shape: ShapeConfig,
@@ -70,35 +65,71 @@ def value_and_grad(fn, params, *args, has_aux: bool = False):
     return value.detach(), aux, unflatten(params, list(grads))
 
 
-def build_train_step(cfg: ModelConfig, oc: OptConfig, *,
+def _shardings(cfg, mesh, shape, attn_dp: bool, **kw):
+    """The model's activation specs on ``mesh`` (None without one)."""
+    if mesh is None or shape is None:
+        return None
+    sh = SH.activation_shardings(cfg, mesh, shape, **kw)
+    if not attn_dp:
+        sh["attn_qkv"] = None
+    return sh
+
+
+def _split(x, n: int) -> list:
+    """``x`` cut into ``n`` microbatches along its batch dimension. A
+    DTensor is cut shard by shard (``distrib.sharding.split_local``), so
+    each microbatch stays on the batch's devices: it holds every shard's
+    i-th part, not the batch's i-th contiguous part. The step's gradient
+    of a mean over tokens is the same either way; the MoE's
+    load-balancing term depends on which tokens share a microbatch."""
+    if isinstance(x, DTensor):
+        return SH.split_local(x, n)
+    return list(x.reshape((n, x.shape[0] // n) + x.shape[1:]).unbind(0))
+
+
+def _synced(grads, params):
+    """Gradients over DTensors reduced once into their parameters'
+    layouts (the data-parallel sync: an all-reduce, or FSDP's
+    reduce-scatter where the parameter is sharded); others as they
+    are."""
+    return tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                    if isinstance(g, DTensor) else g, grads, params)
+
+
+def build_train_step(cfg: ModelConfig, oc: OptConfig, *, mesh=None,
                      shape: ShapeConfig | None = None,
                      grad_accum: int | None = None, remat: bool = True,
-                     accum_dtype=F32):
+                     accum_dtype=F32, attn_dp: bool = True):
     """The step for ``grad_accum`` microbatches (chosen from ``shape`` for
-    one device when not given; 1 without either). With one, the
-    gradients reach AdamW in the parameters' dtype, as
-    ``jax.value_and_grad`` gives them; with more, they are summed in
-    ``accum_dtype`` and divided by ``grad_accum``. ``metrics`` holds
-    "loss", "grad_norm" and "lr"."""
+    ``mesh``, or for one device without one, when not given; 1 without
+    a shape). With one, the gradients reach AdamW in the parameters'
+    dtype, as ``jax.value_and_grad`` gives them; with more, they are
+    summed in ``accum_dtype`` and divided by ``grad_accum``. ``metrics``
+    holds "loss", "grad_norm" and "lr"."""
     if grad_accum is None and shape is not None:
-        grad_accum = choose_grad_accum(cfg, shape, {"data": 1})
+        sizes = SH.mesh_sizes(mesh) if mesh is not None else {"data": 1}
+        grad_accum = choose_grad_accum(cfg, shape, sizes)
     grad_accum = grad_accum or 1
+    shardings = _shardings(cfg, mesh, shape, attn_dp, grad_accum=grad_accum)
 
     def micro_loss(params, mb):
-        return M.loss_fn(cfg, params, mb, remat=remat)[0]
+        return M.loss_fn(cfg, params, mb, remat=remat,
+                         shardings=shardings)[0]
 
     def train_step(params, opt_state, batch):
         if grad_accum == 1:
             loss, _, grads = value_and_grad(micro_loss, params, batch)
+            grads = _synced(grads, params)
         else:
-            micro = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
-                                  + v.shape[1:]) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=accum_dtype, device=p.device), params)
+            micro = {k: _split(v, grad_accum) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=accum_dtype, memory_format=torch.contiguous_format),
+                params)
             loss = None
             for i in range(grad_accum):
                 l, _, g = value_and_grad(
                     micro_loss, params, {k: v[i] for k, v in micro.items()})
+                g = _synced(g, params)
                 for a, b in zip(flatten(grads), flatten(g)):
                     a.add_(b.to(accum_dtype))
                 loss = l if loss is None else loss + l
@@ -111,26 +142,34 @@ def build_train_step(cfg: ModelConfig, oc: OptConfig, *,
     return train_step
 
 
-def build_prefill_step(cfg: ModelConfig):
-    """(params, batch) -> (last-token logits, caches); the mixers take the
-    kernels on a card (``forward_prefill``'s default). The batch's
+def build_prefill_step(cfg: ModelConfig, *, mesh=None,
+                       shape: ShapeConfig | None = None,
+                       use_kernel: bool | None = None, attn_dp: bool = True):
+    """(params, batch) -> (last-token logits, caches); ``use_kernel`` goes
+    to ``forward_prefill`` (None: the kernels on a card). The batch's
     ``enc_embeds`` / ``img_embeds``, where it has them, go to the encoder
-    and the cross layers."""
+    and the cross layers. With ``mesh`` and ``shape``, the model gets
+    their activation specs."""
+    shardings = _shardings(cfg, mesh, shape, attn_dp)
 
     def prefill_step(params, batch):
         return M.forward_prefill(cfg, params, batch["tokens"],
                                  enc_embeds=batch.get("enc_embeds"),
-                                 img_embeds=batch.get("img_embeds"))
+                                 img_embeds=batch.get("img_embeds"),
+                                 use_kernel=use_kernel, shardings=shardings)
 
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig, *, pos: int | None = None):
+def build_serve_step(cfg: ModelConfig, *, pos: int | None = None,
+                     use_kernel: bool | None = None):
     """One-token decode at ``pos``, or at the step's ``position``
-    argument when ``pos`` is None."""
+    argument when ``pos`` is None; ``use_kernel`` goes to
+    ``forward_decode``."""
 
     def serve_step(params, caches, token, position):
         p = pos if pos is not None else position
-        return M.forward_decode(cfg, params, token, p, caches)
+        return M.forward_decode(cfg, params, token, p, caches,
+                                use_kernel=use_kernel)
 
     return serve_step

@@ -29,7 +29,8 @@ def test_import_leaves_jax_out():
             "repro_torch.training.step, repro_torch.data.pipeline, "
             "repro_torch.checkpoint.store, repro_torch.launch.train, "
             "repro_torch.launch.mesh, repro_torch.distrib.homa_collectives, "
-            "repro_torch.tree; "
+            "repro_torch.distrib.sharding, repro_torch.launch.inputs, "
+            "repro_torch.launch.dryrun, repro_torch.tree; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro'))")
@@ -37,6 +38,19 @@ def test_import_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, check=True).stdout
     assert out.strip() == "[]"
+
+
+def test_importing_the_dry_run_starts_no_process_group():
+    """Like the JAX package's mesh module, which touches no device state,
+    the sharding, inputs, mesh and dry-run modules start no process group
+    when imported (``host_group`` would adopt one)."""
+    code = ("import torch.distributed as dist, repro_torch.distrib.sharding, "
+            "repro_torch.launch.inputs, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun; print(dist.is_initialized())")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, check=True).stdout
+    assert out.strip() == "False"
 
 
 def _imports(path: Path) -> list[str]:
@@ -52,11 +66,14 @@ def _imports(path: Path) -> list[str]:
 def test_no_file_of_the_port_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
+        ROOT / "tests" / "torch_sharded_worker.py",
         ROOT / "examples" / "torch_homa_gradient_sync.py"]
     assert len(files) > 10
     for mod in ("training/optimizer.py", "training/step.py",
                 "data/pipeline.py", "checkpoint/store.py", "launch/train.py",
-                "launch/mesh.py", "distrib/homa_collectives.py"):
+                "launch/mesh.py", "distrib/homa_collectives.py",
+                "distrib/sharding.py", "launch/inputs.py",
+                "launch/dryrun.py"):
         assert PORT / mod in files, mod
     for f in files:
         for name in _imports(f):
