@@ -10,7 +10,9 @@ result line:
            builds of ``kernels/arbiter/csrc/arbiter.cu``,
            ``kernels/ssd/csrc/ssd.cu`` and
            ``kernels/attention/csrc/attention.cu`` for sm_90a, started
-           together, and their times
+           together, and their times; every instantiation of the
+           tensor-core attention kernel must build with no spill and no
+           serialized wgmma
 2. kernels each hand-written kernel against its plain PyTorch version on
            the card — full-width shapes of the main path (and the
            arbiter's at the B = 12 staged sweep's 1728 rows), ragged
@@ -176,9 +178,10 @@ result line:
            kernel against ``attention_ref`` at MLA's shape on synthetic
            inputs and on layer 0's q, k, v of a real 4 x 4096 prefill (the
            tensor-core kernel's three q/k panels), at StableLM-12B's
-           full-width shape (32 heads over 8 of 160, on the CUDA-core
-           kernel) and on edge cases (d 192 with Sq < 8, kv_len < Skv, a
-           window with GQA, fp32; d 256 / dv 256 in bf16 and fp32), the
+           shape at 4 x 4096 (32 heads over 8 of 160, on the tensor-core
+           kernel's wide design) and on edge cases (d 192 with Sq < 8,
+           kv_len < Skv, a window with GQA, fp32; d 160 with a window and
+           with kv_len < Skv; d 256 / dv 256 in bf16 and fp32), the
            counters showing each call's design, both full-width shapes
            timed beside ``attention_ref``, one
            ``scaled_dot_product_attention`` call and the bound; (b)
@@ -230,11 +233,23 @@ result line:
            lie within 10% of ``max_memory_allocated`` after
            ``reset_peak_memory_stats``; (a)'s processes start before
            phase 12 (they run nothing on the card), (b)'s together
+15. stablelm StableLM-12B whole at full width (40 layers, d_model 5120,
+           32 heads over 8 KV heads of 160, d_ff 13824, vocab 100352;
+           random bf16 weights from a seed, 24.3 GB on the card):
+           ``forward_prefill`` of 2 x 4096 tokens on the kernel (40
+           launches, all on the tensor cores' wide design, counted and
+           seen by the profiler; tokens/s, peak memory, device time, busy
+           share, attention's share of the device time) against the
+           ``use_kernel=False`` path on the card (last-position logits and
+           every layer's k/v cache, within ``STABLELM_TOL``); then
+           ``repro_torch.launch.serve.main`` at full width, 8 requests,
+           whose statistics must equal the JAX package's
+           (``STABLELM_SERVE_EXPECTED``)
 
 ``--phases card,deepseek`` (any comma-separated subset of card, kernels,
 goldens, full, window, sweep, model, llama, faults, host, train,
-deepseek, xattn, dryrun) runs only those phases and prints no result
-lines; with no arguments every phase runs.
+deepseek, xattn, dryrun, stablelm) runs only those phases and prints no
+result lines; with no arguments every phase runs.
 
 Then one JSON line with each kernel's numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -243,6 +258,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -283,6 +299,9 @@ MODEL_TOL = dict(layer=2e-3, logits=0.35, decode_layer=5e-2,
                  decode_logits=0.35)
 LLAMA = dict(arch="llama3.2-3b", batch=4, seq=4096, seed=0)
 TC_BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
+# instantiations of flash_attention_tc_kernel in csrc/attention.cu: the
+# narrow design's six (DP 1-3 x DVP 1-2), the wide design's three
+TC_ATTN_INSTANCES = 9
 # flash-attention kernel vs attention_ref, elementwise |got - want| <=
 # tol + tol |want|: the JAX package's own tolerances for its kernel vs
 # oracle (tests/test_kernels.py), fp32 arithmetic in both
@@ -311,8 +330,8 @@ SERVE_EXPECTED = {"served": 64, "steps": 747,
                   "mean_slowdown": 1.3890566225810979,
                   "p99_slowdown": 4.0776315789473685}
 DEEPSEEK = dict(arch="deepseek-v2-lite-16b", batch=4, seq=4096, seed=0)
-# StableLM-12B's full-width prefill attention (32 heads over 8 KV heads of
-# 160 at 4 x 4096): a shape the tensor-core kernel does not take (dv 160)
+# StableLM-12B's prefill attention at 4 x 4096 (32 heads over 8 KV heads
+# of 160): the tensor-core kernel's wide design (dv above 128)
 STABLELM_ATTN = dict(batch=4, seq=4096, heads=32, kv_heads=8, head_dim=160)
 # relative RMS error of DeepSeek's kernel path against the plain path,
 # measured on the CPU with the kernel's plain version by ``python
@@ -407,12 +426,41 @@ def phase_card():
     for lib, dt in zip(libs, secs):
         say(f"[card] built {lib.library_path()} in {dt:.2f} s")
         for line in lib.build_log().splitlines():
-            if "ptxas" in line and ("registers" in line
-                                    or "Compiling" in line
-                                    or "spill" in line
-                                    or "Performance Loss" in line):
+            if "spill" in line or "ptxas" in line and (
+                    "registers" in line or "Compiling" in line
+                    or "Performance Loss" in line):
                 say(f"[card]   {line.strip()}")
+    # every instantiation of the tensor-core attention kernel: no spill,
+    # and no wgmma serialized (C7512/C7514) for want of registers
+    log = attn_kernel.LIBRARY.build_log()
+    spills = {fn: sp for fn, sp in _ptxas_spills(log).items()
+              if "flash_attention_tc_kernel" in fn}
+    loss = [line for line in log.splitlines() if "Performance Loss" in line
+            and "flash_attention_tc_kernel" in line]
+    check(len(spills) == TC_ATTN_INSTANCES
+          and all(sp == (0, 0) for sp in spills.values()) and not loss,
+          f"flash_attention_tc_kernel: spills {spills} over "
+          f"{TC_ATTN_INSTANCES} instantiations, ptxas notes {loss}")
+    say(f"[card] flash_attention_tc_kernel: {len(spills)} instantiations, "
+        f"no spill, no serialized wgmma")
     return smi
+
+
+def _ptxas_spills(log: str) -> dict:
+    """{function: (spill store bytes, spill load bytes)} from the
+    ``-Xptxas=-v`` lines of a build log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            out[fn] = (int(m.group(1)), int(m.group(2)))
+            fn = None
+    return out
 
 
 # ------------------------------------------------------------- phase 2 -----
@@ -3230,10 +3278,10 @@ def phase_deepseek():
         sq, sk, sv = synth(st["batch"], st["seq"], st["heads"],
                            st["kv_heads"], st["head_dim"], st["head_dim"])
         out["stablelm_max_abs_err"] = _attn_check(
-            "StableLM-12B's full-width shape (dv 160: CUDA cores)", sq, sk,
-            sv, tc=False, tag="deepseek")
+            "StableLM-12B's full-width shape (dv 160: the tensor cores' wide "
+            "design)", sq, sk, sv, tag="deepseek")
         out["stablelm"] = _attn_times("deepseek", "StableLM-12B's shape", sq,
-                                      sk, sv, tc=False)
+                                      sk, sv, tc=True)
         del sq, sk, sv
         _attn_check("d 192, Sq < 8", *synth(Bsz, 5, H, H, d, dv),
                     tag="deepseek")
@@ -3242,6 +3290,12 @@ def phase_deepseek():
                     tag="deepseek")
         _attn_check(f"d 192, window 256, GQA {H} over {max(1, H // 4)}",
                     *synth(2, 2048, H, max(1, H // 4), d, dv), window=256,
+                    tag="deepseek")
+        _attn_check("d 160, window 256, GQA 4 (wide design)",
+                    *synth(2, 2048, 32, 8, 160, 160), window=256,
+                    tag="deepseek")
+        _attn_check("d 160, kv_len 3000 of 4095 (wide design)",
+                    *synth(1, Slen - 1, 32, 8, 160, 160), kv_len=3000,
                     tag="deepseek")
         _attn_check("d 192, fp32 (CUDA cores)",
                     *synth(2, 1024, H, H, d, dv, torch.float32), tc=False,
@@ -3960,10 +4014,186 @@ def phase_dryrun(cells=None):
     return res
 
 
+# ------------------------------------------------------------ phase 15 -----
+
+STABLELM = dict(arch="stablelm-12b", batch=2, seq=4096, seed=0)
+# relative RMS error of the kernel path against the plain path
+# (blockwise_attention, which rounds p to bf16 before p.V), measured on
+# the CPU with the kernel's plain version by ``python
+# tests/test_torch_stablelm.py`` (40 layers of head width 160 at d_model
+# 640, 2 x 512 tokens, 2 seeds): last-position logits 2.1e-2, the k/v
+# caches of all layers 1.6e-2. Each bound ~4x its measurement
+STABLELM_TOL = dict(logits=8e-2, cache=6e-2)
+# phase 15's serve: 8 requests (177 decode steps of the 12B model). Its
+# statistics, computed with the JAX package's ``repro.launch.serve.main``
+# on the CPU with ``["--arch", "stablelm-12b", "--smoke",
+# *STABLELM_SERVE_ARGV]``; tests/test_torch_stablelm.py checks both
+# packages against them
+STABLELM_SERVE_ARGV = ["--requests", "8", "--batch-size", "4"]
+STABLELM_SERVE_EXPECTED = {"served": 8, "steps": 177,
+                           "mean_slowdown": 0.8422611109699926,
+                           "p99_slowdown": 0.9921741854636591}
+
+
+def phase_stablelm():
+    """Phase 15: StableLM-12B whole at full width on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.arbiter import kernel as arb_kernel
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    dev = torch.device(DEVICE)
+    cfg = get_config(STABLELM["arch"])
+    Bsz, Slen, V = STABLELM["batch"], STABLELM["seq"], cfg.vocab_size
+    fa = attn_kernel.flash_attention
+    calls = cfg.num_layers
+    out = {}
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        say(f"[stablelm] {what} at +{time.perf_counter() - t_phase:.1f} s")
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(dev).manual_seed(STABLELM["seed"])
+    t0 = time.perf_counter()
+    params = init_params(M.model_defs(cfg), gen, dev)
+    tokens = torch.randint(0, V, (Bsz, Slen), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    out["weights_gb"] = torch.cuda.memory_allocated() / 1e9
+    say(f"[stablelm] {cfg.name}: {M.count_model_params(cfg)} parameters "
+        f"(bf16), {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {V} ({cfg.padded_vocab()} padded); random "
+        f"weights, seed {STABLELM['seed']}; init "
+        f"{time.perf_counter() - t0:.2f} s, {out['weights_gb']:.2f} GB on "
+        f"the card")
+    with torch.inference_mode():
+        # no warm-up prefill (a 2 x 4096 prefill is ~4 s of fp32 GEMMs):
+        # phase 12(a) has loaded the wide design, phases 8-13 cuBLAS
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.launches_tc = 0
+        ssd_kernel.ssd_scan.launches = 0
+        arb_kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, caches = M.forward_prefill(cfg, params, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"], out["launches_tc"] = fa.launches, fa.launches_tc
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(out["launches"] == out["launches_tc"] == calls,
+              f"prefill launched the attention kernel {out['launches']} "
+              f"times, {out['launches_tc']} of them on the tensor cores; "
+              f"expected one per layer ({calls}), all on them")
+        check(ssd_kernel.ssd_scan.launches == 0
+              and not any(arb_kernel.launch_counts().values()),
+              "the prefill launched an SSD or arbitration kernel")
+        check(logits.shape == (Bsz, cfg.padded_vocab())
+              and bool(torch.isfinite(logits).all())
+              and bool((logits[:, V:] == -1e9).all()),
+              "prefill logits: wrong shape, not finite or padding unmasked")
+        out["tokens_per_s"] = Bsz * Slen / wall
+        out["prefill_ms"] = wall * 1e3
+        say(f"[stablelm] prefill {Bsz} x {Slen} tokens on the kernel: "
+            f"{wall * 1e3:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, peak "
+            f"memory {out['peak_gb']:.2f} GB; flash_attention launches "
+            f"{out['launches']}, on the tensor cores {out['launches_tc']}")
+        # device activity only, and a window that lost a launch's record
+        # is taken again, at most twice (as phase 13's)
+        for attempt in range(3):
+            _, pwall, ev = _profiled(lambda: M.forward_prefill(
+                cfg, params, tokens), cpu=False, idle=0.5)
+            hits = [e for e in ev if "flash_attention_tc_kernel" in e[0]]
+            seen = sum(h[1] for h in hits)
+            if seen == calls:
+                break
+            say(f"[stablelm] profiler window {attempt + 1} recorded {seen} "
+                f"of the {calls} attention launches the counters saw")
+        busy = sum(e[2] for e in ev)
+        check(seen == calls
+              and not any("flash_attention_kernel" in e[0] for e in ev),
+              f"profiler: flash_attention_tc_kernel launched "
+              f"{[h[1] for h in hits]} times, expected {calls} and no "
+              f"CUDA-core attention kernel")
+        attn_us = sum(h[2] for h in hits)
+        out["device_ms_per_launch"] = attn_us / calls / 1e3
+        out["busy"] = busy / 1e6 / pwall
+        out["device_ms"] = busy / 1e3
+        out["attention_share"] = attn_us / busy
+        say(f"[stablelm] profiled prefill: {pwall * 1e3:.1f} ms wall, device "
+            f"busy {out['busy']:.4f}, {out['device_ms']:.2f} ms device time, "
+            f"{sum(e[1] for e in ev)} kernels; attention "
+            f"{out['device_ms_per_launch']:.4f} ms device time per launch, "
+            f"{out['attention_share']:.4f} of the device time")
+        out["shares"] = _kernel_shares(ev, busy, "stablelm")
+        mark("prefill and its profile done")
+
+        # against the plain path on the card: last-position logits and
+        # every layer's k/v cache
+        fa.launches = 0
+        t0 = time.perf_counter()
+        plain, pcaches = M.forward_prefill(cfg, params, tokens,
+                                           use_kernel=False)
+        torch.cuda.synchronize()
+        out["plain_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        check(fa.launches == 0, "the plain prefill launched the attention "
+                                "kernel")
+        err = _rel(logits[:, :V], plain[:, :V])
+        agree = float((logits[:, :V].argmax(-1)
+                       == plain[:, :V].argmax(-1)).float().mean())
+        kc, pc = caches["blocks"]["s0"], pcaches["blocks"]["s0"]
+        cache_err = max(_rel(kc[key], pc[key]) for key in ("k", "v"))
+        out["logits_rel"], out["cache_rel"] = err, cache_err
+        say(f"[stablelm] plain prefill (blockwise_attention, no attention "
+            f"launch): {out['plain_prefill_ms']:.1f} ms wall; last-position "
+            f"logits rel RMS {err:.4f} (tolerance {STABLELM_TOL['logits']}), "
+            f"argmax agrees on {agree:.2f} of rows; k/v caches of all "
+            f"{calls} layers rel RMS {cache_err:.2e} (tolerance "
+            f"{STABLELM_TOL['cache']})")
+        check(err <= STABLELM_TOL["logits"], "kernel and plain prefill "
+                                             "logits differ beyond the "
+                                             "tolerance")
+        check(cache_err <= STABLELM_TOL["cache"], "kernel and plain prefill "
+                                                  "caches differ beyond the "
+                                                  "tolerance")
+        del logits, caches, plain, pcaches, kc, pc
+    del params, tokens
+    torch.cuda.empty_cache()
+    mark("checks done")
+
+    # the serving loop at full width (it draws its own weights; decode
+    # runs no attention kernel, as in the JAX package)
+    torch.cuda.synchronize()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", STABLELM["arch"], *STABLELM_SERVE_ARGV,
+                      "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    got = {k: res[k] for k in STABLELM_SERVE_EXPECTED}
+    check(got == STABLELM_SERVE_EXPECTED,
+          f"serve statistics {got} != the JAX package's "
+          f"{STABLELM_SERVE_EXPECTED}")
+    check(fa.launches == 0, "the serve's decode launched the attention "
+                            "kernel")
+    out["decode_steps_per_s"] = res["steps"] / wall
+    say(f"[stablelm] serve {STABLELM['arch']} {' '.join(STABLELM_SERVE_ARGV)}"
+        f": {got} == the JAX package's (mean slowdown "
+        f"{got['mean_slowdown']:.4f}, p99 {got['p99_slowdown']:.4f}); "
+        f"{wall:.2f} s wall (parameter init included), "
+        f"{out['decode_steps_per_s']:.1f} decode steps/s at batch "
+        f"{STABLELM_SERVE_ARGV[-1]}")
+    torch.cuda.empty_cache()
+    mark("done")
+    return out
+
+
 # ---------------------------------------------------------------- main -----
 
 PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model",
-          "llama", "faults", "host", "train", "deepseek", "xattn", "dryrun")
+          "llama", "faults", "host", "train", "deepseek", "xattn", "dryrun",
+          "stablelm")
 
 
 def main(argv=None) -> int:
@@ -4035,6 +4265,8 @@ def main(argv=None) -> int:
             res["xattn"] = run("xattn", phase_xattn)
         if "dryrun" in phases:
             res["dryrun"] = run("dryrun", phase_dryrun, early)
+        if "stablelm" in phases:
+            res["stablelm"] = run("stablelm", phase_stablelm)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4134,6 +4366,14 @@ def main(argv=None) -> int:
         say(f"[summary] dry-run memory model, {name}: peak predicted "
             f"{r['predicted']['peak_bytes'] / 1e9:.3f} GB, card "
             f"{r['peak_bytes'] / 1e9:.3f} GB")
+    sl = res["stablelm"]
+    say(f"[summary] stablelm-12b (phase 15): prefill "
+        f"{sl['tokens_per_s']:.0f} tokens/s (2 x 4096, "
+        f"{sl['prefill_ms']:.1f} ms), {sl['device_ms']:.1f} ms device time, "
+        f"busy {sl['busy']:.4f}, attention {sl['attention_share']:.4f} of "
+        f"it ({sl['device_ms_per_launch']:.4f} ms a launch), peak "
+        f"{sl['peak_gb']:.2f} GB; serve {sl['decode_steps_per_s']:.1f} decode "
+        f"steps/s (batch 4)")
     say("[summary] attention at phase 13's calls (ms vs bound): " + "; ".join(
         f"{r['name']} {r['ms']:.4f} vs {r['bound_ms']:.4f}"
         for r in xa["shapes"]))
@@ -4226,15 +4466,19 @@ def main(argv=None) -> int:
          "launches_tc": llama["launches_tc"],
          "cuda_core_ms": llama["cuda_core_ms"],
          # phase 12's path: DeepSeek-V2-Lite's prefill at MLA's (192, 128)
-         # on the tensor cores; StableLM's (160, 160) on the CUDA cores is
-         # timed and checked only (no path of the script runs that model,
-         # so it has no launches)
+         # on the tensor cores
          "mla": {"launches": ds["launches"],
                  "launches_tc": ds["launches_tc"],
                  "max_abs_err": ds["max_abs_err"],
                  "device_ms_per_launch": ds["device_ms_per_launch"],
                  **ds["mla"]},
-         "stablelm": {"max_abs_err": ds["stablelm_max_abs_err"],
+         # phase 15's path: StableLM-12B's 2 x 4096 prefill, every call on
+         # the tensor cores' wide design (dv 160); checked and timed at
+         # phase 12(a)'s 4 x 4096
+         "stablelm": {"launches": sl["launches"],
+                      "launches_tc": sl["launches_tc"],
+                      "max_abs_err": ds["stablelm_max_abs_err"],
+                      "device_ms_per_launch": sl["device_ms_per_launch"],
                       **ds["stablelm"]},
          # phase 13's path: Whisper-small's and Llama-3.2-Vision's
          # prefills, every call on the tensor cores; each call's

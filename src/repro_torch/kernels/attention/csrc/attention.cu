@@ -21,18 +21,21 @@
 //
 // * flash_attention_tc_kernel, for bf16 operands whose rows TMA can load
 //   (d and dv multiples of 8, 16-byte aligned) with d <= 192 and
-//   dv <= 128 (MLA's 192-wide q.k and 128-wide v among them): both
-//   products on the bf16
-//   tensor cores (wgmma), K and V through a TMA + mbarrier ring. p is
-//   fp32; it splits exactly into p_hi = bf16(p) and p_lo = bf16(p - p_hi)
-//   (p - p_hi is exact in fp32, and p_lo leaves at most 2^-17 p), so
-//   p.v = p_hi.v + p_lo.v is two bf16 products with exact products and
-//   fp32 sums: the same function as fp32 p.v to ~1e-6 relative, where
-//   rounding p to bf16 alone would move the output ~2e-3 (a different
-//   function; tests/test_torch_attention.py models both).
+//   dv <= 160: both products on the bf16 tensor cores (wgmma), K and V
+//   through a TMA + mbarrier ring. p is fp32; it splits exactly into
+//   p_hi = bf16(p) and p_lo = bf16(p - p_hi) (p - p_hi is exact in fp32,
+//   and p_lo leaves at most 2^-17 p), so p.v = p_hi.v + p_lo.v is two
+//   bf16 products with exact products and fp32 sums: the same function
+//   as fp32 p.v to ~1e-6 relative, where rounding p to bf16 alone would
+//   move the output ~2e-3 (a different function;
+//   tests/test_torch_attention.py models both). Two designs of it: the
+//   narrow one for dv <= 128 (128-key tiles; MLA's 192-wide q.k and
+//   128-wide v among them) and the wide one for dv in (128, 160]
+//   (StableLM's 160; below).
 // * flash_attention_kernel, the first design, on the fp32 CUDA cores: for
 //   fp32 inputs (held to attention_ref within 2e-5) and bf16 shapes the
-//   tensor-core kernel does not take (dv above 128: StableLM's 160).
+//   tensor-core kernel does not take (d above 192 or dv above 160, as
+//   (256, 256); d or dv not a multiple of 8).
 //
 // Both take d and dv up to 256, every head width of the registered
 // configurations.
@@ -43,31 +46,47 @@
 // bf16 tensor cores (989 TFLOP/s) the function is three such products,
 // q.k, p_hi.v and p_lo.v: 618.6 GFLOP, 0.6255 ms. That is the bound.
 //
-// Tensor-core design: one block of three warpgroups per (128-row q tile,
-// head, batch), heaviest causal tiles first. Warpgroup 0 is the producer:
-// one thread loads the q tile once and then K and V tiles of 128 keys
-// with TMA into a ring of two stages (128-byte swizzled 64-column panels,
-// out-of-bounds rows and columns zero-filled), each guarded by a "full"
-// mbarrier (transaction bytes) and an "empty" one (8 consumer warps).
-// Warpgroups 1 and 2 own 64 query rows each (setmaxnreg moves registers
-// to them) and, per tile: S = Q K^T by wgmma m64n128k16 from shared
-// memory into 64 fp32 registers; mask (only on tiles that need it), row
-// max by quad shuffles, corr = exp(m - m_new), p = exp(s - m_new), l
-// summed from the fp32 p; O *= corr; then O += p_hi V and O += p_lo V by
-// wgmma with A from registers (the S accumulator's layout is the A
-// fragment's, so p needs no shuffle) and V row-major in shared memory
-// (the transpose bit). At the end o = O / max(l, 1e-30), rounded to
-// bf16. The accurate expf is used (no fast math).
+// Tensor-core design: one block of two warpgroups per (128-row q tile,
+// head, batch), heaviest causal tiles first. Each warpgroup owns 64 query
+// rows. Thread 0 loads the q tile once and K and V tiles with TMA into a
+// ring of two stages (128-byte swizzled 64-column panels, out-of-bounds
+// rows and columns zero-filled), each guarded by a "full" mbarrier
+// (transaction bytes) and an "empty" one (8 warps); it refills the stage
+// of tile t-1 with tile t+1 while tile t's q.k runs. Per tile: S = Q K^T
+// by wgmma from shared memory into fp32 registers; mask (only on tiles
+// that need it), row max by quad shuffles, corr = exp(m - m_new),
+// p = exp(s - m_new), l summed from the fp32 p; O *= corr; then
+// O += p_hi V and O += p_lo V by wgmma with A from registers (the S
+// accumulator's layout is the A fragment's, so p needs no shuffle) and V
+// row-major in shared memory (the transpose bit). At the end
+// o = O / max(l, 1e-30), rounded to bf16. The accurate expf is used (no
+// fast math).
 //
-// What holds it back. The two consumer warpgroups, released by the same
-// barriers, compute their softmax at the same time, and the tensor cores
-// idle then; loads are not the limit (the consumers wait little on the
-// full barriers). Overlapping one warpgroup's softmax with products (the
-// FlashAttention-3 ping-pong, with tile t+1's q.k issued beside tile t's
-// p.v) needs more registers than a consumer thread has at 128-key tiles
-// (O, S and p_hi/p_lo take 64 each): ptxas then serializes the wgmmas
-// (C7512, which chip_smoke.py prints) or spills. At 64-key tiles it fits
-// but gains nothing.
+// The narrow design (dv <= 128): 128-key tiles, S in 64 registers, q.k
+// over 4 DP k16 steps of DP = ceil(d / 64) q/k panels, p.V 64 DVP wide.
+//
+// The wide design (dv in (128, 160]) and why it is shaped so. Three v
+// panels at 128-key tiles would take 1 KB + (3 + 2 (3 + 3)) 16 KB = 241
+// KB of shared memory, past the 227 KB a block may take. So: 112-key
+// tiles (S in 56 registers, p.V over 7 k16 steps), 1 KB + 48 KB of q +
+// two stages of (42 + 42) KB of K and V = 217 KB; a p.V of exactly 160
+// columns (wgmma n 160, O in 80 registers, where padding to 192 would
+// multiply a sixth more); and q.k over exactly ceil(d / 16) k16 steps, 10
+// at d 160 (the third panel's zero-filled half is not multiplied; 8 for
+// d <= 128, 12 past 160). p stays in registers, as in the narrow design.
+//
+// Why two warpgroups and no producer warpgroup: at 384 threads ptxas
+// gives no thread more than 168 registers, whatever setmaxnreg asks, and
+// the instantiations whose O takes 64 registers or more spill there; at
+// 256 a thread may take 255 and none spills (chip_smoke.py phase 1
+// checks every instantiation).
+//
+// What holds it back. The two warpgroups, released by the same barriers,
+// compute their softmax at the same time, and the tensor cores idle then.
+// Overlapping one warpgroup's softmax with products (the FlashAttention-3
+// ping-pong, with tile t+1's q.k issued beside tile t's p.v) needs S, p
+// and O live at once; p kept in shared memory instead of registers would
+// make room for it.
 //
 // Masked scores are the finite NEG_INF, never -inf: a row whose first
 // tiles are all masked gets p = exp(0) = 1 there until a valid key
@@ -77,8 +96,8 @@
 // the masks alone: the tiles up to the last valid key of its rows (from
 // the first one that can hold a valid key, under a window), or every
 // tile when one of its rows has no valid key at all, so that row
-// averages all keys. Producer and consumers compute that range alike and
-// need no flag between them.
+// averages all keys. Every warp computes that range alike; the loader
+// needs no flag from the others.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -376,27 +395,26 @@ namespace tc {
 using namespace hopper;
 
 constexpr int BQ = 128;             // query rows per block
-constexpr int BK = 128;             // keys per tile
 constexpr int STAGES = 2;           // K/V tiles in flight
-constexpr int kThreads = 384;       // producer + two consumer warpgroups
+constexpr int kThreads = 256;       // two warpgroups; thread 0 also loads
 constexpr int PANEL = 64;           // bf16 columns in a 128-byte row
-constexpr uint32_t TILE = 128 * 128;  // bytes of one 128-row panel
 constexpr uint32_t ROW_BYTES = 128;
-// Widest q/k (3 panels) and v (2 panels) rows. O holds 32 DVP fp32
-// registers a thread beside S's 64 and p_hi/p_lo's 64: at DVP 3 that is
-// past the 232 a consumer thread gets, so wider v goes to the CUDA-core
-// kernel. Shared memory at <3, 2>: 1 KB of alignment, the q tile and two
-// K/V stages, (3 + 2 (3 + 2)) 16 KB, and the barriers, ~209 KB of the
-// 227 KB a block may take.
+constexpr uint32_t TILE = BQ * ROW_BYTES;  // bytes of one 128-row panel
+// Widest q/k and v rows: three 64-column q/k panels; v up to 128 on the
+// narrow design, up to 160 on the wide one (see the header comment).
 constexpr int kTcMaxD = 192;
-constexpr int kTcMaxDv = 128;
+constexpr int kTcMaxDv = 160;
+constexpr int kNarrowMaxDv = 128;
+constexpr int kNarrowBK = 128;      // keys per tile, narrow design
+constexpr int kWideBK = 112;        // and wide
 
-// The key tiles [start, end) a block visits (see the header comment).
-// Every warp of the block computes it alike.
+// The key tiles [start, end) a block visits (see the header comment), in
+// tiles of BK keys. Every warp of the block computes it alike.
 struct TileRange {
   int start, end;
 };
 
+template <int BK>
 __device__ TileRange key_tiles(int q0, int Sq, int Skv, int causal,
                                int has_window, int window, int kv_len) {
   const int lane = threadIdx.x & 31;
@@ -417,20 +435,30 @@ __device__ TileRange key_tiles(int q0, int Sq, int Skv, int causal,
   return {start, (kv_hi + BK - 1) / BK};
 }
 
-// DP, DVP: 64-column panels of q/k (d <= 64 DP) and of v (dv <= 64 DVP);
-// DP up to 3 (S takes 4 DP k16 steps), DVP up to 2.
-template <int DP, int DVP>
+// KS: k16 steps of q.k (d <= 16 KS), over DP = ceil(KS / 4) 64-column
+// q/k panels; NV: columns of the p.V product (dv <= NV, a multiple of 8),
+// over DVP = ceil(NV / 64) v panels; BK: keys per tile (a multiple of 16).
+// The narrow design is <4 DP, 64 DVP, 128> with DP <= 3, DVP <= 2; the
+// wide one <KS, 160, 112>.
+template <int KS, int NV, int BK>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
     int Sq, int Skv, int H, int KV, int dv, int causal, int has_window,
     int window, int kv_len, float scale) {
+  constexpr int DP = (KS + 3) / 4, DVP = (NV + 63) / 64;
+  constexpr uint32_t KVP = BK * ROW_BYTES;  // bytes of one K or V panel
+  constexpr int NS = BK / 2;    // S registers a thread: 64 x BK / 128
+  constexpr int NO = NV / 2;    // O registers a thread: 64 x NV / 128
+  constexpr int PK = BK / 16;   // k16 steps of p.V
+  static_assert(BK % 16 == 0 && NV % 8 == 0 && DP <= 3 && DVP <= 3,
+                "tile shape");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sK = sQ + DP * TILE;             // stage s: + s DP TILE
-  const uint32_t sV = sK + STAGES * DP * TILE;    // stage s: + s DVP TILE
-  const uint32_t bars = sV + STAGES * DVP * TILE;
+  const uint32_t sK = sQ + DP * TILE;             // stage s: + s DP KVP
+  const uint32_t sV = sK + STAGES * DP * KVP;     // stage s: + s DVP KVP
+  const uint32_t bars = sV + STAGES * DVP * KVP;
   const uint32_t full_q = bars;
   auto full_k = [&](int s) { return bars + 8 * (1 + s); };
   auto full_v = [&](int s) { return bars + 8 * (1 + STAGES + s); };
@@ -446,54 +474,48 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_k(s), 1);
       mbar_init(full_v(s), 1);
-      mbar_init(empty(s), 8);  // one arrival per consumer warp
+      mbar_init(empty(s), 8);  // one arrival per warp
     }
     mbar_init_fence();
   }
   __syncthreads();
   const TileRange tiles =
-      key_tiles(q0, Sq, Skv, causal, has_window, window, kv_len);
+      key_tiles<BK>(q0, Sq, Skv, causal, has_window, window, kv_len);
 
-  if (warp < 4) {
-    // producer warpgroup: one thread issues every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 0) {
-      tma_prefetch_map(&tm_q);
-      tma_prefetch_map(&tm_k);
-      tma_prefetch_map(&tm_v);
-      mbar_arrive_expect_tx(full_q, DP * TILE);
+  // thread 0 issues every load: key tile t into stage s
+  auto load_kv = [&](int t, int s) {
+    mbar_arrive_expect_tx(full_k(s), DP * KVP);
 #pragma unroll
-      for (int p = 0; p < DP; ++p)
-        tma_load_4d(sQ + p * TILE, &tm_q, full_q, p * PANEL, h, q0, b);
-      for (int t = tiles.start, i = 0; t < tiles.end; ++t, ++i) {
-        const int s = i % STAGES;
-        if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
-        mbar_arrive_expect_tx(full_k(s), DP * TILE);
+    for (int p = 0; p < DP; ++p)
+      tma_load_4d(sK + (s * DP + p) * KVP, &tm_k, full_k(s), p * PANEL, kvh,
+                  t * BK, b);
+    mbar_arrive_expect_tx(full_v(s), DVP * KVP);
 #pragma unroll
-        for (int p = 0; p < DP; ++p)
-          tma_load_4d(sK + (s * DP + p) * TILE, &tm_k, full_k(s), p * PANEL,
-                      kvh, t * BK, b);
-        mbar_arrive_expect_tx(full_v(s), DVP * TILE);
+    for (int p = 0; p < DVP; ++p)
+      tma_load_4d(sV + (s * DVP + p) * KVP, &tm_v, full_v(s), p * PANEL, kvh,
+                  t * BK, b);
+  };
+  if (threadIdx.x == 0) {
+    tma_prefetch_map(&tm_q);
+    tma_prefetch_map(&tm_k);
+    tma_prefetch_map(&tm_v);
+    mbar_arrive_expect_tx(full_q, DP * TILE);
 #pragma unroll
-        for (int p = 0; p < DVP; ++p)
-          tma_load_4d(sV + (s * DVP + p) * TILE, &tm_v, full_v(s),
-                      p * PANEL, kvh, t * BK, b);
-      }
-    }
-    return;
+    for (int p = 0; p < DP; ++p)
+      tma_load_4d(sQ + p * TILE, &tm_q, full_q, p * PANEL, h, q0, b);
+    for (int i = 0; i < STAGES && tiles.start + i < tiles.end; ++i)
+      load_kv(tiles.start + i, i);
   }
 
-  // consumer warpgroup c owns rows q0 + 64 c .. + 63; in the wgmma
-  // accumulator layout thread (warp w, lane 4 g + tq) holds rows
+  // warpgroup c (warps 4 c .. 4 c + 3) owns rows q0 + 64 c .. + 63; in
+  // the wgmma accumulator layout thread (warp w, lane 4 g + tq) holds rows
   // 16 w + g and 16 w + g + 8 of them (register j: row (j >> 1) & 1,
   // column 8 (j >> 2) + 2 tq + (j & 1))
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-  const int c = (warp >> 2) - 1;
+  const int c = warp >> 2;
   const int g = lane >> 2, tq = lane & 3;
   const int r_lo = q0 + 64 * c;
   const int row0 = r_lo + 16 * (warp & 3) + g;
   const int valid_hi = min(Skv, kv_len);
-  constexpr int NO = 32 * DVP;  // O registers a thread: 64 x 64 DVP / 128
 
   float acc[NO];
 #pragma unroll
@@ -506,20 +528,32 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     const uint32_t ph = (i / STAGES) & 1;
     const int k0 = t * BK;
 
-    // S = Q K^T: 64 rows x 128 keys, fp32, d / 16 steps of k16
+    // S = Q K^T: 64 rows x BK keys, fp32, KS steps of k16 (step kk reads
+    // the 32 bytes at (kk & 3) 32 of panel kk >> 2)
     mbar_wait(full_k(s), ph);
     __syncwarp();
-    float sc[64];
+    float sc[NS];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 * DP; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
       const uint32_t qa =
           sQ + (kk >> 2) * TILE + c * 64 * ROW_BYTES + (kk & 3) * 32;
-      const uint32_t ka = sK + (s * DP + (kk >> 2)) * TILE + (kk & 3) * 32;
-      wgmma_ss_n128(sc, desc_sw128(qa, 16, 1024), desc_sw128(ka, 16, 1024),
-                    kk);
+      const uint32_t ka = sK + (s * DP + (kk >> 2)) * KVP + (kk & 3) * 32;
+      const uint64_t dq = desc_sw128(qa, 16, 1024);
+      const uint64_t dk = desc_sw128(ka, 16, 1024);
+      if constexpr (BK == 128)
+        wgmma_ss_n128(sc, dq, dk, kk);
+      else
+        wgmma_ss_n112(sc, dq, dk, kk);
     }
     wgmma_commit();
+    // while q.k runs, thread 0 refills the stage of the previous tile
+    // once all eight warps are done with it
+    if (threadIdx.x == 0 && i > 0 && t + STAGES - 1 < tiles.end) {
+      const int sp = (i - 1) % STAGES;
+      mbar_wait(empty(sp), ((i - 1) / STAGES) & 1);
+      load_kv(t + STAGES - 1, sp);
+    }
     wgmma_wait_all();
     fence_regs(sc);
 
@@ -531,13 +565,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
                       (!has_window || k0 > r_lo + 63 - window);
     if (full) {
 #pragma unroll
-      for (int j = 0; j < 64; ++j) {
+      for (int j = 0; j < NS; ++j) {
         sc[j] *= scale;
         mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < 64; ++j) {
+      for (int j = 0; j < NS; ++j) {
         const int key = k0 + 8 * (j >> 2) + 2 * tq + (j & 1);
         const int row = row0 + 8 * ((j >> 1) & 1);
         float x;
@@ -565,7 +599,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     }
     float ps[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 64; ++j) {
+    for (int j = 0; j < NS; ++j) {
       sc[j] = expf(sc[j] - m[(j >> 1) & 1]);
       ps[(j >> 1) & 1] += sc[j];
     }
@@ -578,9 +612,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
 
     // p = p_hi + p_lo, each as the bf16 A fragment of k step kk: register
     // q of step kk holds accumulator registers 8 kk + 2 q and + 1
-    uint32_t phi[8][4], plo[8][4];
+    uint32_t phi[PK][4], plo[PK][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < PK; ++kk)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int j = 8 * kk + 2 * q;
@@ -592,18 +626,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
         plo[kk][q] = *reinterpret_cast<const uint32_t*>(&lo);
       }
 
-    // O += p_hi V + p_lo V: V is [128 keys x 64 DVP] row-major (MN-major
-    // for wgmma's B): 8-key groups 1024 bytes apart, panels TILE apart
+    // O += p_hi V + p_lo V: V is [BK keys x 64 DVP] row-major (MN-major
+    // for wgmma's B): 8-key groups 1024 bytes apart, panels KVP apart; an
+    // NV-column product reads the first NV columns of them
     mbar_wait(full_v(s), ph);
     __syncwarp();
-    const uint32_t vs = sV + s * DVP * TILE;
+    const uint32_t vs = sV + s * DVP * KVP;
     wgmma_fence();
 #pragma unroll
     for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t dvd = desc_sw128(vs + kk * 16 * ROW_BYTES, TILE, 1024);
-        if constexpr (DVP == 2)
+      for (int kk = 0; kk < PK; ++kk) {
+        const uint64_t dvd = desc_sw128(vs + kk * 16 * ROW_BYTES, KVP, 1024);
+        if constexpr (NV == 160)
+          wgmma_rs_n160(acc, half ? plo[kk] : phi[kk], dvd);
+        else if constexpr (NV == 128)
           wgmma_rs_n128(acc, half ? plo[kk] : phi[kk], dvd);
         else
           wgmma_rs_n64(acc, half ? plo[kk] : phi[kk], dvd);
@@ -626,7 +663,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
     __nv_bfloat16* orow =
         o + ((int64_t)b * Sq + row) * H * dv + (int64_t)h * dv;
 #pragma unroll
-    for (int n8 = 0; n8 < 8 * DVP; ++n8) {
+    for (int n8 = 0; n8 < NV / 8; ++n8) {
       const int col = 8 * n8 + 2 * tq;  // dv % 8 == 0: col + 1 < dv too
       if (col < dv)
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
@@ -637,32 +674,35 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tc_kernel(
 }
 
 // A contiguous bf16 tensor (batch, seq, heads, inner) as a 4-D map whose
-// box is one head's 128 rows x 64 columns, 128-byte swizzled.
+// box is one head's `rows` rows x 64 columns, 128-byte swizzled.
 bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
-                int inner, int heads, int seq, int batch) {
+                int inner, int heads, int seq, int batch, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)inner, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)inner * 2,
                                  (cuuint64_t)heads * inner * 2,
                                  (cuuint64_t)seq * heads * inner * 2};
-  const cuuint32_t box[4] = {PANEL, 1, 128, 1};
+  const cuuint32_t box[4] = {PANEL, 1, (cuuint32_t)rows, 1};
   return encode_bf16_sw128(fn, map, ptr, 4, dims, strides, box);
 }
 
-template <int DP, int DVP>
+template <int KS, int NV, int BK>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
                    const CUtensorMap& mv, void* o, int B, int Sq, int Skv,
                    int H, int KV, int dv, int causal, int has_window,
                    int window, int kv_len, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = 1024 + (size_t)(DP + STAGES * (DP + DVP)) * TILE +
+  constexpr int DP = (KS + 3) / 4, DVP = (NV + 63) / 64;
+  constexpr size_t smem = 1024 + (size_t)DP * TILE +
+                          (size_t)STAGES * (DP + DVP) * BK * ROW_BYTES +
                           8 * (1 + 3 * STAGES);
+  static_assert(smem <= 227 * 1024, "shared memory of one block");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<DP, DVP>,
+      flash_attention_tc_kernel<KS, NV, BK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  flash_attention_tc_kernel<DP, DVP><<<grid, kThreads, smem, stream>>>(
+  flash_attention_tc_kernel<KS, NV, BK><<<grid, kThreads, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KV, dv, causal,
       has_window, window, kv_len, scale);
   return cudaGetLastError();
@@ -705,9 +745,9 @@ int attention_launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // The tensor-core kernel: bf16 q, k, v and o, contiguous, each 16-byte
-// aligned; d a multiple of 8 in [8, 192], dv one in [8, 128] (kTcMaxD,
-// kTcMaxDv); H % KV == 0. Returns a cudaError_t, or kNoEncoder /
-// kMapRefused.
+// aligned; d a multiple of 8 in [8, 192], dv one in [8, 160] (kTcMaxD,
+// kTcMaxDv): the narrow design up to dv 128, the wide one above;
+// H % KV == 0. Returns a cudaError_t, or kNoEncoder / kMapRefused.
 int attention_tc_launch(const void* q, const void* k, const void* v, void* o,
                         int B, int Sq, int Skv, int H, int KV, int d, int dv,
                         int causal, int has_window, int window, int kv_len,
@@ -722,30 +762,33 @@ int attention_tc_launch(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const tc::EncodeTiled fn = tc::encode_tiled();
   if (fn == nullptr) return kNoEncoder;
+  const bool wide = dv > tc::kNarrowMaxDv;
+  const int bk = wide ? tc::kWideBK : tc::kNarrowBK;
   CUtensorMap mq, mk, mv;
-  if (!tc::encode_map(fn, &mq, q, d, H, Sq, B) ||
-      !tc::encode_map(fn, &mk, k, d, KV, Skv, B) ||
-      !tc::encode_map(fn, &mv, v, dv, KV, Skv, B))
+  if (!tc::encode_map(fn, &mq, q, d, H, Sq, B, tc::BQ) ||
+      !tc::encode_map(fn, &mk, k, d, KV, Skv, B, bk) ||
+      !tc::encode_map(fn, &mv, v, dv, KV, Skv, B, bk))
     return kMapRefused;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ATTN_TC(KS, NV, BK)                                                 \
+  return (int)tc::launch<KS, NV, BK>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, \
+                                     causal, has_window, window, kv_len,   \
+                                     scale, s)
+  if (wide) {
+    // 112-key tiles, a 160-column p.V; q.k over exactly ceil(d / 16) k16
+    // steps at StableLM's d 160
+    if (d > 160) ATTN_TC(12, 160, tc::kWideBK);
+    if (d > 128) ATTN_TC(10, 160, tc::kWideBK);
+    ATTN_TC(8, 160, tc::kWideBK);
+  }
   const int dp = (d + 63) / 64, dvp = (dv + 63) / 64;
-  if (dp == 3 && dvp == 2)
-    return (int)tc::launch<3, 2>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
-                                 has_window, window, kv_len, scale, s);
-  if (dp == 3)
-    return (int)tc::launch<3, 1>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
-                                 has_window, window, kv_len, scale, s);
-  if (dp == 2 && dvp == 2)
-    return (int)tc::launch<2, 2>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
-                                 has_window, window, kv_len, scale, s);
-  if (dp == 2)
-    return (int)tc::launch<2, 1>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
-                                 has_window, window, kv_len, scale, s);
-  if (dvp == 2)
-    return (int)tc::launch<1, 2>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
-                                 has_window, window, kv_len, scale, s);
-  return (int)tc::launch<1, 1>(mq, mk, mv, o, B, Sq, Skv, H, KV, dv, causal,
-                               has_window, window, kv_len, scale, s);
+  if (dp == 3 && dvp == 2) ATTN_TC(12, 128, tc::kNarrowBK);
+  if (dp == 3) ATTN_TC(12, 64, tc::kNarrowBK);
+  if (dp == 2 && dvp == 2) ATTN_TC(8, 128, tc::kNarrowBK);
+  if (dp == 2) ATTN_TC(8, 64, tc::kNarrowBK);
+  if (dvp == 2) ATTN_TC(4, 128, tc::kNarrowBK);
+  ATTN_TC(4, 64, tc::kNarrowBK);
+#undef ATTN_TC
 }
 
 const char* attention_error_string(int err) {

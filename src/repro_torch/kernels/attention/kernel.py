@@ -14,14 +14,15 @@ Which kernel a CUDA call launches (:func:`takes_tensor_cores`):
 
 * the tensor-core kernel (``flash_attention_tc_kernel``: wgmma, TMA)
   when q, k and v are bfloat16, d and dv are multiples of 8, d is at
-  most 192 and dv at most 128 (``TC_MAX_D``, ``TC_MAX_DV``), and every
+  most 192 and dv at most 160 (``TC_MAX_D``, ``TC_MAX_DV``), and every
   operand starts on a 16-byte boundary — what TMA needs to load rows,
-  and what fits a consumer thread's registers (MLA's (192, 128) runs
-  here);
+  and what fits a block's shared memory. Up to dv 128 it runs 128-key
+  tiles (MLA's (192, 128) among them), above 128 its wide design,
+  112-key tiles and a 160-column p·V (StableLM's (160, 160));
 * the CUDA-core kernel (``flash_attention_kernel``, fp32 arithmetic)
   otherwise: every float32 call, and bf16 calls with d or dv not a
-  multiple of 8, d above 192 or dv above 128 (StableLM's (160, 160)), or
-  an operand off a 16-byte boundary.
+  multiple of 8, d above 192 or dv above 160 ((256, 256)), or an operand
+  off a 16-byte boundary.
 
 Both take d and dv up to ``MAX_HEAD_DIM`` (256); wider heads raise.
 
@@ -48,7 +49,7 @@ from repro_torch.kernels.build import COMMON, CudaLibrary
 
 MAX_HEAD_DIM = 256    # the CUDA-core kernel's tiles hold 256 columns
 TC_MAX_D = 192        # the tensor-core kernel: three 64-column q/k panels
-TC_MAX_DV = 128       # and two of v (O's registers; csrc/attention.cu)
+TC_MAX_DV = 160       # and a 160-column p.V (csrc/attention.cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -103,7 +104,7 @@ def _check(q, k, v):
 def takes_tensor_cores(q, k, v) -> bool:
     """The wrapper's rule: a CUDA call runs the tensor-core kernel iff
     q, k and v are bfloat16, d and dv are multiples of 8, d <= 192,
-    dv <= 128 and each operand's data starts on a 16-byte boundary;
+    dv <= 160 and each operand's data starts on a 16-byte boundary;
     otherwise the CUDA-core kernel."""
     d, dv = q.shape[-1], v.shape[-1]
     return (q.dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0

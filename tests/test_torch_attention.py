@@ -170,9 +170,11 @@ def test_cpu_inputs_that_require_grad_take_the_plain_path():
 # ------------------- the tensor-core kernel's arithmetic, modelled ----
 
 def _tc_model(q, k, v, *, causal=True, window=None, kv_len=None,
-              split=True, block=128):
+              split=True, block=128, block_k=None):
     """A plain-torch model of ``flash_attention_tc_kernel``'s arithmetic:
-    per 128-row q block, the key tiles its masks need (every tile when a
+    per 128-row q block, the key tiles of ``block_k`` keys (default
+    ``block``: the narrow design's 128; the wide design's 112) its masks
+    need (every tile when a
     row has no valid key), bf16 q.k with exact products summed in fp32,
     the online softmax with the finite NEG_INF, l summed from the fp32 p,
     and p.V as p_hi.V + p_lo.V with p_hi = bf16(p), p_lo = bf16(p - p_hi)
@@ -181,13 +183,14 @@ def _tc_model(q, k, v, *, causal=True, window=None, kv_len=None,
     B, Sq, H, d = q.shape
     _, Skv, KV, dv = v.shape
     G = H // KV
+    bk = block if block_k is None else block_k
     scale = 1.0 / np.sqrt(d)
     kv_len = Skv if kv_len is None else kv_len
     valid_hi = min(Skv, kv_len)
     kf = k.float().repeat_interleave(G, dim=2)      # (B, Skv, H, d)
     vf = v.float().repeat_interleave(G, dim=2)
     out = torch.empty((B, Sq, H, dv))
-    n_tiles = -(-Skv // block)
+    n_tiles = -(-Skv // bk)
     for q0 in range(0, Sq, block):
         rows = torch.arange(q0, min(q0 + block, Sq))
         hi = torch.full_like(rows, valid_hi)
@@ -199,15 +202,15 @@ def _tc_model(q, k, v, *, causal=True, window=None, kv_len=None,
             t0, t1 = 0, n_tiles
         else:
             kv_hi = min(min(Skv, q0 + block) if causal else Skv, valid_hi)
-            t0 = max(0, q0 - window + 1) // block if window is not None \
+            t0 = max(0, q0 - window + 1) // bk if window is not None \
                 else 0
-            t1 = -(-kv_hi // block)
+            t1 = -(-kv_hi // bk)
         qf = q[:, q0:q0 + len(rows)].float()
         m = torch.full((B, len(rows), H), NEG_INF)
         l = torch.zeros((B, len(rows), H))
         acc = torch.zeros((B, len(rows), H, dv))
         for t in range(t0, t1):
-            keys = torch.arange(t * block, min((t + 1) * block, Skv))
+            keys = torch.arange(t * bk, min((t + 1) * bk, Skv))
             s = torch.einsum("bqhd,bjhd->bqhj", qf, kf[:, keys]) * scale
             ok = keys[None, :] < kv_len
             if causal:
@@ -288,13 +291,18 @@ def test_tc_tile_range_matches_the_oracle(causal, window, kv_len):
     ((192, 64), torch.bfloat16, 0, True),
     ((160, 128), torch.bfloat16, 0, True),
     ((192, 128), torch.float32, 0, False),
-    ((160, 160), torch.bfloat16, 0, False),      # StableLM: dv > 128
-    ((128, 136), torch.bfloat16, 0, False),
+    ((160, 160), torch.bfloat16, 0, True),       # StableLM: the wide design
+    ((128, 136), torch.bfloat16, 0, True),       # dv past 128: wide too
+    ((160, 160), torch.float32, 0, False),       # StableLM in fp32
+    ((192, 160), torch.bfloat16, 0, True),
+    ((160, 160), torch.bfloat16, 1, False),
+    ((128, 168), torch.bfloat16, 0, False),      # dv > 160
+    ((160, 168), torch.bfloat16, 0, False),
     ((200, 128), torch.bfloat16, 0, False),      # d > 192
     ((256, 256), torch.bfloat16, 0, False)])
 def test_routing_rule(shape, dtype, offset, tc):
     """``takes_tensor_cores``: bf16, d and dv multiples of 8, d <= 192,
-    dv <= 128, every operand on a 16-byte boundary; anything else goes
+    dv <= 160, every operand on a 16-byte boundary; anything else goes
     to the CUDA-core kernel (the rule reads shapes, dtypes and addresses
     only, so it is checked here on CPU tensors)."""
     d, dv = shape

@@ -1089,6 +1089,21 @@ ATTN_TC_CASES = [
     (1, 257, 257, 4, 2, 192, 128, False, 100, None),    # window, non-causal
     (1, 140, 140, 4, 2, 192, 64, True, None, None),     # <3, 1>
     (1, 140, 140, 4, 2, 160, 128, True, None, None),    # 2.5 q/k panels
+    # the wide design (dv 136..160: 112-key tiles, a 160-column p.V)
+    (2, 200, 200, 8, 2, 160, 160, True, None, None),    # StableLM, ragged
+    (1, 333, 333, 8, 2, 160, 160, True, None, None),    # past 3 key tiles
+    (1, 257, 257, 8, 2, 160, 160, True, 100, None),     # window
+    (2, 300, 300, 4, 1, 160, 160, False, None, 170),    # kv_len, GQA 4
+    (1, 260, 260, 4, 1, 160, 160, True, None, 37),      # causal + kv_len
+    (1, 200, 200, 4, 2, 160, 160, True, 2, 8),          # starved rows
+    (1, 5, 5, 4, 2, 160, 160, True, None, None),        # Sq < 8
+    (1, 300, 40, 4, 2, 160, 160, False, None, None),    # Skv < one tile
+    (2, 150, 300, 8, 2, 160, 160, False, 50, None),     # Sq < Skv, window
+    (1, 140, 140, 4, 2, 192, 160, True, None, None),    # d 192: 12 k steps
+    (1, 140, 140, 4, 2, 136, 136, True, None, None),    # d 136: 10 k steps
+    (1, 140, 140, 4, 2, 128, 144, True, None, None),    # d 128: 8 k steps
+    (1, 140, 140, 4, 2, 64, 160, False, None, None),    # d 64: a q/k panel
+                                                        # wholly past d
     # the encoder-decoder's and the cross-attention model's non-causal
     # calls: Skv 1500 (Whisper's frames) against 448 decoder tokens and
     # against itself, and 6400 image tokens with 64 heads over 8
@@ -1099,9 +1114,10 @@ ATTN_TC_CASES = [
 
 ATTN_WIDE_CASES = [
     # (B, Sq, Skv, H, KV, d, dv, causal, window, kv_len, dtype): heads the
-    # tensor-core kernel does not take (dv > 128, or fp32), on the
-    # CUDA-core kernel up to 256
-    (2, 200, 200, 8, 2, 160, 160, True, None, None, "bf16"),  # StableLM
+    # tensor-core kernel does not take (dv > 160, d > 192, or fp32), on
+    # the CUDA-core kernel up to 256
+    (2, 200, 200, 8, 2, 160, 168, True, None, None, "bf16"),  # dv past 160
+    (2, 200, 200, 8, 2, 160, 160, True, None, None, "f32"),   # StableLM fp32
     (1, 130, 130, 4, 1, 256, 256, True, None, None, "bf16"),
     (1, 150, 150, 4, 2, 192, 256, False, 40, None, "bf16"),
     (1, 5, 5, 4, 4, 192, 128, True, None, None, "f32"),       # Sq < 8
@@ -1166,9 +1182,10 @@ def test_attention_tc_kernel_matches_plain(cuda, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ATTN_WIDE_CASES)
 def test_attention_wide_heads_on_cuda_cores(cuda, case):
-    """Head widths past the tensor-core kernel's (dv above 128, d up to
-    256) and fp32 at MLA's (192, 128) run the CUDA-core kernel — one
-    launch, none on the tensor cores — and match ``attention_ref``."""
+    """Head widths past the tensor-core kernel's (dv above 160, d up to
+    256) and fp32 at MLA's (192, 128) and StableLM's (160, 160) run the
+    CUDA-core kernel — one launch, none on the tensor cores — and match
+    ``attention_ref``."""
     from repro_torch.kernels.attention.kernel import (flash_attention,
                                                       takes_tensor_cores)
     from repro_torch.kernels.attention.ref import attention_ref
@@ -1205,7 +1222,8 @@ def _misaligned(t):
 @pytest.mark.parametrize("route", ["bf16 d 128", "bf16 d 64", "fp32",
                                    "bf16 d 20", "bf16 dv 12",
                                    "bf16 misaligned", "bf16 d 192 dv 128",
-                                   "bf16 d 160 dv 160", "bf16 d 200"])
+                                   "bf16 d 160 dv 160", "fp32 d 160 dv 160",
+                                   "bf16 d 160 dv 168", "bf16 d 200"])
 def test_attention_routing_rule(cuda, route):
     """``takes_tensor_cores`` decides, and the counters show it: bf16 with
     d and dv multiples of 8 on 16-byte boundaries runs the tensor-core
@@ -1217,14 +1235,17 @@ def test_attention_routing_rule(cuda, route):
     d, dv = {"bf16 d 64": (64, 64), "bf16 d 20": (20, 20),
              "bf16 dv 12": (64, 12), "bf16 d 192 dv 128": (192, 128),
              "bf16 d 160 dv 160": (160, 160),
+             "fp32 d 160 dv 160": (160, 160),
+             "bf16 d 160 dv 168": (160, 168),
              "bf16 d 200": (200, 128)}.get(route, (128, 128))
     q, k, v = _tc_inputs(2, 70, 70, 4, 2, d, dv, 5, cuda)
-    if route == "fp32":
+    if route.startswith("fp32"):
         q, k, v = q.float(), k.float(), v.float()
     if route == "bf16 misaligned":
         q = _misaligned(q)
         assert q.data_ptr() % 16 == 2
-    tc = route in ("bf16 d 128", "bf16 d 64", "bf16 d 192 dv 128")
+    tc = route in ("bf16 d 128", "bf16 d 64", "bf16 d 192 dv 128",
+                   "bf16 d 160 dv 160")
     assert takes_tensor_cores(q, k, v) == tc
     n, n_tc = flash_attention.launches, flash_attention.launches_tc
     out = flash_attention(q, k, v, causal=True)
@@ -1232,19 +1253,21 @@ def test_attention_routing_rule(cuda, route):
     assert (flash_attention.launches - n,
             flash_attention.launches_tc - n_tc) == (1, int(tc))
     ref = attention_ref(q, k, v, causal=True)
-    if route == "fp32":
+    if route.startswith("fp32"):
         torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
     else:
         _assert_attention_close(out, ref)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "bf16 d 160"])
 def test_attention_kernels_are_deterministic(cuda, dtype):
     """Two calls on the same inputs give bit-identical outputs (no
-    atomics, a fixed order of sums) on either kernel."""
+    atomics, a fixed order of sums) on either kernel and either design
+    of the tensor-core one."""
     from repro_torch.kernels.attention.kernel import flash_attention
-    q, k, v = _tc_inputs(2, 300, 300, 6, 2, 128, 128, 8, cuda)
+    d = 160 if dtype.endswith("160") else 128
+    q, k, v = _tc_inputs(2, 300, 300, 6, 2, d, d, 8, cuda)
     if dtype == "f32":
         q, k, v = q.float(), k.float(), v.float()
     a = flash_attention(q, k, v, causal=True, window=90)
