@@ -246,10 +246,27 @@ result line:
            whose statistics must equal the JAX package's
            (``STABLELM_SERVE_EXPECTED``)
 
+16. shard the sharded sweep (``SweepSpec(shard=True)``) over gloo worlds
+           of spawned processes on the one card: (a) 6b's 12 full-width
+           runs on a world of 2, every rank's streaming statistics
+           identical to 6b's world of one and one ``fused_slot_batch``
+           launch a slot on each rank; (b) 6a's mega cell on a world of 5
+           (12 runs a protocol padded to 15, six protocols), pooled
+           histograms and completions identical to 6a's; (c) 6b's runs on
+           the world of 5 too, and runs*slots/s by world size (1, 2, 5)
+           with the card's name and power limit. Then
+           ``examples/torch_homa_network_sim.py``,
+           ``examples/torch_fabric_incast.py`` and
+           ``scripts/torch_export_trace.py`` on the card (staged ``cuda``
+           backend, its launches counted) against the same calls on the
+           CPU: identical printed tables and trace JSON; these six runs are
+           queued on the worker pool before phase 9. It runs after phase
+           10, while the pool is open
+
 ``--phases card,deepseek`` (any comma-separated subset of card, kernels,
 goldens, full, window, sweep, model, llama, faults, host, train,
-deepseek, xattn, dryrun, stablelm) runs only those phases and prints no
-result lines; with no arguments every phase runs.
+deepseek, xattn, dryrun, stablelm, shard) runs only those phases and
+prints no result lines; with no arguments every phase runs.
 
 Then one JSON line with each kernel's numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -257,6 +274,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -752,62 +770,51 @@ def _device_ms(fn, name=None, n=50) -> float:
     kernel whose name holds ``name`` (launched once a call), or of every
     kernel the call runs. Every launch must be recorded. The trace is
     kept idle for a moment before the first launch and after the last:
-    without that, some windows lost launches."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    without that, some windows lost launches (and the window opens with
+    its markers, :func:`_window`)."""
     for _ in range(5):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)
+
+    def calls():
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    _, _, prof = _window(calls)
+    kern = _device_events(prof)
     if name is not None:
-        kern = [e for e in kern if name in e.key]
-        check(len(kern) == 1 and kern[0].count == n,
-              f"profiler: {[(e.key, e.count) for e in kern]} for {name}, "
+        kern = [e for e in kern if name in e[0]]
+        check(len(kern) == 1 and kern[0][1] == n,
+              f"profiler: {[e[:2] for e in kern]} for {name}, "
               f"expected one kernel launched {n} times")
-    check(all(e.count % n == 0 for e in kern),
-          f"profiler: {[(e.key, e.count) for e in kern]}: a launch of "
+    check(all(e[1] % n == 0 for e in kern),
+          f"profiler: {[e[:2] for e in kern]}: a launch of "
           f"{name or fn} was not recorded")
-    us = sum(e.device_time_total for e in kern) / n
+    us = sum(e[2] for e in kern) / n
     check(us > 0, f"profiler shows no device time for {name or fn}")
     return us / 1e3
 
 
 def _device_ms_each(calls: dict, n=50) -> dict:
     """Device time per call, in ms, of several calls timed in turns in
-    one profiler window: ``calls`` maps a label to (fn, the name of the
-    one kernel fn launches, spaces removed); each must be recorded n
-    times."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    one profiler window (:func:`_window`): ``calls`` maps a label to (fn,
+    the name of the one kernel fn launches, spaces removed); each must be
+    recorded n times."""
     for fn, _ in calls.values():
         for _ in range(5):
             fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)
+
+    def turns():
         for _ in range(n):
             for fn, _ in calls.values():
                 fn()
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    _, _, prof = _window(turns)
+    kern = _device_events(prof)
     out = {}
     for label, (_, name) in calls.items():
-        hits = [e for e in kern if name in e.key.replace(" ", "")]
-        check(len(hits) == 1 and hits[0].count == n,
-              f"profiler: {[(e.key[:80], e.count) for e in kern]}: "
+        hits = [e for e in kern if name in e[0].replace(" ", "")]
+        check(len(hits) == 1 and hits[0][1] == n,
+              f"profiler: {[(e[0][:80], e[1]) for e in kern]}: "
               f"expected {name} launched {n} times")
-        out[label] = hits[0].device_time_total / n / 1e3
+        out[label] = hits[0][2] / n / 1e3
     return out
 
 
@@ -1021,14 +1028,19 @@ def _in_workers(fn, jobs):
 
 def _in_workers_each(calls):
     """``[fn(*args) for fn, args in calls]`` in the worker pool."""
+    return [f.result() for f in _submit_each(calls)]
+
+
+def _submit_each(calls):
+    """Futures of ``fn(*args)`` for ``calls``, queued on the worker pool
+    (started here at its first use)."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
     global _POOL
     if _POOL is None:
         _POOL = ProcessPoolExecutor(GOLDEN_WORKERS,
                                     mp_context=mp.get_context("spawn"))
-    futures = [_POOL.submit(_job, fn, args) for fn, args in calls]
-    return [f.result() for f in futures]
+    return [_POOL.submit(_job, fn, args) for fn, args in calls]
 
 
 def _job(fn, args):
@@ -1225,7 +1237,6 @@ def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
     per slot, device busy share, kernels per slot and the device time per
     launch of each hand-written kernel seen."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.protocols import get_protocol
     from repro_torch.core.sim import run_slots
     out = {}
@@ -1242,16 +1253,10 @@ def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
         say(f"[{tag}] {backend}: slots {t}..{t + 19}: no host sync in the "
             f"loop ({time.perf_counter() - t_dbg:.1f} s)")
         t_prof = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_slots(cfg, proto, S, st1, n_sched, t + 20, t + 20 + n)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kern = sorted(((e.device_time_total, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA),
-                      reverse=True)
+        _, wall, prof = _window(lambda: run_slots(
+            cfg, proto, S, st1, n_sched, t + 20, t + 20 + n), idle=0)
+        kern = sorted(((us, cnt, key) for key, cnt, us
+                       in _device_events(prof)), reverse=True)
         t_prof = time.perf_counter() - t_prof - wall
         busy_us = sum(k[0] for k in kern)
         row = dict(ms_per_slot=wall / n * 1e3, busy=busy_us / 1e6 / wall,
@@ -1304,10 +1309,11 @@ def phase_window(handoff):
 
 def _sweep_mega():
     """The committed mega cell: 6 protocols x 3 loads x 4 seeds of W1 at 8
-    hosts, each protocol one batch of 12, chunked and streaming, on the
+    hosts, each protocol one batch of 12 (split over the ranks of a
+    process group when there is one), chunked and streaming, on the
     fused backend: the pooled p99 per protocol, the completions, the
-    runs, the horizon and the seconds (phase 6 holds them to the
-    baseline's)."""
+    runs, the horizon, the seconds (phase 6 holds them to the
+    baseline's) and the pooled histogram per protocol (phase 16)."""
     from repro_torch.core import (SimConfig, SweepSpec, make_messages,
                                   run_sweep)
     from repro_torch.core.sweep import percentile_from_hist
@@ -1320,16 +1326,17 @@ def _sweep_mega():
     spec = SweepSpec(tables=tables, shared_alloc=True, shard=True,
                      chunk_slots=512, streaming=True)
     t0 = time.perf_counter()
-    done, p99 = 0, {}
+    done, p99, pooled = 0, {}, {}
     for proto in PROTOCOLS:
         cfg = SimConfig(n_hosts=8, protocol=proto, ring_cap=256,
                         max_slots=horizon, backend="fused", device=DEVICE)
         stats = run_sweep(cfg, spec)
         done += sum(s.n_complete for s in stats)
-        pooled = sum(s.hist.sum(axis=0) for s in stats)
-        p99[proto] = round(percentile_from_hist(pooled, stats[0].stream,
-                                                99.0), 4)
-    return p99, done, len(tables), horizon, time.perf_counter() - t0
+        pooled[proto] = sum(s.hist for s in stats)
+        p99[proto] = round(percentile_from_hist(
+            pooled[proto].sum(axis=0), stats[0].stream, 99.0), 4)
+    return (p99, done, len(tables), horizon, time.perf_counter() - t0,
+            pooled)
 
 
 def _mega_baseline():
@@ -1352,6 +1359,13 @@ def _sweep_config(backend):
     return dataclasses.replace(cfg, max_slots=SWEEP_SLOTS)
 
 
+def _sweep_spec(tables, shard=False):
+    """6b's sweep of ``tables`` (16a splits it over a world's ranks)."""
+    from repro_torch.core import SweepSpec
+    return SweepSpec(tables=tables, shared_alloc=True, chunk_slots=1000,
+                     streaming=True, shard=shard)
+
+
 def _sweep_job(kind, backend):
     """One run of phase 6 in a worker process:
 
@@ -1366,7 +1380,7 @@ def _sweep_job(kind, backend):
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch
-    from repro_torch.core import SweepSpec, run_sweep
+    from repro_torch.core import run_sweep
     from repro_torch.core.priorities import allocate_priorities
     from repro_torch.core.protocols import get_protocol
     from repro_torch.core.sim import (_init_state, host_state, prepare,
@@ -1386,8 +1400,7 @@ def _sweep_job(kind, backend):
         return host_state(run_slots(cfg, proto, S, st,
                                     proto.n_sched(cfg, alloc), 0,
                                     SWEEP_WINDOW_START))
-    spec = SweepSpec(tables=tables, shared_alloc=True, chunk_slots=1000,
-                     streaming=True)
+    spec = _sweep_spec(tables)
     kernel.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1408,7 +1421,7 @@ def phase_sweep():
     backends = ("fused", "cuda")
     res = _in_workers(_sweep_job, [("sweep", b) for b in backends]
                       + [("mega", None), ("warm", None)])
-    (p99, done, n_runs, horizon, wall_m), warm = res[2:]
+    (p99, done, n_runs, horizon, wall_m, pooled), warm = res[2:]
     mega = _mega_baseline()
     for proto in PROTOCOLS:
         check(p99[proto] == mega[f"p99_{proto}"],
@@ -1480,7 +1493,9 @@ def phase_sweep():
           "profiler shows no device time for the staged arbiter at B = 12")
     w["cuda"] = ws["cuda"]
     return (dict(launches["fused"], rounds=rounds["fused"]), w,
-            {b: B * SWEEP_SLOTS / wall[b] for b in wall})
+            {b: B * SWEEP_SLOTS / wall[b] for b in wall},
+            {"sweep": stats["fused"], "mega": (pooled, done, horizon),
+             "rate": B * SWEEP_SLOTS / wall["fused"]})
 
 
 # ------------------------------------------------------------- phase 7 -----
@@ -1593,24 +1608,170 @@ def _ssd_cuda_core_ms(args, chunk):
     return time_ms(call, batch=5, reps=3, warmup=1)
 
 
-def _profiled(fn, cpu: bool = True, idle: float = 0.05):
+def _window(fn, cpu: bool = True, idle: float = 0.05,
+            marker: bool = True):
     """Run ``fn`` under the profiler; returns (its result, wall seconds,
-    [(kernel name, launches, device us)]). ``cpu=False`` records device
-    activity only; ``idle`` seconds of idle trace go either side."""
+    the profiler). ``cpu=False`` records device activity only; ``idle``
+    seconds of idle trace go either side. The window opens with
+    ``MARKERS`` launches of a spin kernel (``marker=False``: without
+    them), synchronized before the idle trace: in some processes the
+    profiler drops the first kernel records of every session after the
+    first (one, two, 59 or all 64 of an earlier 64 markers seen;
+    ROADMAP C6), and the markers take that loss."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]
                  + ([ProfilerActivity.CPU] if cpu else [])) as prof:
+        if marker:
+            for _ in range(MARKERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
         time.sleep(idle)     # idle trace around the launches, as in
         t0 = time.perf_counter()    # _device_ms: windows lost launches
         r = fn()                    # without it (phase 8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(idle)
-    ev = [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    return r, wall, ev
+    return r, wall, prof
+
+
+MARKER = "spin_kernel"          # torch.cuda._sleep's kernel
+MARKERS = 256                   # a window's first launches (~1 ms)
+
+
+def _device_events(prof):
+    """[(kernel name, launches, device us)] of a profiler window, the
+    marker left out."""
+    import torch
+    return [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and MARKER not in e.key]
+
+
+def _profiled(fn, cpu: bool = True, idle: float = 0.05):
+    """:func:`_window`, returning (its result, wall seconds,
+    :func:`_device_events`)."""
+    r, wall, prof = _window(fn, cpu, idle)
+    return r, wall, _device_events(prof)
+
+
+@contextlib.contextmanager
+def _attention_calls():
+    """The attention call sites' (q shape, k shape, causal), in the order
+    of the calls made inside the block."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    calls, site = [], attn_ops.attention
+
+    def logged(q, k, v, *, causal=True, **a):
+        calls.append((tuple(q.shape), tuple(k.shape), causal))
+        return site(q, k, v, causal=causal, **a)
+    attn_ops.attention = logged
+    try:
+        yield calls
+    finally:
+        attn_ops.attention = site
+
+
+def _launch_records(prof, kernel: str, calls: list, tag: str) -> dict:
+    """How many records of the kernels whose name holds ``kernel`` each
+    view of a profiler window holds — ``key_averages()``, ``events()``
+    and kineto's raw events — beside the ``calls`` made in it. On a
+    shortfall in any view the window's trace goes to
+    ``chiprun_out/c6_<tag>.json`` and the missing launches are named by
+    their index in the call order and their shape."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    rec = {"calls": len(calls),
+           "key_averages": sum(e.count for e in prof.key_averages()
+                               if e.device_type == cuda and kernel in e.key),
+           "events": sum(1 for e in prof.events()
+                         if e.device_type == cuda and kernel in e.name),
+           "kineto": sum(1 for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == cuda and kernel in e.name()),
+           "markers": sum(1 for e in prof.profiler.kineto_results.events()
+                          if MARKER in e.name())}
+    if all(rec[v] == len(calls) for v in ("key_averages", "events",
+                                          "kineto")):
+        return rec
+    path = ROOT / "chiprun_out" / f"c6_{tag}.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    kern = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                   if e.get("cat") == "kernel" and kernel in e["name"]),
+                  key=lambda e: e["ts"])
+    rec["trace"] = len(kern)
+    rec["missing"] = _missing_launches(calls, kern)
+    say(f"[c6 {tag}] {kernel}: {len(calls)} calls; records in "
+        f"key_averages {rec['key_averages']}, events {rec['events']}, "
+        f"kineto {rec['kineto']}, the exported trace {rec['trace']} "
+        f"({path.relative_to(ROOT)}); missing: {rec['missing']}")
+    return rec
+
+
+def _counted_window(fn, calls: int, tag: str):
+    """A prefill window of phases 13 and 15 (device activity only, 0.5 s
+    of idle trace either side, the marker first): (the tensor-core
+    attention kernel's device events, its records, wall seconds, every
+    device event). A window that recorded fewer than the ``calls`` the
+    counters saw, or than the attention calls it made, keeps its trace
+    and names the missing launch (:func:`_launch_records`)."""
+    kernel = "flash_attention_tc_kernel"
+    with _attention_calls() as made:
+        _, wall, prof = _window(fn, cpu=False, idle=0.5)
+    ev = _device_events(prof)
+    hits = [e for e in ev if kernel in e[0]]
+    seen = sum(h[1] for h in hits)
+    rec = _launch_records(prof, kernel, made, tag)
+    if seen != calls or len(made) != calls:
+        say(f"[{tag}] profiler window recorded {seen} of the {calls} "
+            f"attention launches the counters saw ({len(made)} calls made "
+            f"in it; {rec})")
+    if rec["markers"] != MARKERS:
+        say(f"[{tag}] the profiler lost {MARKERS - rec['markers']} of the "
+            f"window's {MARKERS} opening marker records (ROADMAP C6)")
+    return hits, seen, wall, ev
+
+
+def _missing_launches(calls: list, kern: list) -> dict:
+    """Which of ``calls`` has no record among ``kern`` (the window's
+    trace records of the kernel, in time order), when one is missing:
+    the indices whose removal lets every record answer its call (one
+    grid for each call shape), and of those the one whose neighbours'
+    records lie furthest apart (the lost launch leaves its time idle).
+    With more than one missing, the records' grids are counted."""
+    grids = [tuple(e["args"].get("grid", ())) for e in kern]
+    if len(calls) - len(kern) != 1:
+        return {"missing": len(calls) - len(kern),
+                "records_by_grid": {str(g): grids.count(g)
+                                    for g in sorted(set(grids))}}
+
+    def answers(rest):
+        shape_grid = {}
+        return all(shape_grid.setdefault(s, g) == g
+                   for s, g in zip(rest, grids))
+
+    cands = [j for j in range(len(calls))
+             if answers(calls[:j] + calls[j + 1:])]
+
+    def gap(j):          # idle time between the records around call j
+        if 0 < j < len(kern):
+            return kern[j]["ts"] - kern[j - 1]["ts"] - kern[j - 1]["dur"]
+        return -1.0
+    inner = [gap(c) for c in cands if gap(c) >= 0]
+    j = max(cands, key=gap) if inner else None
+    if len(cands) == 1:
+        j = cands[0]
+    elif j is not None and gap(j) <= 1.6 * statistics.median(inner):
+        j = None         # even gaps: it was the first or the last
+    ends = [c for c in (cands[:1] + cands[-1:]) if j is None]
+    return {"missing": 1, "candidates": cands, "index": j,
+            "of": len(calls),
+            "shape": [calls[c] for c in ([j] if j is not None else ends)],
+            "position": [("first" if c == 0 else "last"
+                          if c == len(calls) - 1 else "middle")
+                         for c in ([j] if j is not None else ends)],
+            "gaps_us": [gap(c) for c in cands]}
 
 
 def phase_model():
@@ -3604,7 +3765,6 @@ def _xattn_model(tag, cfg, run, tol):
     import torch
     from repro_torch.kernels.arbiter import kernel as arb_kernel
     from repro_torch.kernels.attention import kernel as attn_kernel
-    from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.models import model as M
     from repro_torch.models.params import init_params
@@ -3645,20 +3805,12 @@ def _xattn_model(tag, cfg, run, tol):
         ssd_kernel.ssd_scan.launches = 0
         arb_kernel.reset_launch_counts()
         # the call sites' shapes, tallied around the counted prefill
-        tally, site = {}, attn_ops.attention
-
-        def counting(q, k, v, *, causal=True, **a):
-            s = (tuple(q.shape), tuple(k.shape), causal)
-            tally[s] = tally.get(s, 0) + 1
-            return site(q, k, v, causal=causal, **a)
-        attn_ops.attention = counting
-        try:
+        with _attention_calls() as logged:
             t0 = time.perf_counter()
             logits, _ = M.forward_prefill(cfg, params, tokens, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        finally:
-            attn_ops.attention = site
+        tally = {s: logged.count(s) for s in dict.fromkeys(logged)}
         out["launches"], out["launches_tc"] = fa.launches, fa.launches_tc
         out["by_shape"] = {f"q {s[0]} kv {s[1]} "
                            f"{'causal' if s[2] else 'non-causal'}": n
@@ -3685,22 +3837,16 @@ def _xattn_model(tag, cfg, run, tol):
             f"{out['peak_gb']:.2f} GB; flash_attention launches "
             f"{out['launches']}, on the tensor cores {out['launches_tc']}; "
             f"by call: {out['by_shape']}")
-        # a window must record every launch; the profiler now and then
-        # drops a kernel's record from a long window (one of the 5
-        # launches of a 1.4 s Vision prefill: once in PR 23, in all three
-        # windows of one run in PR 24, with CPU activity recorded too),
-        # so the window records device activity only, with 0.5 s of idle
-        # trace either side, and a window that lost one is taken again,
-        # at most twice
+        # a window must record every launch the counters saw: it opens
+        # with the marker (ROADMAP C6), records device activity only with
+        # 0.5 s of idle trace either side, and one that lost a record
+        # (its trace kept, the launch named) is taken again, at most twice
         for attempt in range(3):
-            _, pwall, ev = _profiled(lambda: M.forward_prefill(
-                cfg, params, tokens, **kw), cpu=False, idle=0.5)
-            hits = [e for e in ev if "flash_attention_tc_kernel" in e[0]]
-            seen = sum(h[1] for h in hits)
+            hits, seen, pwall, ev = _counted_window(
+                lambda: M.forward_prefill(cfg, params, tokens, **kw), calls,
+                f"{tag.replace(' ', '_')}_{attempt}")
             if seen == calls:
                 break
-            say(f"[{tag}] profiler window {attempt + 1} recorded {seen} "
-                f"of the {calls} attention launches the counters saw")
         busy = sum(e[2] for e in ev)
         check(seen == calls
               and not any("flash_attention_kernel" in e[0] for e in ev),
@@ -4100,17 +4246,13 @@ def phase_stablelm():
             f"{wall * 1e3:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, peak "
             f"memory {out['peak_gb']:.2f} GB; flash_attention launches "
             f"{out['launches']}, on the tensor cores {out['launches_tc']}")
-        # device activity only, and a window that lost a launch's record
-        # is taken again, at most twice (as phase 13's)
+        # a window as phase 13's
         for attempt in range(3):
-            _, pwall, ev = _profiled(lambda: M.forward_prefill(
-                cfg, params, tokens), cpu=False, idle=0.5)
-            hits = [e for e in ev if "flash_attention_tc_kernel" in e[0]]
-            seen = sum(h[1] for h in hits)
+            hits, seen, pwall, ev = _counted_window(
+                lambda: M.forward_prefill(cfg, params, tokens), calls,
+                f"stablelm_{attempt}")
             if seen == calls:
                 break
-            say(f"[stablelm] profiler window {attempt + 1} recorded {seen} "
-                f"of the {calls} attention launches the counters saw")
         busy = sum(e[2] for e in ev)
         check(seen == calls
               and not any("flash_attention_kernel" in e[0] for e in ev),
@@ -4189,11 +4331,199 @@ def phase_stablelm():
     return out
 
 
+# ------------------------------------------------------------ phase 16 -----
+
+# (a) 6b's sweep on a world of 2; (b) 6a's mega cell and (c) 6b's sweep
+# on a world of 5 (12 runs a group padded to 15): gloo worlds on the one
+# card, each rank a spawned process
+SHARD_WORLDS = {2: ("sweep",), 5: ("mega", "sweep")}
+# the examples and the trace export on the card and on the CPU, each at
+# these flags; in the worker pool, queued before phase 9
+EXAMPLES = {
+    "homa": ("examples/torch_homa_network_sim.py",
+             ["--messages", "300", "--max-slots", "3000"]),
+    "fabric": ("examples/torch_fabric_incast.py",
+               ["--bursts", "2", "--background", "150", "--max-slots",
+                "3000"]),
+    "trace": ("scripts/torch_export_trace.py",
+              ["--n-messages", "300", "--max-slots", "3000"]),
+}
+
+
+def _example_job(name, device):
+    """One example's ``run`` on ``device`` in a worker: its printed lines
+    (the trace export: its line and the JSON it wrote), the hand-written
+    kernels' launches and the seconds."""
+    import importlib.util
+    import tempfile
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.arbiter import kernel
+    script, argv = EXAMPLES[name]
+    spec = importlib.util.spec_from_file_location(Path(script).stem,
+                                                  ROOT / script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # beside the pool's other workers
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = mod.run(argv + ["--device", device] + (
+                ["--out", str(Path(tmp) / "trace.json")]
+                if name == "trace" else []))
+    finally:
+        torch.set_num_threads(threads)
+    if name == "trace":
+        out = [out["line"].replace(tmp, "<tmp>"), out["trace"]]
+    return out, kernel.launch_counts(), time.perf_counter() - t0
+
+
+def _start_examples():
+    """Queue the example jobs, card and CPU, on the worker pool."""
+    calls = [(_example_job, (name, dev)) for name in EXAMPLES
+             for dev in (DEVICE, "cpu")]
+    return dict(zip([(n, d) for _, (n, d) in calls], _submit_each(calls)))
+
+
+def _shard_rank(rank, tmp, world, jobs):
+    """One rank of a phase-16 world: each job of ``jobs`` ("sweep": 6b's
+    sweep; "mega": 6a's cell) with ``shard=True``, its launches counted
+    from 0 just before it; what each returned, its launches and its
+    seconds go to ``tmp/rank<r>.pkl``."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import run_sweep
+    from repro_torch.kernels.arbiter import kernel
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(tmp) / "store"), world), rank=rank, world_size=world)
+    out = {}
+    try:
+        for job in jobs:
+            kernel.reset_launch_counts()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            r = _sweep_mega() if job == "mega" else run_sweep(
+                _sweep_config("fused"),
+                _sweep_spec(_sweep_tables(), shard=True))
+            torch.cuda.synchronize()
+            out[job] = (r, kernel.launch_counts(), time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    (Path(tmp) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def _same_stats(a, b) -> bool:
+    """Two streaming results bit for bit: every field, the histogram and
+    the per-level bytes elementwise."""
+    import dataclasses
+    import numpy as np
+    return all(np.array_equal(getattr(a, f.name), getattr(b, f.name))
+               if isinstance(getattr(a, f.name), np.ndarray)
+               else getattr(a, f.name) == getattr(b, f.name)
+               for f in dataclasses.fields(a))
+
+
+def phase_shard(world1, examples):
+    """Phase 16: the sharded sweep on gloo worlds of 2 and 5 ranks on the
+    one card against phase 6's world-of-one results (``world1``; run in
+    the pool when phase 6 did not), and the examples' card runs against
+    their CPU runs (``examples``, queued on the pool)."""
+    import pickle
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    if world1 is None:
+        (stats, _, _, wall1), mega = _in_workers(
+            _sweep_job, [("sweep", "fused"), ("mega", None)])
+        world1 = {"sweep": stats, "mega": (mega[5], mega[1], mega[3]),
+                  "rate": len(stats) * SWEEP_SLOTS / wall1}
+    B = len(world1["sweep"])
+    pooled1, done1, horizon = world1["mega"]
+    out = {"rate": {1: world1["rate"]}, "launches": {}}
+    for world, jobs in SHARD_WORLDS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            mp.start_processes(_shard_rank, args=(tmp, world, jobs),
+                               nprocs=world, start_method="spawn")
+            ranks = [pickle.loads((Path(tmp) / f"rank{r}.pkl").read_bytes())
+                     for r in range(world)]
+        say(f"[shard] world of {world} on the one card: "
+            f"{time.perf_counter() - t0:.1f} s with its processes' start")
+        for r, got in enumerate(ranks):
+            if "sweep" in got:
+                stats, launches, _ = got["sweep"]
+                check(len(stats) == B and all(
+                    _same_stats(a, b) for a, b in zip(stats, world1["sweep"])),
+                      f"world {world} rank {r}: the sharded sweep's "
+                      f"statistics differ from the world of one's")
+                check(launches == {"priority_arbiter": 0, "srpt_topk": 0,
+                                   "fused_slot": 0,
+                                   "fused_slot_batch": SWEEP_SLOTS},
+                      f"world {world} rank {r}: sweep launches {launches}, "
+                      f"expected one fused_slot_batch a slot")
+            if "mega" in got:
+                (p99, done, _, _, _, pooled), launches, _ = got["mega"]
+                check(done == done1 and all(
+                    np.array_equal(pooled[p], pooled1[p]) for p in PROTOCOLS),
+                      f"world {world} rank {r}: the mega cell's pooled "
+                      f"histograms or completions ({done}) differ from the "
+                      f"world of one's ({done1})")
+                check(launches["fused_slot_batch"] == len(PROTOCOLS) * horizon,
+                      f"world {world} rank {r}: mega launches {launches}, "
+                      f"expected one fused_slot_batch a slot, {horizon} a "
+                      f"protocol")
+        if "sweep" in ranks[0]:
+            wall = max(got["sweep"][2] for got in ranks)
+            out["rate"][world] = B * SWEEP_SLOTS / wall
+            out["launches"][world] = ranks[0]["sweep"][1]
+            say(f"[shard] (a/c) 6b's {B} full-width runs x {SWEEP_SLOTS} "
+                f"slots on {world} ranks ({-(-B // world)} runs a rank, "
+                f"{-(-B // world) * world - B} padding): every rank's "
+                f"statistics equal the world of one's, one fused_slot_batch "
+                f"a slot on each; {wall:.2f} s, {out['rate'][world]:.1f} "
+                f"runs*slots/s")
+        if "mega" in ranks[0]:
+            say(f"[shard] (b) the mega cell on {world} ranks (12 runs a "
+                f"protocol padded to {-(-12 // world) * world}, "
+                f"{len(PROTOCOLS)} protocols, {horizon} slots): pooled "
+                f"histograms and {done1} completions equal the world of "
+                f"one's on every rank; "
+                f"{max(got['mega'][2] for got in ranks):.2f} s")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    say(f"[shard] (c) runs*slots/s of 6b's sweep by world size on the one "
+        f"card ({smi}): " + ", ".join(f"{w}: {r:.1f}"
+                                      for w, r in out["rate"].items()))
+
+    # the examples: the card's printed tables and trace JSON against the
+    # CPU's
+    for name in EXAMPLES:
+        (card, launches, t_card), (cpu, cpu_launches, t_cpu) = (
+            examples[name, d].result() for d in (DEVICE, "cpu"))
+        check(card == cpu, f"{name}: the card's output differs from the "
+                           f"CPU's")
+        check(launches["priority_arbiter"] > 0 and launches["srpt_topk"] > 0
+              and not any(cpu_launches.values()),
+              f"{name}: kernel launches card {launches}, CPU {cpu_launches}")
+        say(f"[shard] {EXAMPLES[name][0]} {' '.join(EXAMPLES[name][1])}: the "
+            f"card's output (staged cuda backend, launches {launches}; "
+            f"{t_card:.1f} s) equals the CPU's ({t_cpu:.1f} s)")
+    say(f"[shard] done at +{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- main -----
 
 PHASES = ("card", "kernels", "goldens", "full", "window", "sweep", "model",
           "llama", "faults", "host", "train", "deepseek", "xattn", "dryrun",
-          "stablelm")
+          "stablelm", "shard")
 
 
 def main(argv=None) -> int:
@@ -4245,15 +4575,20 @@ def main(argv=None) -> int:
             res["window"] = run("window", phase_window, res["handoff"])
         if "sweep" in phases:
             (res["sweep_launches"], res["sweep_window"],
-             res["sweep_rate"]) = run("sweep", phase_sweep)
+             res["sweep_rate"], res["world1"]) = run("sweep", phase_sweep)
         if "model" in phases:
             res["model"] = run("model", phase_model)
         if "llama" in phases:
             res["llama"] = run("llama", phase_llama)
+        if "shard" in phases:
+            examples = _start_examples()
         if "faults" in phases:
             res["faults"] = run("faults", phase_faults)
         if "host" in phases:
             res["host"] = run("host", phase_host)
+        if "shard" in phases:
+            res["shard"] = run("shard", phase_shard, res.get("world1"),
+                               examples)
         _close_pool()                # no later phase uses it
         if "train" in phases:
             res["train"] = run("train", phase_train)
@@ -4374,6 +4709,10 @@ def main(argv=None) -> int:
         f"it ({sl['device_ms_per_launch']:.4f} ms a launch), peak "
         f"{sl['peak_gb']:.2f} GB; serve {sl['decode_steps_per_s']:.1f} decode "
         f"steps/s (batch 4)")
+    sh = res["shard"]
+    say("[summary] sharded sweep (phase 16), 6b's runs*slots/s by world "
+        "size on the one card: " + ", ".join(
+            f"{w}: {r:.1f}" for w, r in sh["rate"].items()))
     say("[summary] attention at phase 13's calls (ms vs bound): " + "; ".join(
         f"{r['name']} {r['ms']:.4f} vs {r['bound_ms']:.4f}"
         for r in xa["shapes"]))
@@ -4427,6 +4766,9 @@ def main(argv=None) -> int:
          "device_ms_per_launch": dev_ms,
          "device_ms_main_shapes": perf[name]["device_ms"],
          **({"launches_rounds": rounds[name]} if name in rounds else {}),
+         # phase 16: each rank's launches of 6b's sweep on a world of 2
+         **({"launches_shard": sh["launches"][2][name]}
+            if name == "fused_slot_batch" else {}),
          **({"library_device_ms": perf[name]["library_device_ms"],
              "sort_device_ms": perf[name]["sort_device_ms"]}
             if name == "srpt_topk" else {}),

@@ -27,18 +27,32 @@ round). A captured trace reduces on the device to its peaks and event
 count (``telemetry.reduce_state``); an exact sweep keeps its trace's
 scalars (``SimResult.trace_summary``) and not the series.
 
-**Sharding.** The port runs a sweep on one device: ``shard`` is
-validated against the card count (``True`` on one card is 1 device, the
-bit-identical degenerate path), and asking for several raises.
+**Sharding.** ``shard`` = n > 1 splits the run axis over the first n
+ranks of ``torch.distributed``'s default process group (``True``: all of
+them), which every rank of that group enters together. Each rank
+resolves and prepares every table (``shared_alloc`` over all of them)
+and groups every run; each group is padded to a multiple of n by
+replicating its last run, and rank r steps the contiguous block r of
+each group as one batch on its own device (``cfg.device``; a bare
+``"cuda"`` is card ``r % device_count()``, so several ranks may share a
+card). The blocks' host rows — the final state, or the streaming
+summary — are gathered over gloo on the CPU, the padding rows are
+dropped, and every rank returns the full list in input order. Every
+run is independent, so the result is bit-identical to one process. A
+rank that fails makes the gather raise on every rank. The split is over
+processes, not over the devices of one process: the slot loop is bound
+by its host, so one process gains nothing from a second card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import sim, telemetry
 from repro_torch.core.hostmodel import QSCALE
@@ -180,18 +194,52 @@ class SweepSpec:
                 for s in self.seeds]
 
 
-def resolve_devices(shard: bool | int, device="cpu") -> int:
-    """``shard`` knob -> concrete device count, validated against the
-    cards of ``device``'s type (the CPU counts as one device)."""
+def resolve_devices(shard: bool | int) -> int:
+    """``shard`` knob -> the number of ranks of the default process group
+    the run axis splits over (``True``: the group's size, 1 without a
+    group). Asking for more ranks than the group has, or for more than
+    one without a group, raises."""
     if shard is False or shard is None:
         return 1
-    avail = torch.cuda.device_count() \
-        if torch.device(device).type == "cuda" else 1
-    n = avail if shard is True else int(shard)
-    if n < 1 or n > avail:
-        raise ValueError(f"SweepSpec.shard={shard!r} asks for {n} "
-                         f"devices but {avail} are available")
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    n = world if shard is True else int(shard)
+    if n < 1 or n > world:
+        raise ValueError(
+            f"SweepSpec.shard={shard!r} asks for {n} devices (ranks) but "
+            + (f"the default process group has {world}" if grouped else
+               "no process group is initialized: call torch.distributed."
+               "init_process_group on every rank first"))
     return n
+
+
+def _rank_device(device: str, rank: int) -> str:
+    """The device of ``rank``: a bare ``"cuda"`` is card ``rank %
+    device_count()``; any other device is every rank's."""
+    return f"cuda:{rank % torch.cuda.device_count()}" \
+        if device == "cuda" else device
+
+
+def _gather_blocks(blocks: dict, err: Exception | None, n: int) -> list:
+    """Every rank's ``blocks`` (group index -> host rows), in rank order,
+    gathered over gloo on the CPU (a gloo group is made for it when the
+    default group is not gloo). A rank that failed (``err``) makes every
+    rank raise."""
+    group = None if dist.get_backend() == "gloo" \
+        else dist.new_group(backend="gloo")
+    got = [None] * dist.get_world_size()
+    try:
+        dist.all_gather_object(
+            got, (blocks, None if err is None
+                  else f"{type(err).__name__}: {err}"), group=group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group(group)
+    failed = {r: msg for r, (_, msg) in enumerate(got) if msg is not None}
+    if failed:
+        raise RuntimeError(f"run_sweep: the sharded sweep failed on rank(s) "
+                           f"{failed}; no rank returns a result") from err
+    return [b for b, _ in got[:n]]
 
 
 def group_runs(keys: list[tuple]) -> dict[tuple, list[int]]:
@@ -530,39 +578,68 @@ def run_spec(cfg, spec: SweepSpec) -> list:
     if len(allocs) != N or len(uls) != N:
         raise ValueError("per-table alloc/unsched_limit lists must match "
                          "the number of tables")
-    if resolve_devices(spec.shard, cfg.device) > 1:
-        raise NotImplementedError(
-            "SweepSpec.shard: a sweep across several cards is not ported "
-            "to repro_torch; it runs on cfg.device (shard=False or 1)")
+    n = resolve_devices(spec.shard)
+    rank = dist.get_rank() if n > 1 else 0
+    if n > 1:
+        cfg = dataclasses.replace(cfg, device=_rank_device(cfg.device,
+                                                           rank))
 
     prepped = []
     for t, al_i, ul_i in zip(tables, allocs, uls):
         S, al = sim.prepare(cfg, t, al_i, ul_i)
         prepped.append((S, al, proto.n_sched(cfg, al)))
 
-    groups = group_runs([(len(t.size), ns)
-                         for t, (_, _, ns) in zip(tables, prepped)])
+    groups = list(group_runs([(len(t.size), ns) for t, (_, _, ns)
+                              in zip(tables, prepped)]).items())
+    # rank r's block of each group, the group padded to a multiple of n
+    blocks, err = {}, None
+    try:
+        for g, ((_, n_sched), idxs) in enumerate(groups):
+            padded = idxs + [idxs[-1]] * ((-len(idxs)) % n)
+            per = len(padded) // n
+            mine = padded[rank * per:(rank + 1) * per]
+            if mine:
+                blocks[g] = _run_block(cfg, proto, spec, prepped, tables,
+                                       mine, n_sched)
+    except Exception as e:      # every rank must reach the gather
+        if n == 1:
+            raise
+        err = e
+    ranks = _gather_blocks(blocks, err, n) if n > 1 else [blocks]
+
     results: list = [None] * N
-    for (_, n_sched), idxs in groups.items():
-        S = sim.stack_static([prepped[i][0] for i in idxs])
-        aux = sim.stack_static([_pack_aux(stream, tables[i], cfg.device)
-                                for i in idxs]) if stream else None
-        st, acc = _run_batch(cfg, proto, S, aux, n_sched,
-                             spec.chunk_slots, stream)
-        if stream is not None:
-            rows = sim.host_state(_device_summary(cfg, st, acc))
-            for k, i in enumerate(idxs):
+    for g, (_, idxs) in enumerate(groups):
+        rows = {key: np.concatenate([b[g][key] for b in ranks])
+                for key in ranks[0][g]}
+        for k, i in enumerate(idxs):        # padding rows never read
+            if stream is not None:
                 results[i] = _stats_from_row(
                     cfg, stream, {key: v[k] for key, v in rows.items()},
                     prepped[i][1], len(tables[i].size))
-        else:
-            st = sim.host_state(st)
-            for k, i in enumerate(idxs):
+            else:
                 results[i] = sim._finalize(cfg, tables[i], prepped[i][0],
-                                           prepped[i][1], st, k,
+                                           prepped[i][1], rows, k,
                                            spec.return_state,
                                            reduce_trace=True)
     return results
+
+
+def _run_block(cfg, proto, spec: SweepSpec, prepped: list, tables: list,
+               idxs: list, n_sched: int) -> dict:
+    """Step runs ``idxs`` (one group's, or a rank's block of it) as one
+    batch on ``cfg.device``: the host rows of the final state, or of its
+    streaming summary."""
+    stream = spec.stream
+    with torch.cuda.device(cfg.device) \
+            if torch.device(cfg.device).type == "cuda" \
+            else contextlib.nullcontext():
+        S = sim.stack_static([prepped[i][0] for i in idxs])
+        aux = sim.stack_static([_pack_aux(stream, tables[i], cfg.device)
+                                for i in idxs]) if stream else None
+        st, acc = _run_batch(cfg, proto, S, aux, n_sched, spec.chunk_slots,
+                             stream)
+        return sim.host_state(_device_summary(cfg, st, acc)
+                              if stream is not None else st)
 
 
 __all__ = ["SweepSpec", "StreamSpec", "SweepStats", "run_spec",

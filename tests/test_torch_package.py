@@ -67,7 +67,17 @@ def test_no_file_of_the_port_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
         ROOT / "tests" / "torch_sharded_worker.py",
-        ROOT / "examples" / "torch_homa_gradient_sync.py"]
+        ROOT / "tests" / "torch_sweep_worker.py"] + sorted(
+        (ROOT / "examples").glob("torch_*.py")) + sorted(
+        (ROOT / "scripts").glob("torch_*.py"))
+    for name in ("examples/torch_homa_gradient_sync.py",
+                 "examples/torch_quickstart.py",
+                 "examples/torch_homa_network_sim.py",
+                 "examples/torch_fabric_incast.py",
+                 "examples/torch_serve_demo.py",
+                 "scripts/torch_export_trace.py",
+                 "scripts/torch_profiler_c6.py"):
+        assert ROOT / name in files, name
     assert len(files) > 10
     for mod in ("training/optimizer.py", "training/step.py",
                 "data/pipeline.py", "checkpoint/store.py", "launch/train.py",
