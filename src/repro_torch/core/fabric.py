@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.faults import (FaultConfig, forward_losses,
                                      inject_losses, select_uplink)
 from repro_torch.core.protocols import BIG, I32
@@ -181,29 +182,32 @@ def ring_insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq):
     plus the dropped count per run, ``(B,)`` int32."""
     B, R, cap = valid_a.shape
     n = row.shape[1]
-    rows = torch.where(ok, row, R).long()                     # sentinel R
-    earlier = torch.ones(n, n, dtype=torch.bool,
-                         device=row.device).tril_(-1)
-    # rank among earlier ok items of the same run bound for the same row
-    # (a not-ok item's sentinel row R matches no ok item, and its own rank
-    # is never used)
-    rank = ((rows[:, :, None] == rows[:, None, :]) & earlier).sum(dim=2)
-    # (r+1)-th free slot per row: a left binary search in the cumsum of
-    # free slots, which is nondecreasing
-    c = torch.cumsum(~valid_a, dim=2)                        # int64
-    c_row = c.gather(1, rows.clamp_max(R - 1)[:, :, None].expand(B, n, cap))
-    room = c_row[:, :, -1] > rank
-    okw = ok & room
-    pos = torch.searchsorted(c_row, (rank + 1)[:, :, None],
-                             right=False)[:, :, 0]
-    # suppressed writes are dropped, never clamped into range: an in-range
-    # no-op write could race a genuine insertion at the same place
-    flat = rows * cap + pos
-    return (set_drop(msg_a, flat, msg, okw),
-            set_drop(prio_a, flat, prio, okw),
-            set_drop(seq_a, flat, seq, okw),
-            set_drop(valid_a, flat, okw, okw),
-            (ok & ~room).sum(dim=1, dtype=I32))
+    with spans.slot("ring.insert"):
+        rows = torch.where(ok, row, R).long()                 # sentinel R
+        earlier = torch.ones(n, n, dtype=torch.bool,
+                             device=row.device).tril_(-1)
+        # rank among earlier ok items of the same run bound for the same
+        # row (a not-ok item's sentinel row R matches no ok item, and its
+        # own rank is never used)
+        rank = ((rows[:, :, None] == rows[:, None, :]) & earlier).sum(dim=2)
+        # (r+1)-th free slot per row: a left binary search in the cumsum
+        # of free slots, which is nondecreasing
+        c = torch.cumsum(~valid_a, dim=2)                    # int64
+        c_row = c.gather(1, rows.clamp_max(R - 1)[:, :, None]
+                         .expand(B, n, cap))
+        room = c_row[:, :, -1] > rank
+        okw = ok & room
+        pos = torch.searchsorted(c_row, (rank + 1)[:, :, None],
+                                 right=False)[:, :, 0]
+        # suppressed writes are dropped, never clamped into range: an
+        # in-range no-op write could race a genuine insertion at the same
+        # place
+        flat = rows * cap + pos
+        return (set_drop(msg_a, flat, msg, okw),
+                set_drop(prio_a, flat, prio, okw),
+                set_drop(seq_a, flat, seq, okw),
+                set_drop(valid_a, flat, okw, okw),
+                (ok & ~room).sum(dim=1, dtype=I32))
 
 
 def ring_drain_select(prio_a, seq_a, eligible):

@@ -48,7 +48,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import faults, telemetry
+from repro_torch.core import faults, spans, telemetry
 from repro_torch.core.fabric import (FabricConfig, drain_select,
                                      init_fabric_state, ring_insert,
                                      route_chunks, spine_hash, take_slot,
@@ -412,25 +412,27 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
                                                 now, fx)
 
     # ---- 1. receiver policy (current state), store into delay history
-    grant_r, sched_prio, active, withheld = proto.receiver.grants(
-        cfg, grant_st, S, now, n_sched, topk=fused.get("topk"))
-    st = {**st, "grant_r": grant_r, "sched_prio": sched_prio}
-    row = (now % Dg).long().view(1)
-    hist_grant = st["hist_grant"].index_copy(1, row, grant_r[:, None])
-    hist_prio = st["hist_prio"].index_copy(1, row, sched_prio[:, None])
-    # sender sees the entry written Dg-1 slots ago
-    vis = ((now + 1) % Dg).long().view(1)
-    grant_vis = hist_grant.index_select(1, vis)[:, 0]
-    prio_vis = hist_prio.index_select(1, vis)[:, 0]
+    with spans.slot("slot.grants"):
+        grant_r, sched_prio, active, withheld = proto.receiver.grants(
+            cfg, grant_st, S, now, n_sched, topk=fused.get("topk"))
+        st = {**st, "grant_r": grant_r, "sched_prio": sched_prio}
+        row = (now % Dg).long().view(1)
+        hist_grant = st["hist_grant"].index_copy(1, row, grant_r[:, None])
+        hist_prio = st["hist_prio"].index_copy(1, row, sched_prio[:, None])
+        # sender sees the entry written Dg-1 slots ago
+        vis = ((now + 1) % Dg).long().view(1)
+        grant_vis = hist_grant.index_select(1, vis)[:, 0]
+        prio_vis = hist_prio.index_select(1, vis)[:, 0]
 
-    arrived = S["arrival"] <= now
-    blind = torch.where(arrived, S["unsched"], 0)
-    granted_s = torch.maximum(torch.maximum(st["granted_s"], blind),
-                              grant_vis)
-    st = {**st, "granted_s": granted_s, "hist_grant": hist_grant,
-          "hist_prio": hist_prio,
-          "sched_prio": torch.where(arrived, prio_vis, st["sched_prio"])}
-    # NOTE: sender uses delayed sched_prio (the grant packet's priority)
+        arrived = S["arrival"] <= now
+        blind = torch.where(arrived, S["unsched"], 0)
+        granted_s = torch.maximum(torch.maximum(st["granted_s"], blind),
+                                  grant_vis)
+        st = {**st, "granted_s": granted_s, "hist_grant": hist_grant,
+              "hist_prio": hist_prio,
+              "sched_prio": torch.where(arrived, prio_vis,
+                                        st["sched_prio"])}
+        # NOTE: sender uses delayed sched_prio (the grant packet's priority)
 
     # ---- 2. senders pick + transmit one chunk (sender policy)
     chosen, has = _sender_select(cfg, proto, st, S, now)
@@ -459,67 +461,76 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
               "r_valid": r_valid, "lost": st["lost"] + n_drop}
     else:
         st = route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now, fx)
-        st = uplink_drain(cfg, st, S, now, pre=fused.get("up"), fx=fx)
+        with spans.slot("slot.uplink"):
+            st = uplink_drain(cfg, st, S, now, pre=fused.get("up"), fx=fx)
 
     # ---- 4. downlink drain: strict priority, FIFO within level
     # (the priority_arbiter kernel on backend="cuda"; pre-solved at slot
     # start on backend="fused" — this slot's insertions carry seq == now
     # and cannot be eligible yet, so the hoisted winner is the same)
-    eligible = st["r_valid"] & (st["r_seq"] + cfg.net_delay_slots <= now)
-    if cfg.faults_on and cfg.fabric.faults.tor_fail:
-        # hosts behind a failed TOR drain nothing for the window; their
-        # buffered chunks survive and resume draining when it lifts
-        eligible = eligible & ~fx["host_down"][:, None]
-    q_eligible = eligible                       # backlog incl. stalled rows
-    if "down" in fused:
-        # pre-solved at slot start with the RX delivery and room gate
-        # (_fused_precompute); q_eligible is the kernel's eligibility
-        # before the room gate
-        slot_idx, any_elig, pmin = fused["down"]
-    else:
+    with spans.slot("slot.drain"):
+        eligible = st["r_valid"] & (st["r_seq"] + cfg.net_delay_slots
+                                    <= now)
+        if cfg.faults_on and cfg.fabric.faults.tor_fail:
+            # hosts behind a failed TOR drain nothing for the window;
+            # their buffered chunks survive and resume draining when it
+            # lifts
+            eligible = eligible & ~fx["host_down"][:, None]
+        q_eligible = eligible                   # backlog incl. stalled rows
+        if "down" in fused:
+            # pre-solved at slot start with the RX delivery and room gate
+            # (_fused_precompute); q_eligible is the kernel's eligibility
+            # before the room gate
+            slot_idx, any_elig, pmin = fused["down"]
+        else:
+            if cfg.host_rx_on:
+                # host/NIC RX stage (DESIGN.md §10): finish service on
+                # ring entries whose CPU time elapsed (feeds recv ->
+                # grants AND completions), then gate the downlink on
+                # RX-ring room — a full ring backpressures the network
+                # (chunks stay queued)
+                hm = cfg.host_model
+                st = hm.rx_deliver(cfg, st, S, now)
+                room = hm.rx_room(cfg, st)
+                st = {**st, "h_rx_stall": st["h_rx_stall"]
+                      + (eligible.any(dim=2) & ~room).to(I32)}
+                eligible = eligible & room[:, :, None]
+            slot_idx, any_elig, pmin = drain_select(
+                st["r_prio"], st["r_seq"], eligible, backend=cfg.backend)
+        drained_msg = torch.where(any_elig, take_slot(st["r_msg"], slot_idx),
+                                  M)
+        any_i = any_elig.to(I32)
         if cfg.host_rx_on:
-            # host/NIC RX stage (DESIGN.md §10): finish service on ring
-            # entries whose CPU time elapsed (feeds recv -> grants AND
-            # completions), then gate the downlink on RX-ring room — a
-            # full ring backpressures the network (chunks stay queued)
-            hm = cfg.host_model
-            st = hm.rx_deliver(cfg, st, S, now)
-            room = hm.rx_room(cfg, st)
-            st = {**st, "h_rx_stall": st["h_rx_stall"]
-                  + (eligible.any(dim=2) & ~room).to(I32)}
-            eligible = eligible & room[:, :, None]
-        slot_idx, any_elig, pmin = drain_select(
-            st["r_prio"], st["r_seq"], eligible, backend=cfg.backend)
-    drained_msg = torch.where(any_elig, take_slot(st["r_msg"], slot_idx), M)
-    any_i = any_elig.to(I32)
-    if cfg.host_rx_on:
-        # drained chunks enter the RX ring; recv advances in rx_deliver
-        st = cfg.host_model.rx_accept(cfg, st, S, drained_msg, any_elig,
-                                      now)
-        recv = st["recv"]
-    else:
-        recv = st["recv"].scatter_add(
-            1, drained_msg.clamp_max(M - 1).long(), any_i)
-    r_valid = clear_slot(st["r_valid"], slot_idx, any_elig)
-    st = proto.on_drain(cfg, st, S, drained_msg, any_elig, now)
+            # drained chunks enter the RX ring; recv advances in rx_deliver
+            st = cfg.host_model.rx_accept(cfg, st, S, drained_msg, any_elig,
+                                          now)
+            recv = st["recv"]
+        else:
+            recv = st["recv"].scatter_add(
+                1, drained_msg.clamp_max(M - 1).long(), any_i)
+        r_valid = clear_slot(st["r_valid"], slot_idx, any_elig)
+        st = proto.on_drain(cfg, st, S, drained_msg, any_elig, now)
 
-    completion = torch.where((recv >= S["size"]) & (st["completion"] < 0),
-                             now, st["completion"])
+        completion = torch.where((recv >= S["size"])
+                                 & (st["completion"] < 0),
+                                 now, st["completion"])
 
     # ---- 5. stats
-    qlen = q_eligible.sum(dim=2, dtype=I32) - any_i
-    drained_prio = torch.where(any_elig, pmin.clamp_max(cfg.n_prios - 1), 0)
-    prio_drained = st["prio_drained"].scatter_add(1, drained_prio.long(),
-                                                  any_i)
-    known_inc = (recv > 0) & (completion < 0)
-    has_known = (S["dst_onehot"] & known_inc[:, None, :]).any(dim=2)
-    wasted = st["wasted"] + (~any_elig & withheld & has_known).to(I32)
+    with spans.slot("slot.stats"):
+        qlen = q_eligible.sum(dim=2, dtype=I32) - any_i
+        drained_prio = torch.where(any_elig,
+                                   pmin.clamp_max(cfg.n_prios - 1), 0)
+        prio_drained = st["prio_drained"].scatter_add(
+            1, drained_prio.long(), any_i)
+        known_inc = (recv > 0) & (completion < 0)
+        has_known = (S["dst_onehot"] & known_inc[:, None, :]).any(dim=2)
+        wasted = st["wasted"] + (~any_elig & withheld & has_known).to(I32)
 
-    st = {**st, "recv": recv, "r_valid": r_valid, "completion": completion,
-          "busy": st["busy"] + any_i,
-          "q_sum": st["q_sum"] + qlen.to(torch.float32),
-          "q_max": torch.maximum(st["q_max"], qlen),
-          "wasted": wasted, "prio_drained": prio_drained}
+        st = {**st, "recv": recv, "r_valid": r_valid,
+              "completion": completion, "busy": st["busy"] + any_i,
+              "q_sum": st["q_sum"] + qlen.to(torch.float32),
+              "q_max": torch.maximum(st["q_max"], qlen),
+              "wasted": wasted, "prio_drained": prio_drained}
 
     # ---- 5b. loss recovery (fault-enabled fabrics only, DESIGN.md §7):
     # receiver RESENDs + sender fallback timeouts rewind quiet messages'
@@ -542,19 +553,23 @@ def run_slots(cfg: SimConfig, proto: Protocol, S, st, n_sched: int,
     """Step the (stacked) state through slots ``start .. stop-1``.
     Nothing is read back to the host, so the loop only enqueues work on a
     card. A fault layer or flowlet routing reads its draws and masks from
-    a plan computed once per block of slots (``faults.slot_plan``)."""
+    a plan computed once per block of slots (``faults.slot_plan``). While
+    ``torch.profiler`` records, each slot and its stages are slot spans
+    (:mod:`repro_torch.core.spans`)."""
     now = torch.full((), start, dtype=I32, device=cfg.device)
     M = S["size"].shape[1]
     planned = faults.plan_needed(cfg)
     block = faults.plan_block(cfg, M) if planned else max(stop - start, 1)
-    with torch.inference_mode():
+    with torch.inference_mode(), spans.RECORDER.slot_tier():
         for lo in range(start, stop, block):
             hi = min(lo + block, stop)
             plan = faults.slot_plan(cfg, M, lo, hi) if planned else None
             for t in range(lo, hi):
-                fx = faults.plan_row(cfg, plan, lo, t) if planned else None
-                st = step_fn(cfg, proto, S, n_sched, st, now, fx)
-                now = now + 1
+                with spans.slot("slot"):
+                    fx = faults.plan_row(cfg, plan, lo, t) if planned \
+                        else None
+                    st = step_fn(cfg, proto, S, n_sched, st, now, fx)
+                    now = now + 1
     return st
 
 
@@ -570,7 +585,7 @@ def _finalize(cfg: SimConfig, table: MessageTable, S, alloc, st, b: int,
     statics, ``st`` the stacked final state of its batch
     (:func:`host_state`). ``reduce_trace=True`` (the ``run_sweep`` path)
     keeps only the scalars of a captured trace (``trace_summary``);
-    ``timings`` is :func:`telemetry.timed_run`'s split."""
+    ``timings`` is :func:`telemetry.timings`'s split."""
     S = {k: v.cpu().numpy() for k, v in S.items()}
     st = {k: v[b] for k, v in st.items()}
     size_slots = S["size"]
@@ -657,32 +672,35 @@ def simulate(cfg: SimConfig, table: MessageTable,
     """Run one simulation of ``cfg.max_slots`` slots on ``cfg.device``;
     returns a structured :class:`SimResult` (numpy arrays).
 
-    With ``cfg.trace = TraceConfig(wallclock=True)`` the host set-up,
-    the kernel library build and the loop are timed apart
-    (:func:`repro_torch.core.telemetry.timed_run`) and the split lands
-    in ``result.trace.timings`` (``result.trace_summary["timings"]`` when
-    capture is disabled)."""
+    The run's stages are call spans (:mod:`repro_torch.core.spans`):
+    ``simulate.prepare`` (``prepare`` and the slot-0 state),
+    ``simulate.load`` (loading the kernel library the backend launches)
+    and ``simulate.run`` (the slot loop). With ``cfg.trace =
+    TraceConfig(wallclock=True)`` the loop runs
+    ``wallclock_repeats`` times from the same state, each between two
+    synchronizations, and the spans' split lands in
+    ``result.trace.timings`` (``result.trace_summary["timings"]`` when
+    capture is disabled; :func:`repro_torch.core.telemetry.timings`)."""
     proto = get_protocol(cfg.protocol)
     M = len(table.size)
-
-    def setup():
-        S, al = prepare(cfg, table, alloc, unsched_limit_bytes)
-        return S, al, _init_state(cfg, proto, M)
-
-    def execute(S, al, st0):
-        return run_slots(cfg, proto, stack_static([S]), st0,
-                         proto.n_sched(cfg, al), 0, cfg.max_slots)
-
-    timings = None
-    if cfg.trace is not None and cfg.trace.wallclock:
-        on_card = torch.device(cfg.device).type == "cuda"
-        (S, alloc, _), st, timings = telemetry.timed_run(
-            setup, lambda: dispatch.load_kernels(cfg.backend, cfg.device),
-            execute, cfg.trace.wallclock_repeats,
-            sync=torch.cuda.synchronize if on_card else None)
-    else:
-        S, alloc, st0 = setup()
-        st = execute(S, alloc, st0)
+    wall = cfg.trace is not None and cfg.trace.wallclock
+    sync = torch.cuda.synchronize \
+        if wall and torch.device(cfg.device).type == "cuda" \
+        else (lambda: None)
+    with spans.span("simulate.prepare") as prep:
+        S, alloc = prepare(cfg, table, alloc, unsched_limit_bytes)
+        st0 = _init_state(cfg, proto, M)
+    with spans.span("simulate.load") as load:
+        dispatch.load_kernels(cfg.backend, cfg.device)
+    runs = []
+    for _ in range(cfg.trace.wallclock_repeats if wall else 1):
+        sync()
+        with spans.span("simulate.run") as run:
+            st = run_slots(cfg, proto, stack_static([S]), st0,
+                           proto.n_sched(cfg, alloc), 0, cfg.max_slots)
+            sync()
+        runs.append(run)
+    timings = telemetry.timings(prep, load, runs) if wall else None
     return _finalize(cfg, table, S, alloc, host_state(st), 0, return_state,
                      timings=timings)
 

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import sim, telemetry
+from repro_torch.core import sim, spans, telemetry
 from repro_torch.core.hostmodel import QSCALE
 from repro_torch.core.priorities import allocate_priorities
 from repro_torch.core.protocols import I32, get_protocol
@@ -380,7 +380,8 @@ def _run_batch(cfg, proto, S, aux, n_sched: int, chunk: int | None,
     with torch.inference_mode():
         for lo in range(0, cfg.max_slots, step):
             hi = min(lo + step, cfg.max_slots)
-            st = sim.run_slots(cfg, proto, S, st, n_sched, lo, hi)
+            with spans.span("sweep.step"):
+                st = sim.run_slots(cfg, proto, S, st, n_sched, lo, hi)
             if stream is not None:
                 acc = _fold_hist(stream, edges, acc, st, S, aux, lo, hi)
     return st, acc
@@ -557,7 +558,16 @@ def run_spec(cfg, spec: SweepSpec) -> list:
     """Execute a :class:`SweepSpec`: prepare, group by static step
     parameters, step each group as one batch (chunked and streamed as
     configured), and finalize — results in input order. (Public entry
-    point: ``run_sweep(cfg, spec)``.)"""
+    point: ``run_sweep(cfg, spec)``.) The call is the call span
+    ``sweep.call`` (:mod:`repro_torch.core.spans`); inside it
+    ``sweep.prepare`` covers the tables' ``prepare``, ``sweep.step`` each
+    chunk's slot loop and ``sweep.to_host`` each group's copy to the
+    host."""
+    with spans.span("sweep.call"):
+        return _run_spec(cfg, spec)
+
+
+def _run_spec(cfg, spec: SweepSpec) -> list:
     tables = spec.resolve_tables(cfg)
     if not tables:
         return []
@@ -585,9 +595,10 @@ def run_spec(cfg, spec: SweepSpec) -> list:
                                                            rank))
 
     prepped = []
-    for t, al_i, ul_i in zip(tables, allocs, uls):
-        S, al = sim.prepare(cfg, t, al_i, ul_i)
-        prepped.append((S, al, proto.n_sched(cfg, al)))
+    with spans.span("sweep.prepare"):
+        for t, al_i, ul_i in zip(tables, allocs, uls):
+            S, al = sim.prepare(cfg, t, al_i, ul_i)
+            prepped.append((S, al, proto.n_sched(cfg, al)))
 
     groups = list(group_runs([(len(t.size), ns) for t, (_, _, ns)
                               in zip(tables, prepped)]).items())
@@ -638,8 +649,10 @@ def _run_block(cfg, proto, spec: SweepSpec, prepped: list, tables: list,
                                 for i in idxs]) if stream else None
         st, acc = _run_batch(cfg, proto, S, aux, n_sched, spec.chunk_slots,
                              stream)
-        return sim.host_state(_device_summary(cfg, st, acc)
-                              if stream is not None else st)
+        if stream is not None:
+            st = _device_summary(cfg, st, acc)
+        with spans.span("sweep.to_host"):
+            return sim.host_state(st)
 
 
 __all__ = ["SweepSpec", "StreamSpec", "SweepStats", "run_spec",

@@ -26,7 +26,8 @@ is bit-identical to the JAX package's.
 
 **3. Host wall-clock.** ``TraceConfig(wallclock=True)`` makes
 ``simulate`` report ``SimTrace.timings`` with the JAX package's keys;
-the port's meanings are in :func:`timed_run`.
+the port reads them from ``simulate``'s call spans
+(:mod:`repro_torch.core.spans`); their meanings are in :func:`timings`.
 
 ``SimConfig.trace=None`` and ``TraceConfig(enabled=False)`` keep the
 loop free of every tensor and operation defined here. ``run_sweep``
@@ -38,7 +39,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import time
 
 import numpy as np
 import torch
@@ -281,7 +281,7 @@ class SimTrace:
     events: np.ndarray                   # (n, 5) int32, EV_COLUMNS order
     ledger_cap: int
     n_events_seen: int
-    timings: dict | None = None          # wallclock=True: timed_run's split
+    timings: dict | None = None          # wallclock=True: timings()
     host_rx_q_chunks: np.ndarray | None = None   # (T, H) host RX backlog
 
     # ------------------------------------------------------------ derived
@@ -494,44 +494,29 @@ def reduce_state(cfg, st: dict) -> dict:
 
 # ------------------------------------------------------------- wall clock --
 
-def timed_run(setup, build, execute, repeats: int = 1, sync=None):
-    """Run ``setup() -> args``, ``build()`` and ``execute(*args) -> out``
-    and return ``(args, out, timings)``, the timings with the JAX
-    package's keys, in seconds rounded to 0.1 ms:
+def timings(prepare, load, runs) -> dict:
+    """The wall-clock split of a ``simulate`` call with the JAX
+    package's keys, in seconds rounded to 0.1 ms, from its call spans
+    (:mod:`repro_torch.core.spans`):
 
-      trace_s          ``setup``: the host set-up of a run (``prepare``
-                       and the slot-0 state)
-      compile_s        ``build``: building (or loading) the kernel
-                       libraries the run launches; 0.0 once they are
+      trace_s          ``simulate.prepare``: the host set-up of a run
+                       (``prepare`` and the slot-0 state)
+      compile_s        ``simulate.load``: building (or loading) the
+                       kernel library the run launches; 0.0 once it is
                        loaded, and on the CPU
-      execute_s        the minimum over ``repeats`` calls of ``execute``
-                       from the same arguments (the loop is
-                       deterministic, so repeats change only the time)
-      execute_repeats  ``repeats``
-
-    ``sync`` (``torch.cuda.synchronize`` on a card) is called before and
-    after each ``execute``, never inside the loop."""
-    sync = sync or (lambda: None)
-    t0 = time.perf_counter()
-    args = setup()
-    t1 = time.perf_counter()
-    build()
-    t2 = time.perf_counter()
-    execs = []
-    for _ in range(max(repeats, 1)):
-        sync()
-        te = time.perf_counter()
-        out = execute(*args)
-        sync()
-        execs.append(time.perf_counter() - te)
-    return args, out, {"trace_s": round(t1 - t0, 4),
-                       "compile_s": round(t2 - t1, 4),
-                       "execute_s": round(min(execs), 4),
-                       "execute_repeats": len(execs)}
+      execute_s        the shortest of the ``simulate.run`` spans, each
+                       the loop from the same state between two
+                       synchronizations (the loop is deterministic, so
+                       repeats change only the time)
+      execute_repeats  the number of ``simulate.run`` spans"""
+    return {"trace_s": round(prepare.seconds, 4),
+            "compile_s": round(load.seconds, 4),
+            "execute_s": round(min(r.seconds for r in runs), 4),
+            "execute_repeats": len(runs)}
 
 
 __all__ = ["TraceConfig", "SimTrace", "as_trace_config", "init_trace_state",
            "snapshot", "capture_slot", "finalize_trace", "reduce_state",
-           "timed_run", "n_samples",
+           "timings", "n_samples",
            "EV_GRANT", "EV_PREEMPT", "EV_LOSS", "EV_OVERFLOW", "EV_RESEND",
            "EV_TIMEOUT", "EV_COMPLETE", "EV_NAMES", "EV_COLUMNS"]
