@@ -494,6 +494,31 @@ def _arb_inputs(rng, H, cap, *, n_prios=8, p_elig=0.5, seq_hi=20000):
             torch.from_numpy(elig).to(dev))
 
 
+def _ring_inputs(rng, B, R, cap, n, *, p_valid=0.3, p_ok=0.9, hot=None):
+    """Rings (B, R, cap) and items (B, n) as the fabric passes them to
+    ``ring_insert``: not-ok items on the sentinel row R, ``seq`` one slot
+    number expanded; ``hot`` draws the rows from the first ``hot``."""
+    import numpy as np
+    import torch
+
+    def dev(a):
+        return torch.from_numpy(a).to(DEVICE)
+    rings = [dev(rng.integers(0, 1 << 20, (B, R, cap)).astype(np.int32))
+             for _ in range(3)]
+    valid = dev(rng.random((B, R, cap)) < p_valid)
+    ok = rng.random((B, n)) < p_ok
+    row = np.where(ok, rng.integers(0, hot or R, (B, n)), R)
+    items = [dev(row.astype(np.int32)), dev(ok)] + [
+        dev(rng.integers(0, 8000, (B, n)).astype(np.int32))
+        for _ in range(2)]
+    seq = torch.full((), 4321, dtype=torch.int32, device=DEVICE)
+    return (*rings, valid, *items, seq.expand(B, n))
+
+
+# (B, R, cap, n) of the benchmark cells' inserts: downlinks and uplinks
+RING_SHAPES = ((320, 144, 1024, 144), (320, 144, 512, 144))
+
+
 def _topk_keys(rng, H, M, *, p_pos=0.05, hi=1 << 30):
     """Grant-matrix-like keys: mostly 0 (ineligible), some positive keys
     with duplicates."""
@@ -862,6 +887,7 @@ def phase_kernels():
     from repro_torch.kernels.arbiter import build, kernel
     from repro_torch.kernels.arbiter.ref import (BIG, fused_slot_ref,
                                                  priority_arbiter_ref,
+                                                 ring_insert_ref,
                                                  srpt_topk_ref)
     rng = np.random.default_rng(0)
     err = {"priority_arbiter": 0, "srpt_topk": 0}
@@ -906,6 +932,27 @@ def phase_kernels():
             err["srpt_topk"] = max(err["srpt_topk"], _max_err(g, w))
         route = _route_of(kernel.srpt_topk, rounds, K)
         say(f"[kernels] srpt_topk == plain ({route}): {name}")
+
+    # the ring insert, in place, at the cells' shapes and fills and at
+    # edge shapes
+    err["ring_insert"] = 0
+    ring_cases = (RING_SHAPES[0] + (0.1, 0.3, None),
+                  RING_SHAPES[1] + (0.5, 0.9, None),
+                  (480, 144, 1024, 144, 0.99, 1.0, None),   # rows fill up
+                  (3, 5, 100, 70, 0.3, 1.0, 2),     # rows off 16-byte marks
+                  (2, 4, 1500, 90, 0.99, 1.0, 1))   # three passes a row
+    for B, R, cap, n, p_valid, p_ok, hot in ring_cases:
+        args = _ring_inputs(rng, B, R, cap, n, p_valid=p_valid, p_ok=p_ok,
+                            hot=hot)
+        want = ring_insert_ref(*args)
+        got = kernel.ring_insert(*(t.clone() for t in args[:4]), *args[4:])
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"ring_insert differs: {B}x{R}x{cap}, "
+                  f"{n} items, fill {p_valid}")
+            err["ring_insert"] = max(err["ring_insert"], _max_err(g, w))
+        say(f"[kernels] ring_insert == plain: ({B}, {R}, {cap}), {n} items, "
+            f"fill {p_valid}, dropped {int(want[4].sum())}")
 
     err["fused_slot"] = err["fused_slot_batch"] = 0
     for name, (fn, args, K) in _fused_cases(rng).items():
@@ -992,6 +1039,22 @@ def phase_kernels():
                      "fused_slot_kernel<8,true>")})
         perf[fn].update(device_ms_rows_new=rows["new"],
                         device_ms_rows_scalar=rows["scalar"])
+    # the ring insert at the cells' shapes, every item ok, rings filled
+    # 10% and each measurement on fresh rings (its ~100 calls fill a row
+    # by about as many slots more): the least bytes are each item's row of
+    # free flags read and its 13 bytes written
+    for B, R, cap, n in RING_SHAPES:
+        d = perf[f"ring_insert {B}x{R}x{cap}"] = dict(
+            shape=f"({B}, {R}, {cap}) rings, ({B}, {n}) items",
+            bound_ms=B * n * (cap + 13) / HBM_BYTES_PER_S * 1e3)
+        for key, fn, kw in (
+                ("ms", kernel.ring_insert, dict(batch=20, reps=5, warmup=2)),
+                ("plain_ms", ring_insert_ref, dict(batch=10, reps=5,
+                                                   warmup=2)),
+                ("device_ms", kernel.ring_insert, None)):
+            args = _ring_inputs(rng, B, R, cap, n, p_valid=0.1, p_ok=1.0)
+            d[key] = (time_ms(lambda: fn(*args), **kw) if kw else
+                      _device_ms(lambda: fn(*args), "ring_insert_kernel"))
     for name, d in perf.items():
         say(f"[kernels] {name} {d['shape']}: "
             + ", ".join(f"{k}={v!r}" for k, v in d.items() if k != "shape"))
@@ -1174,13 +1237,15 @@ def phase_goldens_full(phases):
     slots = FULL["max_slots"]
     launches = {"cuda": n_k, "fused": n_f}
     check(n_k == {"priority_arbiter": 2 * slots, "srpt_topk": slots,
-                  "fused_slot": 0, "fused_slot_batch": 0},
-          f"staged run launches {n_k}, expected 2 arbiter and 1 top-K per "
-          f"slot over {slots} slots")
+                  "fused_slot": 0, "fused_slot_batch": 0,
+                  "ring_insert": 3 * slots},
+          f"staged run launches {n_k}, expected 2 arbiter, 1 top-K and 3 "
+          f"ring inserts per slot over {slots} slots")
     check(n_f == {"priority_arbiter": 0, "srpt_topk": 0,
-                  "fused_slot": slots, "fused_slot_batch": 0},
-          f"fused run launches {n_f}, expected one fused_slot per slot over "
-          f"{slots} slots and nothing staged")
+                  "fused_slot": slots, "fused_slot_batch": 0,
+                  "ring_insert": 3 * slots},
+          f"fused run launches {n_f}, expected one fused_slot and 3 ring "
+          f"inserts per slot over {slots} slots and nothing staged")
     check(set(n_p.values()) == {0}, "the reference backend launched a kernel")
     rounds = {"srpt_topk": rounds_k["srpt_topk"],
               "fused_slot": rounds_f["fused_slot"]}
@@ -1242,11 +1307,14 @@ def _windows(cfgs: dict, S, st, n_sched, t, n, tag):
     out = {}
     for backend, cfg in cfgs.items():
         proto = get_protocol(cfg.protocol)
+        # each backend from its own copy: the kernel backends update the
+        # rings in place
+        st0 = {k: v.clone() for k, v in st.items()}
         torch.cuda.synchronize()
         t_dbg = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")   # a host sync now raises
         try:
-            st1 = run_slots(cfg, proto, S, st, n_sched, t, t + 20)
+            st1 = run_slots(cfg, proto, S, st0, n_sched, t, t + 20)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -1446,7 +1514,8 @@ def phase_sweep():
             f"{launches[backend]}")
     check(launches["fused"] == {"priority_arbiter": 0, "srpt_topk": 0,
                                 "fused_slot": 0,
-                                "fused_slot_batch": SWEEP_SLOTS},
+                                "fused_slot_batch": SWEEP_SLOTS,
+                                "ring_insert": 3 * SWEEP_SLOTS},
           f"sweep launches {launches['fused']}, expected one "
           f"fused_slot_batch per slot for the whole batch")
     check(launches["cuda"]["priority_arbiter"] == 2 * SWEEP_SLOTS
@@ -2529,6 +2598,7 @@ def phase_faults():
         check(not bad, f"fault golden {name} {backend}: differs in {bad}")
         want = ({"priority_arbiter": 2 * slots, "srpt_topk": slots}
                 if backend == "cuda" else {"fused_slot": slots})
+        want["ring_insert"] = 3 * slots
         check(all(n[k] == want.get(k, 0) for k in n),
               f"fault golden {name} {backend}: launches {n}")
         say(f"[faults] golden {name} {backend}: bit-exact, f_lost {f_lost}, "
@@ -2549,11 +2619,13 @@ def phase_faults():
             f"in a worker, {slots / secs:.1f} slots/s; launches {n}")
     check(out["launches"]["cuda"] == {"priority_arbiter": 2 * slots,
                                       "srpt_topk": slots, "fused_slot": 0,
-                                      "fused_slot_batch": 0},
+                                      "fused_slot_batch": 0,
+                                      "ring_insert": 3 * slots},
           f"fault run launches {out['launches']['cuda']} on cuda")
     check(out["launches"]["fused"] == {"priority_arbiter": 0,
                                        "srpt_topk": 0, "fused_slot": slots,
-                                       "fused_slot_batch": 0},
+                                       "fused_slot_batch": 0,
+                                       "ring_insert": 3 * slots},
           f"fault run launches {out['launches']['fused']} on fused")
     check(set(out["launches"]["reference"].values()) == {0},
           "the reference backend launched a kernel")
@@ -2815,6 +2887,9 @@ def phase_host():
                     is not ReceiverPolicy.grant_problem else 0}
         else:
             want = {"fused_slot": n_small}
+        # one ring insert a slot on a switch, three on the fabric
+        want["ring_insert"] = n_small * (1 if run["topology"] == "switch"
+                                         else 3)
         check(all(n[k] == want.get(k, 0) for k in n),
               f"host golden {name} {backend}: launches {n}, want {want}")
     say(f"[host] 10a: the {len(small['runs'])} runs of the host/trace "
@@ -2834,11 +2909,13 @@ def phase_host():
             f"in a worker, {slots / secs:.1f} slots/s; launches {n}")
     check(out["launches"]["cuda"] == {"priority_arbiter": 2 * slots,
                                       "srpt_topk": slots, "fused_slot": 0,
-                                      "fused_slot_batch": 0},
+                                      "fused_slot_batch": 0,
+                                      "ring_insert": 3 * slots},
           f"host run launches {out['launches']['cuda']} on cuda")
     check(out["launches"]["fused"] == {"priority_arbiter": 0,
                                        "srpt_topk": 0, "fused_slot": slots,
-                                       "fused_slot_batch": 0},
+                                       "fused_slot_batch": 0,
+                                       "ring_insert": 3 * slots},
           f"host run launches {out['launches']['fused']} on fused")
     check(set(out["launches"]["reference"].values()) == {0},
           "the reference backend launched a kernel")
@@ -4464,7 +4541,8 @@ def phase_shard(world1, examples):
                       f"statistics differ from the world of one's")
                 check(launches == {"priority_arbiter": 0, "srpt_topk": 0,
                                    "fused_slot": 0,
-                                   "fused_slot_batch": SWEEP_SLOTS},
+                                   "fused_slot_batch": SWEEP_SLOTS,
+                                   "ring_insert": 3 * SWEEP_SLOTS},
                       f"world {world} rank {r}: sweep launches {launches}, "
                       f"expected one fused_slot_batch a slot")
             if "mega" in got:

@@ -16,8 +16,9 @@ device us a slot charged to each span name, their sum beside
 runtime calls' us a slot inside them, by name; the spans that the
 ``srpt_topk`` and ``priority_arbiter`` kernels are charged to; the
 stretch's wall time a slot; each span's six costliest operations
-(device us a slot); and the host cost of one span, timed on a recorder
-of its own.
+(device us a slot); each span's kernel records a slot, in all and by
+operation; and the host cost of one span, timed on a recorder of its
+own.
 ``--slot-spans off`` records no slot spans in the window (the slot
 tier stays closed), for the stretch's wall time without them.
 """
@@ -126,7 +127,7 @@ def main(argv=None) -> int:
         out["charged_us_per_slot"] = dict(sorted(us.items(),
                                                  key=lambda kv: -kv[1]))
         out["charged_sum_us_per_slot"] = sum(us.values())
-        owner, by_span = {}, {}
+        owner, by_span, counts = {}, {}, {}
         hit = sorted(((c[1], d) for d, c in matched), key=lambda x: x[0])
         for (_, d), s in zip(hit, stages.innermost(spans_,
                                                    [t for t, _ in hit])):
@@ -134,11 +135,21 @@ def main(argv=None) -> int:
             ops = by_span.setdefault(name, {})
             op = short(d[0])
             ops[op] = ops.get(op, 0) + d[3] - d[2]
+            if d[1] == "kernel":
+                n = counts.setdefault(name, {})
+                n[op] = n.get(op, 0) + 1
             for k in ("srpt_topk", "priority_arbiter", "fused_slot"):
                 if k in d[0]:
                     owner.setdefault(k, {})
                     owner[k][name] = owner[k].get(name, 0) + 1
         out["kernels_charged_to"] = owner
+        # kernel records a slot by span, and by operation within each span
+        out["kernel_records_per_slot"] = {
+            name: sum(n.values()) / rec["slots"]
+            for name, n in counts.items()}
+        out["kernel_ops_per_slot"] = {
+            name: {k: v / rec["slots"] for k, v in sorted(n.items())}
+            for name, n in counts.items()}
         out["top_ops_us_per_slot"] = {
             name: [[k, v / 1e3 / rec["slots"]] for k, v in sorted(
                 ops.items(), key=lambda kv: -kv[1])[:6]]

@@ -28,7 +28,6 @@ from repro_torch.core import spans
 from repro_torch.core.faults import (FaultConfig, forward_losses,
                                      inject_losses, select_uplink)
 from repro_torch.core.protocols import BIG, I32
-from repro_torch.core.scatter import set_drop
 from repro_torch.kernels.arbiter import dispatch
 from repro_torch.kernels.arbiter.ref import priority_arbiter_ref
 
@@ -171,7 +170,8 @@ def spine_hash(src: np.ndarray, dst: np.ndarray, msg_id: np.ndarray,
 # (B runs of R rings each) with occupancy-based insertion and
 # strict-priority / FIFO drain.
 
-def ring_insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq):
+def ring_insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq, *,
+                backend: str = "reference"):
     """Insert up to ``n`` chunks per run into per-row rings.
 
     Rings are ``(B, R, cap)``; ``row``/``ok``/``msg``/``prio``/``seq`` are
@@ -179,35 +179,19 @@ def ring_insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq):
     iff ``ok[b, i]``; several items may target one row in a slot (they
     take consecutive free slots in input order). A chunk is dropped only
     when its ring is actually full. Returns the four updated ring arrays
-    plus the dropped count per run, ``(B,)`` int32."""
-    B, R, cap = valid_a.shape
-    n = row.shape[1]
+    plus the dropped count per run, ``(B,)`` int32.
+
+    On the kernel backends (``"cuda"``, ``"fused"``) with the rings on the
+    card, ``ring_insert_kernel`` updates the four ring tensors in place
+    and returns the same tensors: the call consumes them, and a caller
+    may not keep a reference to them to read the rings as they were
+    before the call (take a ``clone()`` first). The ``reference`` backend
+    and CPU tensors run the plain version
+    (``kernels/arbiter/ref.py`` ``ring_insert_ref``), which returns new
+    tensors and leaves its arguments as they were."""
     with spans.slot("ring.insert"):
-        rows = torch.where(ok, row, R).long()                 # sentinel R
-        earlier = torch.ones(n, n, dtype=torch.bool,
-                             device=row.device).tril_(-1)
-        # rank among earlier ok items of the same run bound for the same
-        # row (a not-ok item's sentinel row R matches no ok item, and its
-        # own rank is never used)
-        rank = ((rows[:, :, None] == rows[:, None, :]) & earlier).sum(dim=2)
-        # (r+1)-th free slot per row: a left binary search in the cumsum
-        # of free slots, which is nondecreasing
-        c = torch.cumsum(~valid_a, dim=2)                    # int64
-        c_row = c.gather(1, rows.clamp_max(R - 1)[:, :, None]
-                         .expand(B, n, cap))
-        room = c_row[:, :, -1] > rank
-        okw = ok & room
-        pos = torch.searchsorted(c_row, (rank + 1)[:, :, None],
-                                 right=False)[:, :, 0]
-        # suppressed writes are dropped, never clamped into range: an
-        # in-range no-op write could race a genuine insertion at the same
-        # place
-        flat = rows * cap + pos
-        return (set_drop(msg_a, flat, msg, okw),
-                set_drop(prio_a, flat, prio, okw),
-                set_drop(seq_a, flat, seq, okw),
-                set_drop(valid_a, flat, okw, okw),
-                (ok & ~room).sum(dim=1, dtype=I32))
+        return dispatch.insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg,
+                               prio, seq, backend=backend)
 
 
 def ring_drain_select(prio_a, seq_a, eligible):
@@ -291,10 +275,10 @@ def route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now, fx=None):
 
     r_msg, r_prio, r_seq, r_valid, d_drop = ring_insert(
         st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
-        dsts, local, cm, prio_chunk, seq)
+        dsts, local, cm, prio_chunk, seq, backend=cfg.backend)
     u_msg, u_prio, u_seq, u_valid, u_drop = ring_insert(
         st["u_msg"], st["u_prio"], st["u_seq"], st["u_valid"],
-        urow, remote, cm, prio_chunk, seq)
+        urow, remote, cm, prio_chunk, seq, backend=cfg.backend)
 
     return {**st,
             "r_msg": r_msg, "r_prio": r_prio, "r_seq": r_seq,
@@ -354,7 +338,7 @@ def uplink_drain(cfg, st, S, now, pre=None, fx=None):
         ins_ok, st = forward_losses(cfg, st, msg, dst, any_e, now, fx)
     r_msg, r_prio, r_seq, r_valid, d_drop = ring_insert(
         st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
-        dst, ins_ok, msg, prio, vseq)
+        dst, ins_ok, msg, prio, vseq, backend=cfg.backend)
 
     qlen = eligible.sum(dim=2, dtype=I32) - any_e.to(I32)
     out = {**st,

@@ -456,7 +456,8 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
     if not cfg.fabric_on:
         r_msg, r_prio, r_seq, r_valid, n_drop = ring_insert(
             st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
-            dsts, has, cm, prio_chunk, now.expand(B, H))
+            dsts, has, cm, prio_chunk, now.expand(B, H),
+            backend=cfg.backend)
         st = {**st, "r_msg": r_msg, "r_prio": r_prio, "r_seq": r_seq,
               "r_valid": r_valid, "lost": st["lost"] + n_drop}
     else:
@@ -693,10 +694,15 @@ def simulate(cfg: SimConfig, table: MessageTable,
     with spans.span("simulate.load") as load:
         dispatch.load_kernels(cfg.backend, cfg.device)
     runs = []
-    for _ in range(cfg.trace.wallclock_repeats if wall else 1):
+    repeats = cfg.trace.wallclock_repeats if wall else 1
+    for i in range(repeats):
+        # the kernel backends update the rings in place (ring_insert), so
+        # every repeat but the last starts from a copy of the state
+        st = st0 if i == repeats - 1 else {k: v.clone()
+                                           for k, v in st0.items()}
         sync()
         with spans.span("simulate.run") as run:
-            st = run_slots(cfg, proto, stack_static([S]), st0,
+            st = run_slots(cfg, proto, stack_static([S]), st,
                            proto.n_sched(cfg, alloc), 0, cfg.max_slots)
             sync()
         runs.append(run)

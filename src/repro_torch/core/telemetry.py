@@ -138,8 +138,10 @@ def init_trace_state(cfg, M: int, B: int = 1) -> dict:
 
 
 def snapshot(cfg, st) -> dict:
-    """Slot-start references needed to difference per-slot event deltas
-    (state tensors are never written in place, so this copies nothing)."""
+    """Slot-start references needed to difference per-slot event deltas.
+    No state tensor is written in place but the four ring buffers of each
+    tier, which ``fabric.ring_insert`` updates in place on the kernel
+    backends; this holds none of them, so it copies nothing."""
     prev = {"grant_r": st["grant_r"], "completion": st["completion"],
             "lost": st["lost"]}
     if cfg.fabric_on:

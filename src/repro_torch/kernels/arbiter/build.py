@@ -21,6 +21,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                                          + [ptr] * 5 + [i32] * 2
                                          + [ptr] * 3 + [i32] * 6 + [ptr])
     lib.arbiter_fused_launch.restype = i32
+    lib.arbiter_ring_insert_launch.argtypes = ([ptr] * 4 + [i32] * 3
+                                               + [ptr] * 6 + [i32, ptr, ptr])
+    lib.arbiter_ring_insert_launch.restype = i32
     lib.arbiter_error_string.argtypes = [i32]
     lib.arbiter_error_string.restype = ctypes.c_char_p
 

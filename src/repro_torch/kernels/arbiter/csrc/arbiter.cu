@@ -7,6 +7,9 @@
 //                               (_topk_kernel)
 //   fused_slot_kernel        <- kernels/arbiter/fused.py fused_slot and
 //                               fused_slot_batch (_fused_kernel)
+// and one that has no Pallas counterpart:
+//   ring_insert_kernel       <- core/fabric.py ring_insert (plain PyTorch
+//                               there and in the JAX package), in place
 //
 // All are integer row reductions. The per-row bodies are the __device__
 // routines arb_rows (one or a group of ring rows per block) and topk_row
@@ -813,6 +816,148 @@ int launch_priority(const void* prio, const void* seq, const void* elig,
 // 0 the rounds routine (any K). kernel.py picks it.
 bool topk_cap_ok(int kc, int K) { return kc == 0 || (kc == 8 && K <= kc); }
 
+// ---------------------------------------------------------- ring insert --
+
+// The function (kernels/arbiter/ref.py ring_insert_ref): item i of run b
+// goes into ring row[b, i] of that run iff ok[b, i], at the (rank + 1)-th
+// free slot of the row as it was before the call, where rank counts the
+// earlier ok items of the run bound for the same row; an item whose row
+// has fewer free slots is dropped, and counted. The plain version copies
+// the whole ring pool and takes a cumsum of every row's free flags; this
+// kernel reads only the rows that items go to and writes their slots in
+// place, so it moves bytes in proportion to the chunks, not to the pool.
+//
+// One block a run: a run's rows belong to it alone, so no hazard crosses
+// blocks. Read phase: each warp takes items of its run; for item i it
+// counts the rank from the items' rows in shared memory, then reads the
+// row's valid bytes in 16-byte units (one a lane, 32 a pass), counts each
+// unit's free flags, and finds the unit that holds the (rank + 1)-th by a
+// prefix sum across the warp; a row wider than 32 units takes more passes,
+// and the warp stops at the first that holds it. Then a barrier, so that
+// every item has seen the row as it was before any write. Write phase:
+// each thread writes an item's msg, prio, seq and valid = 1 at the slot
+// found, and thread 0 the run's dropped count.
+constexpr int kInsertThreads = 512;
+constexpr int kUnit = 16;          // valid bytes a lane reads at once
+
+struct InsertArgs {
+  int* msg_a;                      // (B, R, cap) rings, dense
+  int* prio_a;
+  int* seq_a;
+  unsigned char* valid_a;
+  int R, cap, n;
+  bool vec;                        // every row starts on a 16-byte boundary
+  const int* row;                  // (B, n) items, at any strides
+  const unsigned char* ok;
+  const int* msg;
+  const int* prio;
+  const int* seq;
+  long long row_s[2], ok_s[2], msg_s[2], prio_s[2], seq_s[2];
+  int* dropped;                    // (B,)
+};
+
+// Bit k set where byte k of w is 0 (a free slot), for k < 4.
+__device__ __forceinline__ unsigned free_bits4(unsigned w) {
+  const unsigned z = __vseteq4(w, 0u);     // 0x01 in each zero byte
+  return (z & 1u) | ((z >> 7) & 2u) | ((z >> 14) & 4u) | ((z >> 21) & 8u);
+}
+
+// The free flags of columns [c, c + 16) of a row as a 16-bit mask (bit k:
+// column c + k); columns at or past cap are not free.
+__device__ __forceinline__ unsigned free_unit(const unsigned char* v, int c,
+                                              int cap, bool vec) {
+  if (c >= cap) return 0u;
+  if (vec) {
+    const uint4 u = *reinterpret_cast<const uint4*>(v + c);
+    return free_bits4(u.x) | free_bits4(u.y) << 4 | free_bits4(u.z) << 8
+           | free_bits4(u.w) << 12;
+  }
+  unsigned m = 0u;
+  for (int k = 0; k < kUnit && c + k < cap; ++k) {
+    m |= static_cast<unsigned>(v[c + k] == 0) << k;
+  }
+  return m;
+}
+
+// The column of the target-th (>= 1) free slot of a row, in every lane, or
+// -1 if the row has fewer.
+__device__ int warp_find_free(const unsigned char* v, int cap, bool vec,
+                              int target, int lane) {
+  for (int c0 = 0; c0 < cap; c0 += 32 * kUnit) {
+    const int c = c0 + lane * kUnit;
+    unsigned m = free_unit(v, c, cap, vec);
+    const int f = __popc(m);
+    int incl = f;                            // free slots up to my unit
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += o;
+    }
+    const unsigned hit = __ballot_sync(kFull, incl >= target);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      int col = -1;
+      if (lane == src) {
+        for (int t = target - (incl - f); t > 1; --t) m &= m - 1;
+        col = c + __ffs(m) - 1;
+      }
+      return __shfl_sync(kFull, col, src);
+    }
+    target -= __shfl_sync(kFull, incl, 31);
+  }
+  return -1;
+}
+
+__global__ void __launch_bounds__(kInsertThreads)
+ring_insert_kernel(const InsertArgs a) {
+  extern __shared__ int sh[];
+  int* const srow = sh;            // item's row, -1 where it goes nowhere
+  int* const spos = sh + a.n;      // its column, -1 where it is dropped
+  __shared__ int sdrop;
+  const long long b = blockIdx.x;
+  const int n = a.n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = a.row[b * a.row_s[0] + i * a.row_s[1]];
+    const bool ok = a.ok[b * a.ok_s[0] + i * a.ok_s[1]] != 0;
+    srow[i] = ok && r >= 0 && r < a.R ? r : -1;
+  }
+  if (threadIdx.x == 0) sdrop = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const size_t run_row = static_cast<size_t>(b) * a.R;
+  for (int i = threadIdx.x >> 5; i < n; i += nw) {
+    const int r = srow[i];                   // one value in the warp
+    if (r < 0) {
+      if (lane == 0) spos[i] = -1;
+      continue;
+    }
+    int rank = 0;
+    for (int j0 = 0; j0 < i; j0 += 32) {
+      const int j = j0 + lane;
+      rank += __popc(__ballot_sync(kFull, j < i && srow[j] == r));
+    }
+    const int col = warp_find_free(a.valid_a + (run_row + r) * a.cap, a.cap,
+                                   a.vec, rank + 1, lane);
+    if (lane == 0) {
+      spos[i] = col;
+      if (col < 0) atomicAdd(&sdrop, 1);
+    }
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int col = spos[i];
+    if (col < 0) continue;
+    const size_t o = (run_row + srow[i]) * a.cap + col;
+    a.msg_a[o] = a.msg[b * a.msg_s[0] + i * a.msg_s[1]];
+    a.prio_a[o] = a.prio[b * a.prio_s[0] + i * a.prio_s[1]];
+    a.seq_a[o] = a.seq[b * a.seq_s[0] + i * a.seq_s[1]];
+    a.valid_a[o] = 1;
+  }
+  if (threadIdx.x == 0) a.dropped[b] = sdrop;
+}
+
 }  // namespace
 
 extern "C" {
@@ -910,6 +1055,48 @@ int arbiter_fused_launch(const void* d_prio, const void* d_seq,
       launch_fused<0, false>(grid, a, s);
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ring_insert_kernel on B runs: rings (B, R, cap), dense (int32 msg, prio,
+// seq; bool valid), updated in place; items (B, n) at the given (run,
+// item) strides in elements (seq is often one value expanded, strides 0);
+// dropped (B,) int32.
+int arbiter_ring_insert_launch(void* msg_a, void* prio_a, void* seq_a,
+                               void* valid_a, int B, int R, int cap,
+                               const void* row, const void* ok,
+                               const void* msg, const void* prio,
+                               const void* seq, const long long* strides,
+                               int n, void* dropped, void* stream) {
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  InsertArgs a;
+  a.msg_a = static_cast<int*>(msg_a);
+  a.prio_a = static_cast<int*>(prio_a);
+  a.seq_a = static_cast<int*>(seq_a);
+  a.valid_a = static_cast<unsigned char*>(valid_a);
+  a.R = R;
+  a.cap = cap;
+  a.n = n;
+  a.vec = cap % kUnit == 0 && reinterpret_cast<uintptr_t>(valid_a) % 16 == 0;
+  a.row = static_cast<const int*>(row);
+  a.ok = static_cast<const unsigned char*>(ok);
+  a.msg = static_cast<const int*>(msg);
+  a.prio = static_cast<const int*>(prio);
+  a.seq = static_cast<const int*>(seq);
+  long long* const s[5] = {a.row_s, a.ok_s, a.msg_s, a.prio_s, a.seq_s};
+  for (int k = 0; k < 5; ++k) {
+    s[k][0] = strides[2 * k];
+    s[k][1] = strides[2 * k + 1];
+  }
+  a.dropped = static_cast<int*>(dropped);
+  const size_t smem = 2 * sizeof(int) * static_cast<size_t>(n);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(ring_insert_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  ring_insert_kernel<<<B, kInsertThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

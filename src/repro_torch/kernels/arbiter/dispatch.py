@@ -7,6 +7,9 @@
   ``fused_slot(down=..., up=..., topk=..., backend=...)``   all of a
       slot's stages in ONE kernel launch — the ``fused`` backend's entry
       point (DESIGN.md §11), called from ``sim._fused_precompute``.
+  ``insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq,
+      backend=...)``   chunks into per-row rings — ``fabric.ring_insert``;
+      in place on the card on both kernel backends.
 
 ``backend="reference"`` runs the plain PyTorch versions (``ref.py``) on
 whatever device the tensors are on; ``backend="cuda"`` runs the staged
@@ -31,7 +34,8 @@ import torch
 from repro_torch.kernels.arbiter import kernel
 from repro_torch.kernels.arbiter.ref import (fused_slot_ref,
                                              priority_arbiter_ref,
-                                             srpt_topk_ref, topk_normalize)
+                                             ring_insert_ref, srpt_topk_ref,
+                                             topk_normalize)
 
 BACKENDS = ("reference", "cuda", "fused")
 KERNEL_BACKENDS = ("cuda", "fused")
@@ -97,12 +101,9 @@ def fused_slot(down=None, up=None, topk=None, *, backend: str = "fused"):
     if backend == "reference":
         raw = fused_slot_ref(down, up, keys, K)
     elif backend == "fused":
-        # at B > 1 the rings are strided views (core/scatter.py cuts a
-        # spare column off each run's row); the kernel reads dense rows.
-        # At B = 1 every operand is already dense and nothing is copied.
-        dense = (lambda s: None if s is None
-                 else tuple(t.contiguous() for t in s))
-        down, up = dense(down), dense(up)
+        # the kernel reads dense rows, as the rings are on the card:
+        # ring_insert updates them in place (the wrapper raises on
+        # strided operands)
         B = (down or up or (keys,))[0].shape[0]
         if B == 1:
             drop = (lambda s: None if s is None
@@ -124,5 +125,20 @@ def fused_slot(down=None, up=None, topk=None, *, backend: str = "fused"):
     return out
 
 
+def insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq, *,
+           backend: str = "reference"):
+    """Chunks into per-row rings (``fabric.ring_insert``). On both kernel
+    backends, rings on the card go through ``ring_insert_kernel``, which
+    updates the four ring tensors in place and returns them; the
+    ``reference`` backend and CPU tensors run the plain version, which
+    returns new ones. Returns ``(msg_a, prio_a, seq_a, valid_a, dropped
+    (B,))``, bit-identical across backends."""
+    if backend in KERNEL_BACKENDS:
+        return kernel.ring_insert(msg_a, prio_a, seq_a, valid_a, row, ok,
+                                  msg, prio, seq)
+    return ring_insert_ref(msg_a, prio_a, seq_a, valid_a, row, ok, msg,
+                           prio, seq)
+
+
 __all__ = ["BACKENDS", "resolve_backend", "load_kernels", "arbitrate", "topk",
-           "fused_slot"]
+           "fused_slot", "insert"]

@@ -1,8 +1,10 @@
 """Python entry points of the hand-written arbitration kernels.
 
-``priority_arbiter``, ``srpt_topk``, ``fused_slot`` and
-``fused_slot_batch`` take the tensors the simulator holds and run
-``csrc/arbiter.cu`` (built by :mod:`.build`) on PyTorch's current stream.
+``priority_arbiter``, ``srpt_topk``, ``fused_slot``,
+``fused_slot_batch`` and ``ring_insert`` take the tensors the simulator
+holds and run ``csrc/arbiter.cu`` (built by :mod:`.build`) on PyTorch's
+current stream. ``ring_insert`` alone writes into its arguments: it
+updates the rings in place.
 A tensor on the CPU goes to the plain version in :mod:`.ref` instead; a
 CUDA tensor launches the kernel or raises — a failed build or launch
 never falls back.
@@ -22,12 +24,15 @@ and ``fused_slot_batch.launches_rounds``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels.arbiter.build import load_library
 from repro_torch.kernels.arbiter.ref import (BIG, NEG, fused_slot_ref,
                                              priority_arbiter_ref,
-                                             srpt_topk_ref, topk_normalize)
+                                             ring_insert_ref, srpt_topk_ref,
+                                             topk_normalize)
 
 
 TOPK_CAPS = (8,)    # K caps of the one-pass top-K instances (csrc)
@@ -191,7 +196,50 @@ def fused_slot_batch(down=None, up=None, keys=None, K: int = 0):
     return _fused(fused_slot_batch, down, up, keys, K, batched=True)
 
 
-WRAPPERS = (priority_arbiter, srpt_topk, fused_slot, fused_slot_batch)
+def ring_insert(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq):
+    """:func:`ref.ring_insert_ref` in one launch, in place: the rings
+    ``msg_a``/``prio_a``/``seq_a`` (int32) and ``valid_a`` (bool), ``(B,
+    R, cap)`` and contiguous, take the inserted chunks where they are,
+    and the same four tensors come back. The items ``row``/``msg``/
+    ``prio``/``seq`` (int32) and ``ok`` (bool) are ``(B, n)`` at any
+    strides (``seq`` is often one slot number expanded); nothing is
+    copied. Returns ``(msg_a, prio_a, seq_a, valid_a, dropped (B,)
+    int32)``. CPU tensors take the plain version, which returns new
+    rings."""
+    if valid_a.device.type == "cpu":
+        return ring_insert_ref(msg_a, prio_a, seq_a, valid_a, row, ok, msg,
+                               prio, seq)
+    rings = (msg_a, prio_a, seq_a, valid_a)
+    _check("ring_insert", rings, (torch.int32,) * 3 + (torch.bool,), 3)
+    B, R, cap = valid_a.shape
+    n = row.shape[-1]
+    items = (row, ok, msg, prio, seq)
+    for t, dt in zip(items, (torch.int32, torch.bool) + (torch.int32,) * 3):
+        if t.dtype != dt:
+            raise TypeError(f"ring_insert: expected {dt} items, got "
+                            f"{t.dtype}")
+        if t.device != valid_a.device:
+            raise ValueError(f"ring_insert: tensors on {valid_a.device} and "
+                             f"{t.device}")
+        if tuple(t.shape) != (B, n):
+            raise ValueError(f"ring_insert: expected ({B}, n) items, got "
+                             f"{tuple(t.shape)} and {tuple(row.shape)}")
+    dropped = torch.empty(B, dtype=torch.int32, device=valid_a.device)
+    if B:
+        strides = (ctypes.c_longlong * 10)(*(s for t in items
+                                             for s in t.stride()))
+        lib = load_library()
+        rc = lib.arbiter_ring_insert_launch(
+            *(t.data_ptr() for t in rings), B, R, cap,
+            *(t.data_ptr() for t in items), strides, n, dropped.data_ptr(),
+            torch.cuda.current_stream(valid_a.device).cuda_stream)
+        _raise_on(rc, "ring_insert", lib)
+        ring_insert.launches += 1
+    return (*rings, dropped)
+
+
+WRAPPERS = (priority_arbiter, srpt_topk, fused_slot, fused_slot_batch,
+            ring_insert)
 TOPK_WRAPPERS = (srpt_topk, fused_slot, fused_slot_batch)
 
 
@@ -211,5 +259,5 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = ["BIG", "NEG", "TOPK_CAPS", "topk_cap", "ARB_LAYOUTS",
            "ARB_LAYOUT", "priority_arbiter",
-           "srpt_topk", "fused_slot", "fused_slot_batch",
+           "srpt_topk", "fused_slot", "fused_slot_batch", "ring_insert",
            "reset_launch_counts", "launch_counts"]

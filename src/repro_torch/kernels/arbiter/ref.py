@@ -4,8 +4,10 @@ These are the oracles the CUDA kernels in ``csrc/arbiter.cu`` are held
 to (``chip_smoke.py`` on the card, ``tests/test_torch_arbiter.py`` and
 ``tests/test_torch_fused.py`` against ``repro.kernels.arbiter`` and the
 Pallas kernels), and what the ``reference`` backend and every CPU tensor
-run. Every function reduces over the last axis, so operands may carry
-any leading axes (the simulator's run axis among them).
+run. The arbitration functions reduce over the last axis, so operands
+may carry any leading axes (the simulator's run axis among them);
+:func:`ring_insert_ref`, the oracle of ``ring_insert_kernel``, takes
+rings with one leading run axis.
 """
 from __future__ import annotations
 
@@ -75,5 +77,47 @@ def fused_slot_ref(down=None, up=None, keys=None, K: int = 0):
     return tuple(out)
 
 
+def ring_insert_ref(msg_a, prio_a, seq_a, valid_a, row, ok, msg, prio, seq):
+    """Insert up to ``n`` chunks per run into per-row rings
+    (``fabric.ring_insert``'s function).
+
+    Rings are ``(B, R, cap)``; ``row``/``ok``/``msg``/``prio``/``seq`` are
+    ``(B, n)``. Item i of run b goes into ring ``row[b, i]`` of that run
+    iff ``ok[b, i]``; several items may target one row in a slot (they
+    take consecutive free slots in input order). A chunk is dropped only
+    when its ring is actually full. Returns four new ring arrays plus the
+    dropped count per run, ``(B,)`` int32."""
+    # core.scatter imports the core package, which imports this module
+    from repro_torch.core.scatter import set_drop
+    B, R, cap = valid_a.shape
+    n = row.shape[1]
+    rows = torch.where(ok, row, R).long()                 # sentinel R
+    earlier = torch.ones(n, n, dtype=torch.bool,
+                         device=row.device).tril_(-1)
+    # rank among earlier ok items of the same run bound for the same
+    # row (a not-ok item's sentinel row R matches no ok item, and its
+    # own rank is never used)
+    rank = ((rows[:, :, None] == rows[:, None, :]) & earlier).sum(dim=2)
+    # (r+1)-th free slot per row: a left binary search in the cumsum
+    # of free slots, which is nondecreasing
+    c = torch.cumsum(~valid_a, dim=2)                    # int64
+    c_row = c.gather(1, rows.clamp_max(R - 1)[:, :, None]
+                     .expand(B, n, cap))
+    room = c_row[:, :, -1] > rank
+    okw = ok & room
+    pos = torch.searchsorted(c_row, (rank + 1)[:, :, None],
+                             right=False)[:, :, 0]
+    # suppressed writes are dropped, never clamped into range: an
+    # in-range no-op write could race a genuine insertion at the same
+    # place
+    flat = rows * cap + pos
+    return (set_drop(msg_a, flat, msg, okw),
+            set_drop(prio_a, flat, prio, okw),
+            set_drop(seq_a, flat, seq, okw),
+            set_drop(valid_a, flat, okw, okw),
+            (ok & ~room).sum(dim=1, dtype=torch.int32))
+
+
 __all__ = ["BIG", "NEG", "priority_arbiter_ref", "srpt_topk_raw",
-           "srpt_topk_ref", "topk_normalize", "fused_slot_ref"]
+           "srpt_topk_ref", "topk_normalize", "fused_slot_ref",
+           "ring_insert_ref"]

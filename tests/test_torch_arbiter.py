@@ -17,7 +17,7 @@ from repro.kernels.arbiter import ref as jref
 from repro_torch.kernels.arbiter import dispatch, kernel
 from repro_torch.kernels.arbiter.ref import (BIG, fused_slot_ref,
                                              priority_arbiter_ref,
-                                             srpt_topk_ref)
+                                             ring_insert_ref, srpt_topk_ref)
 from test_torch_cuda import ARB_CASES, TOPK_CASES, _arb_inputs, _keys
 
 torch.set_num_threads(1)
@@ -55,9 +55,9 @@ def test_srpt_topk_plain_matches_jax(case):
 
 
 def test_cpu_wrappers_take_the_plain_version():
-    """On CPU tensors the kernel wrappers (the fused ones included) and
-    the ``cuda`` dispatch path compute the plain version and launch
-    nothing."""
+    """On CPU tensors the kernel wrappers (the fused ones and the ring
+    insert included) and the ``cuda`` dispatch path compute the plain
+    version and launch nothing."""
     kernel.reset_launch_counts()
     prio, seq, elig = (torch.from_numpy(a) for a in _arb_inputs(8, 64, 3))
     want = priority_arbiter_ref(prio, seq, elig)
@@ -75,8 +75,16 @@ def test_cpu_wrappers_take_the_plain_version():
     got = kernel.fused_slot_batch(down=(prio[None], seq[None], elig[None]),
                                   keys=keys[None], K=3)
     assert all(torch.equal(g[0], w) for g, w in zip(got, want))
+    rings = (prio[None], seq[None], seq[None], elig[None])
+    items = (torch.arange(8, dtype=torch.int32)[None] % 3,
+             torch.ones((1, 8), dtype=torch.bool), *(prio[None, :, 0],) * 3)
+    want = ring_insert_ref(*rings, *items)
+    for got in (kernel.ring_insert(*rings, *items),
+                dispatch.insert(*rings, *items, backend="cuda")):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert kernel.launch_counts() == {"priority_arbiter": 0, "srpt_topk": 0,
-                                      "fused_slot": 0, "fused_slot_batch": 0}
+                                      "fused_slot": 0, "fused_slot_batch": 0,
+                                      "ring_insert": 0}
     assert kernel.srpt_topk(keys, 40)[0].shape == (8, 40)    # rounds' K
     assert all(fn.launches_rounds == 0 for fn in kernel.TOPK_WRAPPERS)
     with pytest.raises(ValueError, match="K must be >= 1"):

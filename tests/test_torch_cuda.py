@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels.arbiter import kernel
 from repro_torch.kernels.arbiter.ref import (BIG, NEG, fused_slot_ref,
                                              priority_arbiter_ref,
+                                             ring_insert_ref,
                                              srpt_topk_raw, srpt_topk_ref)
 
 INT_MIN, INT_MAX = -(1 << 31), (1 << 31) - 1
@@ -408,7 +409,8 @@ def test_fused_slot_kernel_ring_edge_cases(cuda, B, offset):
 def test_fused_backend_launches_one_kernel_per_slot(cuda):
     """A small leaf-spine run on ``backend="fused"`` equals the staged
     ``"cuda"`` run and launches one fused kernel per slot, nothing
-    staged; a batch of three runs launches one ``fused_slot_batch``."""
+    staged, beside the fabric's three ring inserts a slot; a batch of
+    three runs launches one ``fused_slot_batch``."""
     from repro_torch.core import (FabricConfig, SimConfig, SweepSpec,
                                   make_messages, run_sweep, simulate)
     tables = [make_messages("W2", n_hosts=8, load=0.7, n_messages=60,
@@ -420,7 +422,8 @@ def test_fused_backend_launches_one_kernel_per_slot(cuda):
     fused = simulate(SimConfig(**kw, backend="fused"), tables[0])
     assert kernel.launch_counts() == {"priority_arbiter": 0, "srpt_topk": 0,
                                       "fused_slot": 300,
-                                      "fused_slot_batch": 0}
+                                      "fused_slot_batch": 0,
+                                      "ring_insert": 900}
     assert (fused.completion == staged.completion).all()
     assert (fused.q_max_bytes == staged.q_max_bytes).all()
     kernel.reset_launch_counts()
@@ -444,6 +447,114 @@ def test_fused_wrappers_reject_bad_inputs(cuda):
         kernel.fused_slot_batch(down=(p, p, e), keys=p[:1], K=2)
     with pytest.raises(TypeError):
         kernel.fused_slot_batch(down=(p.long(), p, e))
+
+
+# ---------------------------------------------------------- ring insert ----
+
+def _ring_inputs(device, B, R, cap, n, seed, *, p_valid=0.5, p_ok=0.8,
+                 hot=None, full=()):
+    """Random rings (B, R, cap) and items (B, n) on ``device`` as the
+    fabric passes them: not-ok items on the sentinel row R, ``seq`` one
+    slot number expanded; ``hot`` draws the rows from the first ``hot``
+    only, ``full`` fills those rows in every run."""
+    g = torch.Generator().manual_seed(seed)
+    valid = torch.rand((B, R, cap), generator=g) < p_valid
+    valid[:, list(full)] = True
+    ring = [torch.randint(0, 1 << 20, (B, R, cap), generator=g,
+                          dtype=torch.int32) for _ in range(3)]
+    row = torch.randint(0, hot or R, (B, n), generator=g, dtype=torch.int32)
+    ok = torch.rand((B, n), generator=g) < p_ok
+    row = torch.where(ok, row, R)
+    msg, prio = (torch.randint(0, 8000, (B, n), generator=g,
+                               dtype=torch.int32) for _ in range(2))
+    seq = torch.tensor(777 + seed, dtype=torch.int32, device=device)
+    return (*(t.to(device) for t in (*ring, valid, row, ok, msg, prio)),
+            seq.expand(B, n))
+
+
+RING_CASES = [
+    # (B, R, cap, n, p_valid, p_ok, hot): the benchmark cells' shapes --
+    # downlinks (144 x 1024) and uplinks (144 x 512) at B = 320 and 480,
+    # 144 items a call -- at light and heavy fills, then edge shapes
+    (320, 144, 1024, 144, 0.1, 0.2, None),
+    (320, 144, 1024, 72, 0.6, 0.9, None),
+    (320, 144, 512, 144, 0.3, 0.9, None),
+    (480, 144, 1024, 144, 0.99, 1.0, None),
+    (480, 144, 512, 144, 0.98, 1.0, 4),
+    (1, 1, 1, 5, 0.0, 1.0, None),           # one slot, five items
+    (2, 3, 100, 40, 0.5, 0.9, None),        # rows off 16-byte boundaries
+    (3, 5, 16, 70, 0.3, 1.0, 2),            # n > cap
+    (2, 4, 1500, 90, 0.99, 1.0, 1),         # three passes of a warp
+    (2, 4, 64, 0, 0.5, 1.0, None),          # no items
+    (4, 2, 2048, 600, 0.2, 0.95, 1),        # n above the block's threads
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RING_CASES)
+def test_ring_insert_kernel_matches_plain(cuda, case):
+    B, R, cap, n, p_valid, p_ok, hot = case
+    args = _ring_inputs(cuda, B, R, cap, n, 11, p_valid=p_valid, p_ok=p_ok,
+                        hot=hot)
+    want = ring_insert_ref(*args)
+    got = kernel.ring_insert(*(t.clone() for t in args[:4]), *args[4:])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_ring_insert_full_rows_and_strided_items(cuda):
+    """Full rows drop every item bound for them; items at any strides
+    (a transposed ``msg``, an expanded ``seq``) are read where they lie."""
+    args = list(_ring_inputs(cuda, 6, 9, 256, 50, 12, hot=4, full=(0, 2)))
+    args[6] = args[6].t().contiguous().t()          # (B, n), strided
+    assert not args[6].is_contiguous() and args[8].stride() == (0, 0)
+    want = ring_insert_ref(*args)
+    got = kernel.ring_insert(*(t.clone() for t in args[:4]), *args[4:])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int(want[4].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "fused"])
+def test_ring_insert_updates_in_place(cuda, backend):
+    """On the kernel backends ``fabric.ring_insert`` returns its four ring
+    arguments, updated where they lie, equal to the plain version's new
+    tensors; the ``reference`` backend leaves its arguments as they
+    were."""
+    from repro_torch.core.fabric import ring_insert
+    args = _ring_inputs(cuda, 320, 144, 512, 144, 13)
+    before = [t.clone() for t in args[:4]]
+    want = ring_insert(*before, *args[4:], backend="reference")
+    assert all(torch.equal(b, a) for b, a in zip(before, args))
+    kernel.reset_launch_counts()
+    got = ring_insert(*args, backend=backend)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts()["ring_insert"] == 1
+    assert all(g is a for g, a in zip(got, args[:4]))
+    assert all(g.data_ptr() == a.data_ptr()
+               for g, a in zip(got[:4], args[:4]))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_ring_insert_wrapper_rejects_bad_inputs(cuda):
+    kernel.reset_launch_counts()
+    args = _ring_inputs(cuda, 2, 4, 64, 8, 14)
+    for k in (0, 3):                    # strided rings of the right shape
+        bad = args[k].transpose(1, 2).contiguous().transpose(1, 2)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel.ring_insert(*args[:k], bad, *args[k + 1:])
+    for k in (0, 3, 4, 5, 8):
+        wrong = args[k].long() if k != 5 else args[k].to(torch.uint8)
+        with pytest.raises(TypeError):
+            kernel.ring_insert(*args[:k], wrong, *args[k + 1:])
+    with pytest.raises(ValueError, match="items"):
+        kernel.ring_insert(*args[:4], args[4][:, :5], *args[5:])
+    with pytest.raises(ValueError, match="3-D"):
+        kernel.ring_insert(*(t[0] for t in args[:4]), *args[4:])
+    assert kernel.ring_insert.launches == 0
 
 
 # ------------------------------------------------------------------ SSD ----
@@ -1308,8 +1419,10 @@ def test_lossy_leaf_spine_backends_match_the_fault_golden(cuda, run):
                        faults=run["faults"])
     slots = meta["max_slots"]
     for backend, want_n in (("cuda", {"priority_arbiter": 2 * slots,
-                                      "srpt_topk": slots}),
-                            ("fused", {"fused_slot": slots}),
+                                      "srpt_topk": slots,
+                                      "ring_insert": 3 * slots}),
+                            ("fused", {"fused_slot": slots,
+                                       "ring_insert": 3 * slots}),
                             ("reference", {})):
         kernel.reset_launch_counts()
         r = simulate(SimConfig(protocol="homa", n_hosts=meta["n_hosts"],
@@ -1413,10 +1526,13 @@ def test_host_trace_golden_on_kernel_backends(cuda, run):
     recv = type(get_protocol(run["protocol"]).receiver)
     topk = recv.grant_problem is not ReceiverPolicy.grant_problem
     tiers = 1 if fab is None else 2
+    inserts = 1 if fab is None else 3
     for backend, want_n in (
             ("cuda", {"priority_arbiter": tiers * slots,
-                      "srpt_topk": slots if topk else 0}),
-            ("fused", {"fused_slot": slots})):
+                      "srpt_topk": slots if topk else 0,
+                      "ring_insert": inserts * slots}),
+            ("fused", {"fused_slot": slots,
+                       "ring_insert": inserts * slots})):
         kernel.reset_launch_counts()
         r = simulate(SimConfig(
             protocol=run["protocol"], n_hosts=meta["n_hosts"],
