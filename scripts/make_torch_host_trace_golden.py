@@ -92,9 +92,13 @@ def small_fabric(meta, topology):
 
 def record(r, state) -> dict:
     """The golden's fields of one run: ``r`` a ``SimResult`` of either
-    package, ``state`` its loop state as numpy arrays (no run axis)."""
+    package, ``state`` its loop state as numpy arrays (no run axis),
+    less the port's per-run rewind counts, which the JAX package's state
+    does not carry."""
+    from repro_torch.core.faults import REWIND_KEYS
     from repro_torch.core.results import state_digests
     import numpy as np
+    state = {k: v for k, v in state.items() if k not in REWIND_KEYS}
     out = {"n_complete": int(r.n_complete),
            "lost_chunks": int(r.lost_chunks),
            "arrays": {k: np.asarray(v).tolist()

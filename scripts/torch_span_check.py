@@ -17,8 +17,9 @@ runtime calls' us a slot inside them, by name; the spans that the
 ``srpt_topk`` and ``priority_arbiter`` kernels are charged to; the
 stretch's wall time a slot; each span's six costliest operations
 (device us a slot); each span's kernel records a slot, in all and by
-operation; and the host cost of one span, timed on a recorder of its
-own.
+operation; the fault layer's plans in the window (``faults.plan``: how
+many, their host ms and the device ms of what they launched); and the
+host cost of one span, timed on a recorder of its own.
 ``--slot-spans off`` records no slot spans in the window (the slot
 tier stays closed), for the stretch's wall time without them.
 """
@@ -162,6 +163,17 @@ def main(argv=None) -> int:
             name: stages.overlap_ns(slots, [(a, b) for n, a, b in rec["host"]
                                             if n == name]) / 1e3
             / rec["slots"] for name in calls}
+    # the fault layer's plans (``faults.plan``, call spans): each
+    # ``run_slots`` call of the window builds its block's plan before its
+    # first slot, so their operations charge to no slot span
+    lo, hi = rec["span"]
+    plans = [s for s in stages.program_spans() or []
+             if s[1] == "faults.plan" and s[3] > lo and s[2] < hi]
+    out["faults_plan"] = {
+        "spans": len(plans),
+        "host_ms": sum(s[3] - s[2] for s in plans) / 1e6,
+        "device_ms": sum(d[3] - d[2] for d, c in matched
+                         if any(s[2] <= c[1] <= s[3] for s in plans)) / 1e6}
     line = json.dumps(out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import spans
-from repro_torch.core.faults import (FaultConfig, forward_losses,
-                                     inject_losses, select_uplink)
+from repro_torch.core.faults import (FaultConfig, fault_span,
+                                     forward_losses, inject_losses,
+                                     select_uplink)
 from repro_torch.core.protocols import BIG, I32
 from repro_torch.kernels.arbiter import dispatch
 from repro_torch.kernels.arbiter.ref import priority_arbiter_ref
@@ -266,11 +267,12 @@ def route_chunks(cfg, st, S, cm, has, dsts, prio_chunk, now, fx=None):
     remote = has & (src_rack != dst_rack)
     if fab.routing == "ecmp":
         urow = src_rack * n_up + S["spine"].gather(1, cm.long())
-    else:
-        urow = select_uplink(cfg, st, cm, src_rack, fx)
-    if fab.faults is not None:
-        local, remote, st = inject_losses(cfg, st, cm, local, remote,
-                                          dsts, urow, now, fx)
+    with fault_span(cfg, "slot.faults"):
+        if fab.routing != "ecmp":
+            urow = select_uplink(cfg, st, cm, src_rack, fx)
+        if fab.faults is not None:
+            local, remote, st = inject_losses(cfg, st, cm, local, remote,
+                                              dsts, urow, now, fx)
     seq = now.expand(B, H)
 
     r_msg, r_prio, r_seq, r_valid, d_drop = ring_insert(
@@ -335,7 +337,8 @@ def uplink_drain(cfg, st, S, now, pre=None, fx=None):
     if fl is not None and (fl.down_loss > 0 or fl.tor_fail):
         # last-hop loss point: the chunk left the uplink (it still counts
         # toward u_busy) but dies on the spine->TOR->host leg
-        ins_ok, st = forward_losses(cfg, st, msg, dst, any_e, now, fx)
+        with fault_span(cfg, "slot.faults"):
+            ins_ok, st = forward_losses(cfg, st, msg, dst, any_e, now, fx)
     r_msg, r_prio, r_seq, r_valid, d_drop = ring_insert(
         st["r_msg"], st["r_prio"], st["r_seq"], st["r_valid"],
         dst, ins_ok, msg, prio, vseq, backend=cfg.backend)

@@ -43,7 +43,17 @@ one vectorized pass on the device, and the loop reads its slot's row as a
 view (:func:`plan_row`): no device operation a slot, where hashing in the
 loop would cost some 35 small operations per draw site.
 
-``FabricConfig.faults=None`` (the default) keeps every tensor and
+**Spans and counters.** Where the fault layer is on, a profiled slot
+holds the slot span ``slot.faults`` around the transmit-side losses,
+the Gilbert–Elliott step, the forwarding losses and the non-ECMP uplink
+choice, and ``slot.recovery`` around :func:`apply_recovery`
+(:func:`fault_span`); ``run_slots`` records each block's plan as the
+call span ``faults.plan``. The state counts, per run, the rewinds fired
+by a receiver's RESEND (``rw_resend``) and by the sender fallback
+(``rw_timeout``): :data:`REWIND_KEYS`, which the JAX package's state
+does not carry.
+
+``FabricConfig.faults=None`` (the default) keeps every tensor, span and
 operation of this module out of the loop: zero-fault runs are
 bit-identical to the fault-free simulator (both goldens).
 """
@@ -54,8 +64,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.protocols import BIG, I32
 from repro_torch.core.scatter import add_drop, amin_drop
+
+# the port's per-run rewind counters: state keys the JAX package lacks
+REWIND_KEYS = ("rw_resend", "rw_timeout")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,7 +325,15 @@ def init_fault_state(cfg, M: int, B: int) -> dict:
         "last_rw": z(M),                    # last rewind slot (backoff)
         "f_lost": z(),                      # total fault-dropped chunks
         "ge_bad": torch.zeros((B, U), dtype=torch.bool, device=dev),
+        "rw_resend": z(),                   # rewinds fired by RESEND
+        "rw_timeout": z(),                  # rewinds by the sender fallback
     }
+
+
+def fault_span(cfg, name: str):
+    """Slot span ``name`` where the fault layer is on; no span elsewhere,
+    so fault-free runs record nothing new."""
+    return spans.slot(name) if cfg.faults_on else spans.NOOP
 
 
 def _record_drops(st, cm, dropped, now):
@@ -418,7 +440,9 @@ def apply_recovery(cfg, proto, st, S, now, drained_msg, any_elig):
     """End-of-slot loss recovery: refresh each message's last-arrival
     clock from this slot's drain, then rewind ``sent`` to ``recv`` for
     every message whose quiet period tripped the receiver's RESEND hook
-    or the sender fallback timeout."""
+    or the sender fallback timeout. Each run counts its rewinds by
+    trigger (``rw_resend``, ``rw_timeout``); RESEND wins when both timers
+    fired in the same slot."""
     fl = cfg.fabric.faults
     M = S["size"].shape[1]
     # a host that drained nothing writes 0 at message M-1: a no-op max
@@ -434,21 +458,24 @@ def apply_recovery(cfg, proto, st, S, now, drained_msg, any_elig):
     resend = proto.receiver.resend(cfg, st, S, now, known, quiet)
     rw = missing & (resend | (quiet >= fl.sender_timeout_slots))
     rewound = torch.where(rw, st["sent"] - st["recv"], 0)
+    by_resend, by_timeout = rw & resend, rw & ~resend
     out = {**st,
            "last_arr": last_arr,
            "sent": torch.where(rw, st["recv"], st["sent"]),
            "retx": st["retx"] + rewound,
-           "last_rw": torch.where(rw, now, st["last_rw"])}
+           "last_rw": torch.where(rw, now, st["last_rw"]),
+           "rw_resend": st["rw_resend"] + by_resend.sum(dim=1, dtype=I32),
+           "rw_timeout": st["rw_timeout"]
+           + by_timeout.sum(dim=1, dtype=I32)}
     if cfg.ledger_on:
         # telemetry tap (DESIGN.md §8): this slot's rewinds split by
-        # trigger, read by the event ledger at the end of the slot;
-        # RESEND wins when both timers fired in the same slot
-        out["tr_resend"] = torch.where(rw & resend, rewound, 0)
-        out["tr_timeout"] = torch.where(rw & ~resend, rewound, 0)
+        # trigger, read by the event ledger at the end of the slot
+        out["tr_resend"] = torch.where(by_resend, rewound, 0)
+        out["tr_timeout"] = torch.where(by_timeout, rewound, 0)
     return out
 
 
-__all__ = ["FaultConfig", "link_down_mask", "host_down_mask",
-           "init_fault_state", "inject_losses", "advance_ge",
+__all__ = ["FaultConfig", "REWIND_KEYS", "link_down_mask", "host_down_mask",
+           "init_fault_state", "fault_span", "inject_losses", "advance_ge",
            "forward_losses", "select_uplink", "apply_recovery",
            "slot_plan", "plan_row", "plan_needed", "plan_block"]

@@ -537,8 +537,9 @@ def step_fn(cfg: SimConfig, proto: Protocol, S, n_sched: int, st, now,
     # receiver RESENDs + sender fallback timeouts rewind quiet messages'
     # send offsets so fault-dropped chunks get retransmitted
     if cfg.faults_on:
-        st = faults.apply_recovery(cfg, proto, st, S, now, drained_msg,
-                                   any_elig)
+        with spans.slot("slot.recovery"):
+            st = faults.apply_recovery(cfg, proto, st, S, now, drained_msg,
+                                       any_elig)
 
     # ---- 6. protocol end-of-slot hook (e.g. pHost sender timeouts)
     st = proto.post_step(cfg, st, S, now, active, drained_msg, any_elig)
@@ -554,7 +555,8 @@ def run_slots(cfg: SimConfig, proto: Protocol, S, st, n_sched: int,
     """Step the (stacked) state through slots ``start .. stop-1``.
     Nothing is read back to the host, so the loop only enqueues work on a
     card. A fault layer or flowlet routing reads its draws and masks from
-    a plan computed once per block of slots (``faults.slot_plan``). While
+    a plan computed once per block of slots (``faults.slot_plan``; the
+    call span ``faults.plan`` where the fault layer is on). While
     ``torch.profiler`` records, each slot and its stages are slot spans
     (:mod:`repro_torch.core.spans`)."""
     now = torch.full((), start, dtype=I32, device=cfg.device)
@@ -564,7 +566,9 @@ def run_slots(cfg: SimConfig, proto: Protocol, S, st, n_sched: int,
     with torch.inference_mode(), spans.RECORDER.slot_tier():
         for lo in range(start, stop, block):
             hi = min(lo + block, stop)
-            plan = faults.slot_plan(cfg, M, lo, hi) if planned else None
+            with spans.span("faults.plan") if cfg.faults_on \
+                    else spans.NOOP:
+                plan = faults.slot_plan(cfg, M, lo, hi) if planned else None
             for t in range(lo, hi):
                 with spans.slot("slot"):
                     fx = faults.plan_row(cfg, plan, lo, t) if planned \

@@ -12,15 +12,20 @@ Two tiers:
 
 * call spans (:func:`span`) are always recorded: ``sweep.call`` around
   a ``run_sweep`` call with ``sweep.prepare``, ``sweep.step`` (a chunk)
-  and ``sweep.to_host`` inside it, and ``simulate.prepare``,
-  ``simulate.load`` and ``simulate.run`` of ``simulate``, a few a call;
+  and ``sweep.to_host`` inside it, ``faults.plan`` around each block's
+  fault plan in ``run_slots`` (fault layer on only), and
+  ``simulate.prepare``, ``simulate.load`` and ``simulate.run`` of
+  ``simulate``, a few a call;
 * slot spans (:func:`slot`) are recorded only inside
   :meth:`Recorder.slot_tier` while ``torch.profiler`` is enabled:
   ``run_slots`` opens the tier and asks the profiler once; elsewhere
-  :func:`slot` returns one shared no-op context. They are ``slot`` (one
-  ``step_fn`` call) and its stages ``slot.grants``, ``slot.uplink``,
-  ``slot.drain`` and ``slot.stats``, and ``ring.insert`` inside every
-  ``fabric.ring_insert``.
+  :func:`slot` returns one shared no-op context. They are
+  :data:`SLOT_SPANS`: ``slot`` (one ``step_fn`` call) and its stages
+  ``slot.grants``, ``slot.uplink``, ``slot.drain`` and ``slot.stats``,
+  ``ring.insert`` inside every ``fabric.ring_insert``, and, where the
+  fault layer is on, ``slot.faults`` (its loss points, the
+  Gilbert–Elliott step and the non-ECMP uplink choice; inside
+  ``slot.uplink`` for the forwarding losses) and ``slot.recovery``.
 
 Each span is read: ``simulate.*`` by ``TraceConfig(wallclock=True)``'s
 timings, the rest by the benchmark's per-layer metrics.
@@ -41,6 +46,10 @@ import torch
 
 CAPACITY = 65536
 now = time.time_ns                  # the profiler's clock, in ns
+# the slot spans this program can record; a reader finds here whether a
+# span it reads exists in the program it runs against
+SLOT_SPANS = ("slot", "slot.grants", "slot.uplink", "slot.drain",
+              "slot.stats", "ring.insert", "slot.faults", "slot.recovery")
 
 
 class Span:
@@ -119,5 +128,5 @@ def slot(name: str):
     return Span(rec, name) if rec.slots else NOOP
 
 
-__all__ = ["CAPACITY", "RECORDER", "NOOP", "Recorder", "Span", "now",
-           "span", "slot"]
+__all__ = ["CAPACITY", "SLOT_SPANS", "RECORDER", "NOOP", "Recorder", "Span",
+           "now", "span", "slot"]

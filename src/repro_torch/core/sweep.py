@@ -54,7 +54,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import sim, spans, telemetry
+from repro_torch.core import faults, sim, spans, telemetry
 from repro_torch.core.hostmodel import QSCALE
 from repro_torch.core.priorities import allocate_priorities
 from repro_torch.core.protocols import I32, get_protocol
@@ -350,6 +350,7 @@ def _device_summary(cfg, st, acc) -> dict:
     if cfg.faults_on:
         out["f_lost"] = st["f_lost"]
         out["retx"] = st["retx"].sum(dim=1)
+        out.update({k: st[k] for k in faults.REWIND_KEYS})
     if cfg.host_tx_on:
         out["h_tx_work"] = st["h_tx_work_q"].to(torch.float64).sum(dim=1)
         out["h_tx_defer"] = st["h_tx_defer"].sum(dim=1)
@@ -394,8 +395,9 @@ class SweepStats:
     """One streaming run's bounded-size statistics (the SweepSpec
     ``streaming`` result type). ``hist`` is the (size buckets, slowdown
     buckets) completion-count table; everything else reduced exactly
-    from the loop's running counters; the host-stage fields are ``None``
-    without a host stage, ``trace_summary`` without tracing."""
+    from the loop's running counters; the fault fields are ``None``
+    without a fault layer, the host-stage fields without a host stage,
+    ``trace_summary`` without tracing."""
     protocol: str
     stream: StreamSpec
     alloc: Any
@@ -412,6 +414,8 @@ class SweepStats:
     tor_up_busy_frac: float | None = None
     fault_lost_chunks: int | None = None
     retx_chunks: int | None = None
+    resend_rewinds: int | None = None       # rewinds fired by RESENDs
+    timeout_rewinds: int | None = None      # ... by the sender fallback
     host_tx_busy_frac: float | None = None
     host_tx_defer_frac: float | None = None
     host_rx_stall_frac: float | None = None
@@ -540,6 +544,8 @@ def _stats_from_row(cfg, stream: StreamSpec, row: dict, alloc,
         if cfg.fabric_on else None,
         fault_lost_chunks=int(row["f_lost"]) if cfg.faults_on else None,
         retx_chunks=int(row["retx"]) if cfg.faults_on else None,
+        resend_rewinds=int(row["rw_resend"]) if cfg.faults_on else None,
+        timeout_rewinds=int(row["rw_timeout"]) if cfg.faults_on else None,
         host_tx_busy_frac=float(row["h_tx_work"]) / (H * ms * QSCALE)
         if cfg.host_tx_on else None,
         host_tx_defer_frac=float(row["h_tx_defer"]) / (H * ms)

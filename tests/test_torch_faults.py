@@ -378,9 +378,13 @@ def test_apply_recovery_matches_jax_under_both_timers(proto):
     any_e = drained < M
     S = {k: np.asarray(v, np.int32) for k, v in S.items()}
     st = {k: np.asarray(v, np.int32) for k, v in st.items()}
+    # the port's state also carries the per-run rewind counters
+    counters = {k: torch.zeros(1, dtype=torch.int32)
+                for k in faults.REWIND_KEYS}
     got = faults.apply_recovery(
         cfg, get_protocol(proto),
-        {k: torch.from_numpy(v)[None] for k, v in st.items()},
+        {**{k: torch.from_numpy(v)[None] for k, v in st.items()},
+         **counters},
         {k: torch.from_numpy(v)[None] for k, v in S.items()},
         torch.tensor(now, dtype=torch.int32),
         torch.from_numpy(drained.astype(np.int32))[None],
@@ -395,6 +399,10 @@ def test_apply_recovery_matches_jax_under_both_timers(proto):
                                       err_msg=k)
     rewound = int((got["retx"][0].numpy() - st["retx"]).sum())
     assert rewound > 0
+    # every rewind counted once, by its trigger; basic never RESENDs
+    fired = int((np.asarray(want["last_rw"]) == now).sum())
+    assert int(got["rw_resend"]) + int(got["rw_timeout"]) == fired
+    assert (int(got["rw_resend"]) == 0) == (proto == "basic")
 
 
 def test_fault_config_validation_errors_match_jax():
@@ -453,7 +461,8 @@ def _pair(proto, fkw, routing="ecmp", backend="reference", slots=900,
 
 
 def _same_state(r, j):
-    assert set(r.state) == set(j.state)
+    # the port's state adds the per-run rewind counters
+    assert set(r.state) == set(j.state) | set(faults.REWIND_KEYS)
     for k in j.state:
         a, b = np.asarray(j.state[k]), r.state[k]
         assert a.dtype == b.dtype and np.array_equal(a, b), k
